@@ -1,0 +1,151 @@
+"""Configuration for the reconstruction pipeline.
+
+Mirrors the reference's three config tiers (reference: src/sfm/reconstruct.h:25-35,
+src/app/main.cpp:28-38, plus the hard-coded algorithm constants catalogued in
+SURVEY.md §5.6) as explicit dataclasses, so every magic number of the C++
+pipeline is a named, overridable field here.
+
+A copy of orthosfm_tpu/config.py, not an import of it: importing anything
+from orthosfm_tpu imports jax. It differs in BundleAdjustConfig.impl, and it
+holds only the settings the port reads: the Ceres gradient/parameter
+tolerances, ReconstructionConfig.camera_distance (core.cameras.CAMERA_DISTANCE
+is the constant) and MatchingConfig (the image front end is not ported yet)
+are left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class SolverType(enum.IntEnum):
+    """Camera parameterization selector (reference: src/data_structures/solver_type.h:14-21).
+
+    Index values match the reference CLI ``--solver {0..3}`` flag
+    (reference: src/util/common.cpp:256-272).
+    """
+
+    ORTHO_QUATERNION = 0
+    ORTHO_EULER_HORIZONTAL = 1
+    ORTHO_EULER_HORIZONTAL_VERTICAL = 2
+    ORTHO_EULER_ALL_DOF = 3
+
+    @property
+    def is_quaternion(self) -> bool:
+        return self == SolverType.ORTHO_QUATERNION
+
+    @property
+    def degrees_of_freedom(self) -> int:
+        """Euler-solver dof mapping (reference:
+        src/algorithms/orthographic/OrthographicReconstructionAlgorithm.cpp:15-34)."""
+        return {
+            SolverType.ORTHO_QUATERNION: 4,  # rotation(3 tangent) + offset; scale fixed
+            SolverType.ORTHO_EULER_HORIZONTAL: 1,
+            SolverType.ORTHO_EULER_HORIZONTAL_VERTICAL: 2,
+            SolverType.ORTHO_EULER_ALL_DOF: 4,
+        }[self]
+
+    def describe(self) -> str:
+        """Human-readable solver name (reference: src/util/common.cpp:274-287)."""
+        return {
+            SolverType.ORTHO_QUATERNION: "Quaternion based orthographic sfm solver",
+            SolverType.ORTHO_EULER_HORIZONTAL: (
+                "Euler angle based orthographic sfm solver restricted to horizontal rotation"
+            ),
+            SolverType.ORTHO_EULER_HORIZONTAL_VERTICAL: (
+                "Euler angle based orthographic sfm solver restricted to horizontal"
+                " and vertical rotation"
+            ),
+            SolverType.ORTHO_EULER_ALL_DOF: "Euler angle based orthographic sfm solver",
+        }[self]
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """RANSAC settings for the Tomasi-Kanade initialization
+    (reference: src/algorithms/tomasi_kanade.cpp:208-222)."""
+
+    sample_size: int = 10
+    success_probability: float = 0.999
+    inlier_ratio: float = 0.7
+    min_consensus_size: int = 25
+    max_inlier_reprojection_error_px: float = 3.0
+    # Validity heuristic thresholds (reference: tomasi_kanade.cpp:446-470)
+    min_angle_separation_rad: float = 0.1
+    min_basis_distance: float = 0.1
+
+    @property
+    def max_iterations(self) -> int:
+        """Standard RANSAC iteration-count formula (reference: tomasi_kanade.cpp:212)."""
+        import math
+
+        return int(
+            math.log(1.0 - self.success_probability)
+            / math.log(1.0 - self.inlier_ratio**self.sample_size)
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BundleAdjustConfig:
+    """LM solver settings matching the reference's Ceres options behaviourally
+    (reference: src/bundle_adjustment/bundle_adjustment.cpp:64,126-133)."""
+
+    huber_delta: float = 1.0
+    max_iterations: int = 100
+    function_tolerance: float = 1e-6
+    # LM damping schedule (ours; Ceres default trust-region analog)
+    initial_lambda: float = 1e-4
+    lambda_up: float = 4.0
+    lambda_down: float = 0.5
+    min_lambda: float = 1e-12
+    max_lambda: float = 1e8
+    # LM stage implementation: "kernel" runs the hand-written CUDA kernels
+    # (solvers/ba_kernels.py), "torch" their plain PyTorch versions, and
+    # "auto" picks "kernel" for CUDA tensors and "torch" for CPU tensors.
+    impl: str = "auto"  # "auto" | "torch" | "kernel"
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterConfig:
+    """Outlier-filter thresholds
+    (reference: src/triangulation/outlier_filtering.cpp:97-110,140)."""
+
+    max_reprojection_error_px: float = 1.5
+    nn_sigma_threshold: float = 1.6
+    nn_sigma_floor: float = 1e-3
+    bounding_radius: float = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ReconstructionConfig:
+    """Programmatic pipeline API (reference: src/sfm/reconstruct.h:25-35)."""
+
+    project_folder: str = ""
+    image_folder: str = ""
+    mask_folder: str = ""
+    track_file: str = ""
+    downscale_factor: int = 1
+    solver: SolverType = SolverType.ORTHO_QUATERNION
+    export_pairwise_tracks: bool = False
+
+    # Incremental-loop constants (reference: src/sfm/reconstruct.cpp:186,
+    # src/algorithms/orthographic/OrthographicReconstructionAlgorithm.cpp:144-146)
+    group_size: int = 3
+    global_ba_interval: int = 3
+
+    ransac: RansacConfig = dataclasses.field(default_factory=RansacConfig)
+    ba: BundleAdjustConfig = dataclasses.field(default_factory=BundleAdjustConfig)
+    filters: FilterConfig = dataclasses.field(default_factory=FilterConfig)
+
+    # Random seed for RANSAC / TK metric-upgrade inits. The reference seeds from
+    # std::random_device (nondeterministic, tomasi_kanade.cpp:232); we are
+    # deterministic by default.
+    seed: int = 0
+
+    # Reference-parity escape hatch: when True, disable this framework's
+    # deliberate robustness improvements over the reference so parity runs
+    # reproduce reference behavior exactly. Currently gates the pristine-
+    # observation initialization fallback in pipeline.incremental
+    # (the reference hard-throws instead: tomasi_kanade.cpp:202-205).
+    strict_reference_behavior: bool = False
