@@ -20,10 +20,11 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from orthosfm_torch.config import (BundleAdjustConfig, FilterConfig,  # noqa: E402
-                                   RansacConfig, ReconstructionConfig, SolverType)
+                                   MatchingConfig, RansacConfig, ReconstructionConfig,
+                                   SolverType)
 
 __all__ = [
-    "BundleAdjustConfig", "FilterConfig", "RansacConfig",
+    "BundleAdjustConfig", "FilterConfig", "MatchingConfig", "RansacConfig",
     "ReconstructionConfig", "SolverType", "__version__",
 ]
 

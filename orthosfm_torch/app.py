@@ -3,7 +3,11 @@
 
 Usage:
     python -m orthosfm_torch.app PROJECT_FOLDER IMAGE_FOLDER \
-        --calculated-tracks tracks.txt [--solver N] [--device cuda|cpu]
+        [--calculated-tracks tracks.txt] [--solver N] [--device cuda|cpu]
+
+Without --calculated-tracks the tracks are built from the images. The
+device is CUDA unless --device names another; without a CUDA device the CLI
+stops rather than run on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solver", type=int, default=0, choices=[0, 1, 2, 3],
                    help="0=Quaternion 1=EulerHorizontal 2=EulerHorizontalVertical "
                         "3=EulerAllDof")
-    p.add_argument("--device", default=None,
-                   help="torch device to run on (default: cuda when available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda; pass cpu to run on the CPU)")
     return p
 
 
@@ -50,17 +54,16 @@ def main(argv=None) -> int:
     if not os.path.isdir(args.image_folder):
         print("Error: The specified image folder does not exist.")
         return 1
-    if not args.calculated_tracks:
-        print("Error: building tracks from images is not ported yet; "
-              "pass --calculated-tracks.")
-        return 1
-    if not os.path.isfile(args.calculated_tracks):
+    if args.calculated_tracks and not os.path.isfile(args.calculated_tracks):
         print("Error: The specified track file does not exist.")
+        return 1
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("Error: no CUDA device is available; pass --device cpu to run on the CPU.")
         return 1
     if not project_io.create_project(args.project_folder, overwrite=args.overwrite):
         return 1
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
     config = ReconstructionConfig(
         project_folder=args.project_folder,
         image_folder=args.image_folder,
@@ -71,7 +74,7 @@ def main(argv=None) -> int:
         export_pairwise_tracks=args.export_pairwise_tracks,
     )
     print(f"Using solver: {config.solver.describe()} on {device}")
-    reconstruct(config, device=torch.device(device))
+    reconstruct(config, device=device)
     return 0
 
 

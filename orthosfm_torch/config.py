@@ -8,9 +8,11 @@ pipeline is a named, overridable field here.
 A copy of orthosfm_tpu/config.py, not an import of it: importing anything
 from orthosfm_tpu imports jax. It differs in BundleAdjustConfig.impl, and it
 holds only the settings the port reads: the Ceres gradient/parameter
-tolerances, ReconstructionConfig.camera_distance (core.cameras.CAMERA_DISTANCE
-is the constant) and MatchingConfig (the image front end is not ported yet)
-are left out.
+tolerances, ReconstructionConfig.camera_distance
+(core.cameras.CAMERA_DISTANCE is the constant), and MatchingConfig's SIFT
+constants (ops/sift.py holds them in both packages), `matcher` (both of its
+values run the exact matcher) and `homography_*` (that branch is not
+ported) are left out.
 """
 
 from __future__ import annotations
@@ -118,6 +120,32 @@ class FilterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MatchingConfig:
+    """Feature extraction + matching settings (defaults follow the reference's
+    de-facto MVE path: src/matching/matching_mve.cpp:330-417, src/mve/sfm/sift.h:48-90)."""
+
+    max_image_pixels: int = 6_000_000  # halve images until below this
+    # -1 enables the 2x upscale octave (CudaSift always runs upscaled,
+    # reference: cudaSiftH.cu:114-129, matching.cpp:47-52; MVE default is 0)
+    sift_min_octave: int = 0
+    max_features_per_view: int = 8192
+    lowe_ratio: float = 0.8  # SIFT (reference: mve/sfm/matching_base.h:28-31)
+    surf_lowe_ratio: float = 0.7  # SURF ratio (matching_base.h:30)
+    use_surf: bool = True  # FEATURE_ALL = SIFT + SURF (matching_mve.cpp:333)
+    lowres_feature_count: int = 500
+    lowres_match_threshold: int = 5
+    min_feature_matches: int = 50  # pair gate (reference: matching_mve.cpp:400-405)
+    min_matching_inliers: int = 30
+    ransac_f_iterations: int = 1000
+    ransac_f_threshold: float = 0.0015  # on normalized coords
+    min_pair_inliers_to_accept: int = 8
+    # The JAX package's alternative, RANSAC homography verification
+    # (reference: src/matching/matching.cpp:160-215), is not ported:
+    # match_all_pairs raises for any value but "fundamental".
+    pair_verification: str = "fundamental"
+
+
+@dataclasses.dataclass(frozen=True)
 class ReconstructionConfig:
     """Programmatic pipeline API (reference: src/sfm/reconstruct.h:25-35)."""
 
@@ -137,6 +165,7 @@ class ReconstructionConfig:
     ransac: RansacConfig = dataclasses.field(default_factory=RansacConfig)
     ba: BundleAdjustConfig = dataclasses.field(default_factory=BundleAdjustConfig)
     filters: FilterConfig = dataclasses.field(default_factory=FilterConfig)
+    matching: MatchingConfig = dataclasses.field(default_factory=MatchingConfig)
 
     # Random seed for RANSAC / TK metric-upgrade inits. The reference seeds from
     # std::random_device (nondeterministic, tomasi_kanade.cpp:232); we are

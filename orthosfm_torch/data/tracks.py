@@ -52,7 +52,7 @@ class TrackSet:
         return dataclasses.replace(self, **changes)
 
 
-def _from_host(obs, obs_mask, colors, local_ids, global_ids, points, has_point,
+def from_host(obs, obs_mask, colors, local_ids, global_ids, points, has_point,
                alive, view_ids, device) -> TrackSet:
     """TrackSet from host arrays, with every float cast to f32."""
     def t(x, dtype):
@@ -69,14 +69,14 @@ def _from_host(obs, obs_mask, colors, local_ids, global_ids, points, has_point,
 def from_numpy(src, device="cpu") -> TrackSet:
     """TrackSet from any object with TrackSet's fields as arrays (for example
     the JAX package's TrackSet); floats are cast to f32."""
-    return _from_host(**{f.name: np.asarray(getattr(src, f.name))
+    return from_host(**{f.name: np.asarray(getattr(src, f.name))
                          for f in dataclasses.fields(TrackSet)}, device=device)
 
 
 def empty(capacity: int, num_views: int, view_ids=None, device="cpu") -> TrackSet:
     if view_ids is None:
         view_ids = np.arange(num_views)
-    return _from_host(
+    return from_host(
         obs=np.zeros((capacity, num_views, 2)),
         obs_mask=np.zeros((capacity, num_views)),
         colors=np.zeros((capacity, num_views, 3)),
@@ -119,7 +119,7 @@ def from_feature_lists(track_list, view_ids, capacity: int | None = None,
             colors[t, v] = tuple(int(c) for c in f[5:8]) if len(f) >= 8 else (0, 0, 0)
             local_ids[t, v] = int(f[1])
             global_ids[t, v] = int(f[2])
-    return _from_host(obs, obs_mask, colors, local_ids, global_ids,
+    return from_host(obs, obs_mask, colors, local_ids, global_ids,
                       np.zeros((cap, 4)), np.zeros((cap,)), alive, view_ids,
                       device=device)
 

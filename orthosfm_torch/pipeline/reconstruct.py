@@ -1,10 +1,10 @@
 """Top-level reconstruction driver (reference: src/sfm/reconstruct.cpp:32-172).
 
 Port of orthosfm_tpu/pipeline/reconstruct.py. Phases and their timers mirror
-the reference: initialization (image loading) → track building (track-file
-load; the image front end is not ported yet) → pose estimation (incremental
-alignment) → artifact export (cameras.txt, sparse_cloud.ply,
-time_measurements.txt).
+the reference: initialization (image loading) → track building (feature
+matching from the images, or a track-file load) → pose estimation
+(incremental alignment) → artifact export (cameras.txt, sparse_cloud.ply,
+tracks.txt when built from images, time_measurements.txt).
 """
 
 from __future__ import annotations
@@ -18,15 +18,13 @@ import numpy as np
 from orthosfm_torch.config import ReconstructionConfig
 from orthosfm_torch.data.views import View, load_views
 from orthosfm_torch.io import cameras_io, ply, timing, tracks_io
-from orthosfm_torch.pipeline import incremental, track_utils
+from orthosfm_torch.pipeline import incremental, matching, track_utils
 
 
 def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cpu"
                 ) -> Tuple[incremental.PoseEstimationResult, List[View]]:
-    """Full reconstruction from ``config.track_file`` on ``device``."""
-    if not config.track_file:
-        raise NotImplementedError(
-            "building tracks from images is not ported yet; pass a track file")
+    """Full reconstruction on ``device``, from ``config.track_file`` when it
+    is set and from the images otherwise."""
     start_all = time.monotonic()
 
     # --- Initialization: load views (+ masks) ---------------------------------
@@ -36,10 +34,17 @@ def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cpu"
     end_init = time.monotonic()
 
     # --- Track building -------------------------------------------------------
-    view_ids = np.asarray([v.view_id for v in views], np.int32)
-    if verbose:
-        print(f"Loading tracks from {config.track_file}")
-    tracks = tracks_io.load_tracks(config.track_file, view_ids, device=device)
+    if config.track_file:
+        view_ids = np.asarray([v.view_id for v in views], np.int32)
+        if verbose:
+            print(f"Loading tracks from {config.track_file}")
+        tracks = tracks_io.load_tracks(config.track_file, view_ids, device=device)
+    else:
+        tracks = matching.build_tracks(views, config, verbose=verbose, device=device)
+        tracks = track_utils.filter_tracks_with_masks(tracks, views)
+        tracks = track_utils.propagate_colors(tracks, views)
+        if config.project_folder:
+            tracks_io.save_tracks(tracks, os.path.join(config.project_folder, "tracks.txt"))
     if verbose:
         track_utils.print_track_overview(tracks)
     end_track = time.monotonic()

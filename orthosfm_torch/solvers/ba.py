@@ -34,6 +34,7 @@ import torch
 from orthosfm_torch.config import BundleAdjustConfig
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.core import quaternions as quat
+from orthosfm_torch.kernel_build import resolve_impl
 
 # ---------------------------------------------------------------------------
 # Homogeneous point manifold, track-minor (..., T) layout
@@ -257,15 +258,6 @@ class BAResult(NamedTuple):
     cost: torch.Tensor
     initial_cost: torch.Tensor
     iterations: torch.Tensor
-
-
-def resolve_impl(impl: str, device: torch.device) -> str:
-    """"auto" → "kernel" for CUDA tensors, "torch" for CPU tensors."""
-    if impl == "auto":
-        return "kernel" if device.type == "cuda" else "torch"
-    if impl not in ("torch", "kernel"):
-        raise ValueError(f"unknown BA impl {impl!r} (expected auto|torch|kernel)")
-    return impl
 
 
 def prepare(points4, obs, mask):

@@ -19,9 +19,9 @@ The scalar LM state is a float tensor of STATE_SIZE entries
 [λ, cost, iterations, done, initial cost, 0, 0, 0]; ba.run keeps two slots
 and alternates them, so each iteration reads one and writes the other.
 
-The kernels are built at first use with nvcc, from csrc/ only, into
-orthosfm_torch/_build/, under a name that hashes the source and flags, and
-bound with ctypes.
+The kernels are built at first use by orthosfm_torch.kernel_build (nvcc,
+from csrc/ only, into orthosfm_torch/_build/, under a name that hashes the
+source and flags) and bound with ctypes.
 """
 
 from __future__ import annotations
@@ -29,27 +29,18 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from orthosfm_torch import kernel_build
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.solvers import ba
 
 LAM, COST, ITERS, DONE, INIT_COST = 0, 1, 2, 3, 4
 STATE_SIZE = 8
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ba_kernels.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = kernel_build.CSRC / "ba_kernels.cu"
 
 # Launch geometry shared with the CUDA source
 _NT = 256
@@ -181,31 +172,6 @@ def lm_accept_ref(cost_part, state_in, state_out, rot, camp, pT, rot_c, camp_c, 
 # Build and binding
 
 
-def library_path() -> Path:
-    """Where the library of the current source and flags is built: the name
-    hashes both, so a stale build is never loaded."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libba_kernels_{digest[:16]}.so"
-
-
-def build() -> tuple:
-    """Compile csrc/ba_kernels.cu (once per source hash) and return
-    (library path, compiler log). A failed build raises."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    if not os.path.isfile(NVCC):
-        raise RuntimeError(f"nvcc not found at {NVCC}; the CUDA kernels cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([NVCC, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -224,13 +190,7 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library with every C function's signature declared."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return kernel_build.load(SOURCE, _SIGNATURES)
 
 
 def _ptr(t):

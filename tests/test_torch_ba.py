@@ -241,17 +241,18 @@ def test_wrapper_argument_checks():
 
 
 def test_library_is_named_by_source_hash(monkeypatch, tmp_path):
-    """The build names its library by a hash of the source and flags, and a
-    failed build raises."""
+    """The shared build names each library by a hash of its source and
+    flags, and a failed build raises."""
+    from orthosfm_torch import kernel_build
+
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
-    monkeypatch.setattr(bk, "SOURCE", src)
-    monkeypatch.setattr(bk, "BUILD_DIR", tmp_path / "_build")
-    one = bk.library_path()
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "_build")
+    one = kernel_build.library_path(src)
     src.write_text("// two\n")
-    assert bk.library_path() != one
-    assert bk.library_path().parent == tmp_path / "_build"
-    monkeypatch.setattr(bk, "NVCC", str(tmp_path / "no-nvcc"))
+    assert kernel_build.library_path(src) != one
+    assert kernel_build.library_path(src).parent == tmp_path / "_build"
+    assert bk.SOURCE.parent == kernel_build.CSRC
+    monkeypatch.setattr(kernel_build, "NVCC", str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        bk.build()
-
+        kernel_build.build(src)
