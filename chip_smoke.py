@@ -11,18 +11,22 @@ Phases:
      kernels (schur_assemble, camera_solve, point_update_cost, lm_accept) at
      the shapes of the standard BA problem (16 views x 8192 sphere tracks,
      2048^2, cameras perturbed by up to 1 degree), for quaternion and Euler
-     cameras, with points optimized and fixed; top2 on random unit
-     descriptors, 8 pairs x 8192 rows x 128 and x 64, with duplicated rows
-     (exact ties), repeated views and databases of 0 and 1 valid rows;
+     cameras, with points optimized and fixed; schur_assemble and
+     camera_solve also at 3 views x 7800 tracks (the local BA) and 64 x 4096,
+     each timed beside its plain version, its bound and, for camera_solve,
+     torch.linalg.solve_ex alone on the same prepared system; top2 on random
+     unit descriptors, 8 pairs x 8192 rows x 128 and x 64, with duplicated
+     rows (exact ties), repeated views and databases of 0 and 1 valid rows;
   3. pose estimation from tracks (run_pose_estimation with the kernels) on
      the 16-view 2048^2 blob scene (7800 tracks), solvers 0 and 3,
      noise-free (mean angular error < 0.01 deg) and with sigma = 1 px pixel
      noise (< 0.25 deg), with the launch counts of the BA kernels over this
-     phase, and the port's writers producing cameras.txt, sparse_cloud.ply,
-     tracks.txt and time_measurements.txt;
+     phase, the LM iterations that did work and the host's enqueue time per
+     launched iteration, and the port's writers producing cameras.txt,
+     sparse_cloud.ply, tracks.txt and time_measurements.txt;
   4. BA iterations/s of the kernel path and of the plain PyTorch path on the
      standard problem and on a 64-view problem (64 x 4096 tracks), 30
-     iterations each;
+     iterations each, and the host's enqueue time per iteration;
   5. the image front end at reference scale: 16 sphere views of 2048^2
      rendered on the card (seed 7, a 200 degree ring), then SIFT + SURF,
      pair matching through top2, RANSAC-F, union-find tracks and pose
@@ -41,6 +45,7 @@ Without a CUDA device the script exits non-zero before doing anything.
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -68,14 +73,32 @@ SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
 # Kernel vs plain version on the same inputs. Sums over 8192 tracks run in
 # another order on the card (per-CTA partials) than in the CPU-style plain
-# path, and Gauss-Jordan without pivoting replaces an LU solve: f32 rounding
-# of ~1e-6 relative per sum. The solve's bound sits well below the change
+# path, and a Cholesky factorization replaces an LU solve: f32 rounding of
+# ~1e-6 relative per sum. The solve's bound sits well below the change
 # that mishandled damping would make (about lambda relative: 1e-3 and 1 are
 # both checked).
 TOL_SCHUR_REL = 1e-4      # max |S' - S'_ref| / max |S'_ref| (and rhs, dU)
 TOL_SOLVE_REL = 1e-5      # max |delta - delta_ref| / max |delta_ref|
 SOLVE_LAMBDAS = (1e-3, 1.0)
 BA_SHAPES = ((N_VIEWS, N_TRACKS), (64, 4096))
+# K1 and K3 are timed at the main path's three shapes: the local BA of a
+# 3-view group (n = 18, the slice's 7800 tracks), the global BA
+# (make_problem(), n = 96) and many views (n = 384)
+BA_SHAPES_TIMED = ((3, 7800), (N_VIEWS, N_TRACKS), (64, 4096))
+# Bounds: the card's published peaks (H100 SXM data sheet): f32 outside the
+# tensor cores and HBM3 bandwidth
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+# FMA per observation besides the Schur term, counted from the plain
+# versions' formulas: K1 projection and Jacobians (~60), the point block and
+# gradient (18), U's upper triangle (42), W = w Jc^T Jp (36), W V^-1 (54) and
+# the rhs (30); K2 the Jacobians (~60), point block (18), W^T dc (24) and the
+# projection and robust cost through the candidate cameras (~18)
+K1_OBS_FMA = 240
+K2_OBS_FMA = 120
+# cuda_ms's sleep: cycles of torch.cuda._sleep per second (above the H100's
+# 1.98 GHz boost clock, so the sleep lasts at least as long as asked)
+SLEEP_CYCLES_PER_S = 2.0e9
 TOL_POINTS_ABS = 1e-5     # retracted unit points, abs
 TOL_COST_REL = 1e-4       # robust cost, relative
 TOL_STATE_REL = 1e-5      # LM scalar state after accept, relative
@@ -94,13 +117,21 @@ FRONT_LIMIT_DEG = 1.0
 
 
 def cuda_ms(fn, n=20):
-    """Mean device time of fn() over n launches, by CUDA events."""
+    """Mean device time of fn() over n launches, by CUDA events. The card
+    first sleeps while the host enqueues all n calls, so the events time the
+    device's work and not the host's pace (the wrappers' Python takes tens
+    of microseconds a call, more than several kernels run)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * n * host_s + 1e-3, 2.0) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(n):
         fn()
@@ -122,48 +153,121 @@ def require(ok, what):
         raise AssertionError(what)
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    `flops` f32 operations over `nbytes` bytes moved."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ba_work(maskT, opt):
+    """(flops, bytes) of K1, K3 and K2 on this problem, counting the
+    observations the mask holds (m_t views of track t): the Schur term is
+    the symmetric half of a rank-3 update of the (6 m_t)-square block per
+    track, 3 (6m)(6m+1)/2 FMA; the per-observation block math is counted as
+    K1_OBS_FMA and K2_OBS_FMA. Each input is read once, each output written
+    once."""
+    V, T = maskT.shape
+    n = 6 * V
+    m = (maskT != 0).sum(dim=0).double()
+    n_obs = float(m.sum())
+    schur = float((3 * (6 * m) * (6 * m + 1) / 2).sum()) if opt else 0.0
+    inputs = 16 * T + 12 * V * T + 72 * V  # pT, obsT + maskT, rot + camp + free
+    k1 = (2 * (schur + K1_OBS_FMA * n_obs), inputs + 4 * (n * n + 2 * n))
+    k3 = (2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 4 * (6 + 4 + 8) * V)
+    k2 = (2 * K2_OBS_FMA * n_obs, inputs + 4 * 6 * V + 48 * V + 16 * T + 4 * math.ceil(T / 256))
+    return {"schur_assemble": k1, "camera_solve": k3, "point_update_cost": k2}
+
+
+def stage_inputs(kind, device, num_views, n_tracks):
+    """The standard problem's (pT, obsT, maskT, rot, camp, free) at a size."""
+    from orthosfm_torch.core import cameras as cam_mod
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.testbench.problems import make_problem
+
+    cams, points, obs, mask = make_problem(kind, device, num_views, n_tracks, WIDTH)
+    pT, obsT, maskT = ba.prepare(points, obs, mask)
+    return (pT, obsT, maskT, cams.rot.contiguous(), ba.pack_camp(cams),
+            cam_mod.free_mask(cams).float().contiguous())
+
+
+def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
+    """K1 and K3 against their plain versions on one problem; returns the
+    plain S', dU, rhs."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    pT, obsT, maskT, rot, camp, free = inputs
+    device = pT.device
+    args = (kind, pT, obsT, maskT, rot, camp, free, bk.new_state(1e-3, device), 1.0, opt)
+    S, dU, rhs = bk.schur_assemble(*args)
+    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
+    e = max(rel_err(S, S_r), rel_err(rhs, rhs_r), rel_err(dU, dU_r))
+    print(f"  schur_assemble   {label} {kind:5s} opt={opt!s:5s} rel err {e:.3e}")
+    require(e < TOL_SCHUR_REL, f"schur_assemble {label} {kind} opt={opt}: {e}")
+    rels["schur_assemble"] = max(rels["schur_assemble"], e)
+    errs["schur_assemble"] = max(errs["schur_assemble"], max_err(S, S_r),
+                                 max_err(rhs, rhs_r), max_err(dU, dU_r))
+    for lam in SOLVE_LAMBDAS:
+        sargs = (kind, S_r, dU_r, rhs_r, free, bk.new_state(lam, device), rot, camp)
+        delta, rot_c, camp_c = bk.camera_solve(*sargs)
+        delta_r, rot_cr, camp_cr = bk.camera_solve_ref(*sargs)
+        e = rel_err(delta, delta_r)
+        print(f"  camera_solve     {label} {kind:5s} opt={opt!s:5s} lambda={lam:g} "
+              f"rel err {e:.3e}")
+        require(e < TOL_SOLVE_REL, f"camera_solve {label} {kind} opt={opt} lambda={lam}: {e}")
+        rels["camera_solve"] = max(rels["camera_solve"], e)
+        errs["camera_solve"] = max(errs["camera_solve"], max_err(delta, delta_r),
+                                   max_err(rot_c, rot_cr), max_err(camp_c, camp_cr))
+    return S_r, dU_r, rhs_r
+
+
+def time_schur_and_solve(inputs):
+    """K1 and K3 at one shape (quat, points optimized, lambda 1e-3): kernel,
+    plain and, for K3, torch.linalg.solve_ex alone on the same prepared
+    system, with each one's bound from this problem's mask."""
+    import torch
+
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    pT, obsT, maskT, rot, camp, free = inputs
+    state = bk.new_state(1e-3, pT.device)
+    args = ("quat", pT, obsT, maskT, rot, camp, free, state, 1.0, True)
+    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
+    sargs = ("quat", S_r, dU_r, rhs_r, free, state, rot, camp)
+    S_s, b, _ = ba.prepare_camera_system(S_r, dU_r, rhs_r, free, state[bk.LAM])
+    work = ba_work(maskT, True)
+    n = 30 if maskT.shape[0] <= N_VIEWS else 10
+    out = {}
+    for name, kern, plain, lib in (
+            ("schur_assemble", lambda: bk.schur_assemble(*args),
+             lambda: bk.normal_eq_schur_ref(*args), None),
+            ("camera_solve", lambda: bk.camera_solve(*sargs), lambda: bk.camera_solve_ref(*sargs),
+             lambda: torch.linalg.solve_ex(S_s, b))):
+        b_ms, b_by = bound(*work[name])
+        out[name] = {"ms": cuda_ms(kern, n), "plain_ms": cuda_ms(plain, n),
+                     "library_ms": cuda_ms(lib, n) if lib else None,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
 def check_kernels(device):
     """Phase 2: every kernel against its plain version on the card."""
     import torch
 
-    from orthosfm_torch.core import cameras as cam_mod
-    from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
-    from orthosfm_torch.testbench.problems import make_problem
 
     errs = {name: 0.0 for name in BA_KERNELS}   # max abs error over all cases
     rels = {name: 0.0 for name in BA_KERNELS}   # max relative error over all cases
     times = {}
     cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
     for kind in ("quat", "euler"):
-        cams, points, obs, mask = make_problem(kind, device, N_VIEWS, N_TRACKS, WIDTH)
-        pT, obsT, maskT = ba.prepare(points, obs, mask)
-        free = cam_mod.free_mask(cams).float().contiguous()
-        rot = cams.rot.contiguous()
-        camp = ba.pack_camp(cams)
+        inputs = stage_inputs(kind, device, N_VIEWS, N_TRACKS)
+        pT, obsT, maskT, rot, camp, free = inputs
         state = bk.new_state(1e-3, device)
         for opt in (True, False):
-            args = (kind, pT, obsT, maskT, rot, camp, free, state, 1.0, opt)
-            S, dU, rhs = bk.schur_assemble(*args)
-            S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
-            e = max(rel_err(S, S_r), rel_err(rhs, rhs_r), rel_err(dU, dU_r))
-            print(f"  schur_assemble   {kind:5s} opt={opt!s:5s} rel err {e:.3e}")
-            require(e < TOL_SCHUR_REL, f"schur_assemble {kind} opt={opt}: {e}")
-            rels["schur_assemble"] = max(rels["schur_assemble"], e)
-            errs["schur_assemble"] = max(errs["schur_assemble"], max_err(S, S_r),
-                                         max_err(rhs, rhs_r), max_err(dU, dU_r))
-
-            for lam in SOLVE_LAMBDAS:
-                sargs = (kind, S_r, dU_r, rhs_r, free, bk.new_state(lam, device), rot, camp)
-                delta, rot_c, camp_c = bk.camera_solve(*sargs)
-                delta_r, rot_cr, camp_cr = bk.camera_solve_ref(*sargs)
-                e = rel_err(delta, delta_r)
-                print(f"  camera_solve     {kind:5s} opt={opt!s:5s} lambda={lam:g} "
-                      f"rel err {e:.3e}")
-                require(e < TOL_SOLVE_REL, f"camera_solve {kind} opt={opt} lambda={lam}: {e}")
-                rels["camera_solve"] = max(rels["camera_solve"], e)
-                errs["camera_solve"] = max(errs["camera_solve"], max_err(delta, delta_r),
-                                           max_err(rot_c, rot_cr), max_err(camp_c, camp_cr))
+            S_r, dU_r, rhs_r = check_schur_and_solve(kind, inputs, opt, errs, rels,
+                                                     f"{N_VIEWS}x{N_TRACKS}")
             # the stages after the solve continue from the lambda of `state`
             sargs = (kind, S_r, dU_r, rhs_r, free, state, rot, camp)
             delta_r, rot_cr, camp_cr = bk.camera_solve_ref(*sargs)
@@ -206,51 +310,48 @@ def check_kernels(device):
             if kind == "quat" and opt:
                 st = torch.zeros_like(s_in)
                 r_, c_, p_ = rot.clone(), camp.clone(), pT.clone()
+                work = ba_work(maskT, opt)
+                accepted = float(parts_r.sum()) < float(s_in[bk.COST])
+                V, T = maskT.shape
+                k4_bytes = 4 * parts_r.numel() + 2 * 32 + (2 * (48 * V + 16 * T) if accepted else 0)
                 pairs = {
-                    "schur_assemble": (lambda: bk.schur_assemble(*args),
-                                       lambda: bk.normal_eq_schur_ref(*args)),
-                    "camera_solve": (lambda: bk.camera_solve(*sargs),
-                                     lambda: bk.camera_solve_ref(*sargs)),
                     "point_update_cost": (lambda: bk.point_update_cost(*uargs),
-                                          lambda: bk.point_update_cost_ref(*uargs)),
+                                          lambda: bk.point_update_cost_ref(*uargs),
+                                          work["point_update_cost"]),
                     "lm_accept": (
                         lambda: bk.lm_accept(parts_r, s_in, st, r_, c_, p_, rot_cr, camp_cr,
                                              p_new_r, cfg),
                         lambda: bk.lm_accept_ref(parts_r, s_in, st, r_, c_, p_, rot_cr,
-                                                 camp_cr, p_new_r, cfg)),
+                                                 camp_cr, p_new_r, cfg),
+                        (0.0, k4_bytes)),
                 }
-                for name, (kern, plain) in pairs.items():
-                    times[name] = (cuda_ms(kern), cuda_ms(plain))
+                for name, (kern, plain, w) in pairs.items():
+                    b_ms, b_by = bound(*w)
+                    times[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
-    # A many-view system (n = 384): the camera solve spreads its augmented
-    # matrix over a cluster of 8 CTAs.
-    cams, points, obs, mask = make_problem("quat", device, 64, 4096, WIDTH)
-    pT, obsT, maskT = ba.prepare(points, obs, mask)
-    free = cam_mod.free_mask(cams).float().contiguous()
-    args = ("quat", pT, obsT, maskT, cams.rot.contiguous(), ba.pack_camp(cams), free,
-            bk.new_state(1e-3, device), 1.0, True)
-    S, dU, rhs = bk.schur_assemble(*args)
-    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
-    e1 = max(rel_err(S, S_r), rel_err(rhs, rhs_r), rel_err(dU, dU_r))
-    e3 = 0.0
-    for lam in SOLVE_LAMBDAS:
-        sargs = ("quat", S_r, dU_r, rhs_r, free, bk.new_state(lam, device), args[4], args[5])
-        e3 = max(e3, rel_err(bk.camera_solve(*sargs)[0], bk.camera_solve_ref(*sargs)[0]))
-    rels["schur_assemble"] = max(rels["schur_assemble"], e1)
-    rels["camera_solve"] = max(rels["camera_solve"], e3)
-    sargs = ("quat", S_r, dU_r, rhs_r, free, args[7], args[4], args[5])
-    print(f"  64 views x 4096 tracks: schur_assemble rel err {e1:.3e}, "
-          f"camera_solve rel err {e3:.3e}")
-    require(e1 < TOL_SCHUR_REL and e3 < TOL_SOLVE_REL, "64-view system")
-    times["camera_solve_64"] = (cuda_ms(lambda: bk.camera_solve(*sargs), 5),
-                                cuda_ms(lambda: bk.camera_solve_ref(*sargs), 5))
-    times["schur_assemble_64"] = (cuda_ms(lambda: bk.schur_assemble(*args), 5),
-                                  cuda_ms(lambda: bk.normal_eq_schur_ref(*args), 5))
-
-    for name, (k_ms, p_ms) in times.items():
-        shape = "64 views x 4096" if name.endswith("_64") else f"{N_VIEWS} views x {N_TRACKS}"
-        print(f"  {name:18s} kernel {k_ms:.4f} ms   plain {p_ms:.4f} ms  ({shape} tracks, quat)")
-    return errs, rels, times
+    # K1 and K3 at the three shapes of the main path: the local BA (3 views,
+    # n = 18, K3 in one warp), the global BA and make_problem() (16 views,
+    # n = 96), and many views (64, n = 384, where K3's matrix leaves shared
+    # memory).
+    shapes = {}
+    for num_views, n_tracks in BA_SHAPES_TIMED:
+        label = f"{num_views}x{n_tracks}"
+        inputs = stage_inputs("quat", device, num_views, n_tracks)
+        if (num_views, n_tracks) != (N_VIEWS, N_TRACKS):
+            for opt in (True, False):
+                check_schur_and_solve("quat", inputs, opt, errs, rels, label)
+        shapes[label] = time_schur_and_solve(inputs)
+        for name, t in shapes[label].items():
+            lib = "" if t["library_ms"] is None else f"   solve_ex {t['library_ms']:.4f} ms"
+            print(f"  {name:18s} {label:8s} kernel {t['ms']:.4f} ms   plain {t['plain_ms']:.4f} "
+                  f"ms{lib}   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    times.update(shapes[f"{N_VIEWS}x{N_TRACKS}"])
+    for name in ("point_update_cost", "lm_accept"):
+        t = times[name]
+        print(f"  {name:18s} {N_VIEWS}x{N_TRACKS} kernel {t['ms']:.4f} ms   plain "
+              f"{t['plain_ms']:.4f} ms   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    return errs, rels, times, shapes
 
 
 def run_slice(device, project):
@@ -301,7 +402,9 @@ def run_slice(device, project):
 
 
 def ba_rate(device, num_views, n_tracks):
-    """Phase 4: BA iterations/s of both paths, in turns."""
+    """Phase 4: BA iterations/s of both paths, in turns, and the host's
+    enqueue time per iteration (ba.run's return before the final sync, over
+    its iterations)."""
     import torch
 
     from orthosfm_torch.config import BundleAdjustConfig
@@ -310,6 +413,7 @@ def ba_rate(device, num_views, n_tracks):
 
     cams, points, obs, mask = make_problem("quat", device, num_views, n_tracks, WIDTH)
     rates = {"kernel": [], "torch": []}
+    enqueue = {"kernel": [], "torch": []}
     for impl in ("kernel", "torch", "torch", "kernel"):
         cfg = BundleAdjustConfig(max_iterations=30, function_tolerance=0.0, min_lambda=1e-12,
                                  impl=impl)
@@ -317,15 +421,59 @@ def ba_rate(device, num_views, n_tracks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = ba.run(cams, points, obs, mask, True, cfg)
+        t_enq = time.perf_counter() - t0
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         iters = int(r.iterations)
         require(iters == 30, f"{impl}: {iters} iterations")
         require(float(r.cost) < float(r.initial_cost) * 1e-2, f"{impl} BA did not converge")
         rates[impl].append(iters / dt)
-        print(f"  impl={impl:6s} {iters} iterations in {dt * 1e3:.2f} ms: {iters / dt:.1f} it/s "
+        enqueue[impl].append(t_enq * 1e3 / cfg.max_iterations)
+        print(f"  impl={impl:6s} {iters} iterations in {dt * 1e3:.2f} ms: {iters / dt:.1f} it/s, "
+              f"host enqueue {t_enq * 1e3 / cfg.max_iterations:.4f} ms/iteration "
               f"(cost {float(r.initial_cost):.1f} -> {float(r.cost):.3e})")
-    return {k: float(np.mean(v)) for k, v in rates.items()}
+    out = {k: float(np.mean(v)) for k, v in rates.items()}
+    out.update({f"{k}_enqueue_ms_per_it": float(np.mean(v)) for k, v in enqueue.items()})
+    return out
+
+
+class BARecorder:
+    """Records every ba.run call of a phase: its BAResult.iterations
+    tensors (read once, at the end), its max_iterations and the host time
+    until it returned (its enqueue time: ba.run does not sync on the card)."""
+
+    def __init__(self):
+        self.iterations, self.max_iterations, self.host_s = [], 0, 0.0
+
+    @contextlib.contextmanager
+    def recording(self):
+        from orthosfm_torch.config import BundleAdjustConfig
+        from orthosfm_torch.solvers import ba
+
+        run = ba.run
+
+        def recorded(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = run(*args, **kwargs)
+            self.host_s += time.perf_counter() - t0
+            cfg = kwargs.get("config", args[5] if len(args) > 5 else BundleAdjustConfig())
+            self.max_iterations += cfg.max_iterations
+            self.iterations.append(res.iterations)
+            return res
+
+        ba.run = recorded
+        try:
+            yield self
+        finally:
+            ba.run = run
+
+    def summary(self):
+        import torch
+
+        worked = int(torch.stack(self.iterations).sum()) if self.iterations else 0
+        return {"ba_calls": len(self.iterations), "iterations_launched": self.max_iterations,
+                "iterations_worked": worked,
+                "enqueue_ms_per_it": self.host_s * 1e3 / max(self.max_iterations, 1)}
 
 
 def top2_agreement(stack, bi, bj, ci, cj):
@@ -510,10 +658,17 @@ def check_top2_real(device, features, cfg):
         require(max(err, err2) < TOL_TOP2 and bad + bad2 == 0, f"top2 {kind} stack")
         require(bool(np.all(diff <= allowed)), f"top2 {kind}: match counts differ")
         err_all, rel_all = max(err_all, err, err2), max(rel_all, rel, rel2)
-        times[f"top2_{kind}"] = (cuda_ms(lambda: mk.top2(stack, *fwd, impl="kernel"), 3),
-                                 cuda_ms(lambda: mk.top2_ref(stack, *fwd), 3))
-        print(f"  top2_{kind}: kernel {times[f'top2_{kind}'][0]:.3f} ms   plain "
-              f"{times[f'top2_{kind}'][1]:.3f} ms  ({len(pairs)} pairs x {N} x {D}, one direction)")
+        # the bound: each pair's valid rows, each descriptor read once, the
+        # three (pairs, N) outputs written once
+        ci, cj = counts[bi].astype(np.float64), counts[bj].astype(np.float64)
+        b_ms, b_by = bound(2.0 * float(np.sum(ci * cj)) * D,
+                           4.0 * (float(np.sum(ci + cj)) * D + 3 * len(pairs) * N))
+        t = {"ms": cuda_ms(lambda: mk.top2(stack, *fwd, impl="kernel"), 3),
+             "plain_ms": cuda_ms(lambda: mk.top2_ref(stack, *fwd), 3),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        times[f"top2_{kind}"] = t
+        print(f"  top2_{kind}: kernel {t['ms']:.3f} ms   plain {t['plain_ms']:.3f} ms   bound "
+              f"{b_ms:.5f} ms ({b_by})  ({len(pairs)} pairs x {N} x {D}, one direction)")
     return err_all, rel_all, times
 
 
@@ -551,17 +706,22 @@ def main() -> int:
 
     print("== phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
-    errs, rels, times = check_kernels(device)
+    errs, rels, times, shapes = check_kernels(device)
     errs["top2"], rels["top2"], top2_times = check_top2_random(device)
     print(f"  phase 2 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 3: pose estimation from tracks (16 views x 7800 tracks, 2048^2)")
     t0 = time.perf_counter()
+    recorder = BARecorder()
     bk.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as project:
+    with tempfile.TemporaryDirectory() as project, recorder.recording():
         run_slice(device, project)
     launches = bk.launch_counts()
+    slice_ba = recorder.summary()
     print(f"  launches {launches}")
+    print(f"  BA: {slice_ba['ba_calls']} calls, {slice_ba['iterations_worked']} of "
+          f"{slice_ba['iterations_launched']} iterations did work; host enqueue "
+          f"{slice_ba['enqueue_ms_per_it']:.4f} ms per iteration")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
@@ -579,12 +739,18 @@ def main() -> int:
     print(f"== phase 5: image front end, {FRONT_VIEWS} x {FRONT_WIDTH}^2 sphere views, "
           "through pose estimation")
     t0 = time.perf_counter()
+    recorder = BARecorder()
     mk.top2.launches = 0
     bk.reset_launch_counts()
-    features, cfg = run_front_end(device)
+    with recorder.recording():
+        features, cfg = run_front_end(device)
     launches["top2"] = mk.top2.launches
     front_ba = bk.launch_counts()
+    front_iters = recorder.summary()
     print(f"  launches top2 {launches['top2']}, BA {front_ba}")
+    print(f"  BA: {front_iters['ba_calls']} calls, {front_iters['iterations_worked']} of "
+          f"{front_iters['iterations_launched']} iterations did work; host enqueue "
+          f"{front_iters['enqueue_ms_per_it']:.4f} ms per iteration")
     require(launches["top2"] > 0, "top2 was not launched on the front end's path")
     require(all(n > 0 for n in front_ba.values()), "a BA kernel was not launched in phase 5")
     err, rel, real_times = check_top2_real(device, features, cfg)
@@ -593,11 +759,13 @@ def main() -> int:
     print(f"  phase 5 wall time {time.perf_counter() - t0:.2f} s")
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
-                "ms": times[name][0], "plain_ms": times[name][1]} for name in REPLACES]
-    print(json.dumps({"kernels": kernels, "ba_iter_per_s": rates,
+                **{k: times[name][k] for k in keys}} for name in REPLACES]
+    print(json.dumps({"kernels": kernels, "ba_shapes": shapes, "ba_iter_per_s": rates,
+                      "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

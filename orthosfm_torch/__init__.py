@@ -30,8 +30,10 @@ __all__ = [
 
 
 def reconstruct(config: ReconstructionConfig, verbose: bool = True,
-                device="cpu"):
-    """Top-level reconstruction (lazy import keeps `import orthosfm_torch` light)."""
+                device="cuda"):
+    """Top-level reconstruction on ``device`` (CUDA unless the caller names
+    another; raises without CUDA rather than fall back to the CPU). The lazy
+    import keeps `import orthosfm_torch` light."""
     from orthosfm_torch.pipeline.reconstruct import reconstruct as _reconstruct
 
     return _reconstruct(config, verbose=verbose, device=device)

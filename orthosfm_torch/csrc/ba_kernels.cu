@@ -3,14 +3,17 @@
 // loaded with ctypes by orthosfm_torch/solvers/ba_kernels.py, which also
 // holds the plain PyTorch version of every kernel.
 //
-// One LM iteration is four kernels, launched back to back on one stream with
+// One LM iteration is four stages, launched back to back on one stream with
 // no host sync; a device `done` flag (state[DONE]) makes the iterations after
 // convergence return at once (the analog of the cond-guarded body of the
 // JAX package's fused kernel, orthosfm_tpu/solvers/ba_fused.py:476-477):
 //
-//   K1 schur_assemble     <- ba_pallas.py normal_eq_schur (+ ba_fused.py pass 1)
+//   K1 schur_assemble     <- ba_pallas.py normal_eq_schur (+ ba_fused.py pass 1);
+//                            three launches: blocks, product, reduce
 //   K3 camera_solve       <- ba_fused.py _gauss_jordan + the in-kernel reduced
-//                            system and camera retraction (:369-407)
+//                            system and camera retraction (:369-407); a
+//                            Cholesky here: one warp up to 5 views, a
+//                            blocked one-CTA factorization above
 //   K2 point_update_cost  <- ba_pallas.py point_update_cost (+ ba_fused.py pass 2)
 //   K4 lm_accept          <- ba_fused.py accept / lambda / done (:457-474)
 //
@@ -33,16 +36,10 @@ namespace {
 
 constexpr int LAM = 0, COST = 1, ITERS = 2, DONE = 3, INIT_COST = 4, STATE_SIZE = 8;
 
-constexpr int NT = 256;         // threads per CTA (K1, K2, K4)
-constexpr int TS = 32;          // edge of the output tile of the Schur sum (K1)
-constexpr int KT = 16;          // tracks staged per step in K1
-constexpr int LANES = NT / KT;  // threads sharing one track in K1's point pass
-constexpr int XS = 3 * KT + 1;  // padded row strides of K1's staging arrays
-constexpr int ZS = 2 * KT + 1;
-constexpr int SOLVE_NT = 1024;  // threads per CTA of the camera solve (K3)
-constexpr int SOLVE_MAX_CLUSTER = 8;              // CTAs of K3's cluster, at most
-constexpr size_t SOLVE_SMEM_TARGET = 100 * 1024;  // shared bytes per K3 CTA, aimed at
-constexpr size_t SMEM_MAX = 227 * 1024;           // shared bytes per CTA, sm_90
+constexpr int NT = 256;                 // threads per CTA (K2, K4)
+constexpr size_t SMEM_MAX = 227 * 1024;  // shared bytes per CTA, sm_90
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
 // Per-camera tables, built in shared memory by every CTA that needs them.
 struct Cam {
@@ -216,178 +213,343 @@ __device__ void point_inv(const float vt[6], float lam, int opt, float Vi[9]) {
 // K1: schur_assemble — replaces ba_pallas.py normal_eq_schur (and pass 1 of
 // ba_fused.py run_lm).
 //
-// Bound: the Schur cross term sum_t W V^-1 W^T is a rank-3 update of the
-// dense n x n system (n = 6V) per track, 3n^2 FMA per track (27.6 kFMA at
-// V=16), so K1 is FMA-bound; the inputs (4+3V floats per track) are read
-// from L2. Design: the grid is (track chunks) x (32x32 output tiles of the
-// system in block-major (view*6+param) order). A CTA stages 16 tracks at a
-// time: a point pass (16 threads per track, shuffled sums over views) builds
-// V^-1 and g_p; an observation pass writes W V^-1 rows for the tile's rows,
-// W rows for its columns, sqrt(w) Jc for the block-diagonal U, and the rhs /
-// diag(U) terms into shared memory; then each thread accumulates 4 entries of
-// the tile in registers. Each CTA writes its partial tile; schur_reduce sums
-// the partials in chunk order, so results are bit-stable (no float atomics).
-// Ragged T and ragged tiles are masked, not padded.
-__global__ void __launch_bounds__(NT) schur_assemble_kernel(
+// Bound: the Schur cross term W V^-1 W^T is, per track with m observed views,
+// a rank-3 update of a dense (6m)-square block of the n x n system (n = 6V):
+// 3 (6m)(6m+1)/2 FMA for its symmetric half, 14 kFMA a track at V = 16 and
+// 222 kFMA at V = 64, against 4 + 3V floats of input per track, so K1 is
+// FMA-bound (4.4 us at 16 x 8192 and 29 us at 64 x 4096 on the f32 peak).
+// Design: each track's point and observation math in one CTA, written once
+// as X = W V^-1 and Y = W to a K-major scratch buffer that stays in L2
+// (19 MB at 16 x 8192), then the Schur sum as a dense split-K product with
+// register-blocked micro-tiles over the observed tracks only. The same three
+// kernels serve every n:
+//   schur_blocks: one CTA per chunk of TC tracks, G lanes per track (views
+//     lane, lane + G, ...). Warp 0 compacts the chunk's observed tracks (a
+//     track with no observation adds nothing and takes no column). A first
+//     pass over the views sums V and g_p (shuffles within the group) for
+//     V^-1; a second writes X = W V^-1 and Y = W, 3 columns per track, into
+//     the K-major scratch Xk, Yk (row k holds column k of X^T: n floats,
+//     padded to ldx), zero-filling the chunk's last k-tile, and sums U's
+//     upper triangle and the rhs per view in registers, then across the
+//     groups of a warp by shuffles, then the eight warps' sums in turn into
+//     one [V][27] buffer in shared memory (a barrier before and after; the
+//     warps' partials pass through their staging area): a fixed order, and
+//     shared memory of 38 KB + 308 bytes a view, so K1 takes up to ~630
+//     views (K2, 424 bytes a view, ~540). One partial per chunk. Masked
+//     (track, view) entries are skipped (their X, Y columns are zeros).
+//   schur_product: S_p = X Y^T over the upper-triangle 32 x 32 output tiles
+//     only (the product is symmetric), split over K by chunks; 64 threads, a
+//     4 x 4 micro-tile each (two 16-byte shared loads per 16 FMA), k-tiles of
+//     16 tracks double-buffered with cp.async; one partial tile per CTA.
+//   schur_reduce: sums the product's partials in split order and the
+//     blocks' partials in chunk order, eight loads in flight a lane, mirrors
+//     the upper tiles (S' is exactly symmetric) and forms
+//     S' = blkdiag(U) - X Y^T, diag(U), rhs.
+// No float atomics anywhere: results are bit-stable from run to run. Ragged
+// T, n and tiles are masked or padded.
+
+constexpr int TC = 32;          // tracks per chunk of schur_blocks
+constexpr int BLK_NT = 256;     // threads of schur_blocks
+constexpr int NU = 27;          // per-view sums: U's upper triangle (21), rhs (6)
+constexpr int KTT = 16;         // tracks per k-tile of schur_product
+constexpr int KT3 = 3 * KTT;    // columns per k-tile
+constexpr int PT = 32;          // edge of schur_product's output tiles
+constexpr int PROD_NT = 64;     // threads of schur_product, a 4 x 4 micro-tile each
+
+// Index of (a, b), a <= b, in the row-major upper triangle of a 6 x 6 block.
+__device__ __forceinline__ int upper6(int a, int b) { return a * 6 - a * (a - 1) / 2 + (b - a); }
+
+__global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
     int quat, const float* __restrict__ pT, const float* __restrict__ obsT,
     const float* __restrict__ maskT, const float* __restrict__ rot,
     const float* __restrict__ camp, const float* __restrict__ free,
-    const float* __restrict__ state, float huber, int opt, int V, int T, int chunk,
-    float* __restrict__ Spart, float* __restrict__ vpart) {
+    const float* __restrict__ state, float huber, int opt, int V, int T, int G, int ldx,
+    float* __restrict__ Xk, float* __restrict__ Yk, int* __restrict__ counts,
+    float* __restrict__ vpart) {
   if (state[DONE] != 0.f) return;
   extern __shared__ float smem[];
-  const int n = 6 * V;
-  const int ntile = (n + TS - 1) / TS;
-  const int ty = blockIdx.y / ntile, tx = blockIdx.y % ntile;
-  const int r0 = ty * TS, c0 = tx * TS;
-  const int tid = threadIdx.x;
+  constexpr int NW = BLK_NT / 32;
+  constexpr int STAGE = 2 * 3 * 192;  // floats of a warp's staging area
+  Cam* cams = reinterpret_cast<Cam*>(smem);
+  float* usum = reinterpret_cast<float*>(cams + V);  // [V][NU], the chunk's sums
+  __shared__ int slot[TC];
+  __shared__ int s_count;
+  // per warp: its groups' tracks (slots); its X, Y slices ([2][3][192]),
+  // staged for coalesced stores of the scratch rows, then its per-view sums
+  // ([G][NU]) for the sum over warps
+  __shared__ int wslot[NW][32];
+  __shared__ __align__(16) float stage[NW][STAGE];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gl = tid & (G - 1);  // lane within the track's group
+  const int grp = tid / G;
+  const int c = blockIdx.x, t0 = c * TC;
   const float lam = state[LAM];
 
-  Cam* cams = reinterpret_cast<Cam*>(smem);
-  float* Xs = reinterpret_cast<float*>(cams + V);  // [TS][XS]  W V^-1 rows
-  float* Ys = Xs + TS * XS;                        // [TS][XS]  W rows
-  float* Zr = Ys + TS * XS;                        // [TS][ZS]  sqrt(w) Jc, rows
-  float* Zc = Zr + TS * ZS;                        // [TS][ZS]  sqrt(w) Jc, cols
-  float* Gs = Zc + TS * ZS;                        // [TS][KT]  rhs terms
-  float* Ds = Gs + TS * KT;                        // [TS][KT]  diag(U) terms
-  float* Vis = Ds + TS * KT;                       // [KT][9]   V^-1
-  float* Gps = Vis + KT * 9;                       // [KT][3]   g_p
-  const int stage_floats = TS * (2 * XS + 2 * ZS + 2 * KT);
-
+  __shared__ int seen[TC];
   fill_cams(quat, rot, camp, free, V, cams);
-
-  const int vr0 = r0 / 6, vr1 = min(V - 1, (min(r0 + TS, n) - 1) / 6);
-  const int vc0 = c0 / 6, vc1 = min(V - 1, (min(c0 + TS, n) - 1) / 6);
-  const int nvr = vr1 - vr0 + 1, nvc = vc1 - vc0 + 1;
-
-  const int ei = tid >> 3;          // tile row owned by this thread
-  const int ej0 = (tid & 7) * 4;    // first of its 4 tile columns
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float accv = 0.f;                 // rhs (tid < TS) / diag(U) (TS <= tid < 2 TS), tx == 0
-  const int t_begin = blockIdx.x * chunk;
-  const int t_end = min(T, t_begin + chunk);
+  for (int i = tid; i < V * NU; i += BLK_NT) usum[i] = 0.f;
+  if (tid < TC) seen[tid] = 0;
   __syncthreads();
+  {  // which of the chunk's tracks have an observation: every thread a few views
+    const int k = tid % TC, t = t0 + k;
+    int any = 0;
+    if (t < T)
+      for (int v = tid / TC; v < V; v += BLK_NT / TC) any |= maskT[v * T + t] != 0.f;
+    if (any) seen[k] = 1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned bal = __ballot_sync(0xffffffffu, seen[lane] != 0);
+    slot[lane] = seen[lane] ? __popc(bal & ((1u << lane) - 1u)) : -1;
+    if (lane == 0) {
+      s_count = __popc(bal);
+      counts[c] = opt ? __popc(bal) : 0;
+    }
+  }
+  __syncthreads();
+  const size_t cbase = (size_t)c * 3 * TC;  // first scratch column of the chunk
+  if (opt) {  // zero the unused columns of the chunk's last k-tile
+    const int count = s_count;
+    const size_t k0 = cbase + 3 * count, k1 = cbase + 3 * (((count + KTT - 1) / KTT) * KTT);
+    for (size_t i = tid; i < (k1 - k0) * ldx; i += BLK_NT) {
+      Xk[k0 * ldx + i] = 0.f;
+      Yk[k0 * ldx + i] = 0.f;
+    }
+  }
 
-  for (int t0 = t_begin; t0 < t_end; t0 += KT) {
-    for (int i = tid; i < stage_floats; i += NT) Xs[i] = 0.f;
+  const int per_lane = (V + G - 1) / G;
+  for (int k = grp; k - grp < TC; k += BLK_NT / G) {
+    const int s = k < TC ? slot[k] : -1;
+    const int t = t0 + k;
+    const bool live = s >= 0;
+    PointPre P;
+    float vt[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3] = {0.f, 0.f, 0.f};
+    if (live) {
+      point_pre(pT, T, t, P);
+      for (int v = gl; v < V; v += G) {
+        if (maskT[v * T + t] == 0.f) continue;
+        float r[2], w, Jc[2][6], Jp[2][3];
+        obs_block(quat, cams[v], P, obsT[(v * 2) * T + t], obsT[(v * 2 + 1) * T + t], huber,
+                  r, w, Jc, Jp);
+        add_point_block(w, Jp, r, vt, gp);
+      }
+    }
+    for (int off = G / 2; off > 0; off >>= 1) {
+      for (int i = 0; i < 6; ++i) vt[i] += __shfl_xor_sync(0xffffffffu, vt[i], off);
+      for (int i = 0; i < 3; ++i) gp[i] += __shfl_xor_sync(0xffffffffu, gp[i], off);
+    }
+    float Vi[9];
+    point_inv(vt, lam, opt, Vi);
+    if (gl == 0) wslot[warp][lane / G] = s;
 
-    // Point pass: LANES threads per track, each over views lane, lane+LANES, ...
-    {
-      const int k = tid / LANES, lane = tid % LANES;
-      const int t = t0 + k;
-      float vt[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3] = {0.f, 0.f, 0.f};
-      if (t < t_end) {
-        PointPre P;
-        point_pre(pT, T, t, P);
-        for (int v = lane; v < V; v += LANES) {
-          if (maskT[v * T + t] == 0.f) continue;
+    for (int j = 0; j < per_lane; ++j) {
+      const int v = gl + j * G;
+      float u[NU];
+      for (int e = 0; e < NU; ++e) u[e] = 0.f;
+      float X[6][3], Y[6][3];
+      for (int a = 0; a < 6; ++a)
+        for (int q = 0; q < 3; ++q) X[a][q] = Y[a][q] = 0.f;
+      if (live && v < V) {
+        if (maskT[v * T + t] != 0.f) {
           float r[2], w, Jc[2][6], Jp[2][3];
           obs_block(quat, cams[v], P, obsT[(v * 2) * T + t], obsT[(v * 2 + 1) * T + t], huber,
                     r, w, Jc, Jp);
-          add_point_block(w, Jp, r, vt, gp);
-        }
-      }
-      for (int off = LANES / 2; off > 0; off >>= 1) {
-        for (int i = 0; i < 6; ++i) vt[i] += __shfl_xor_sync(0xffffffffu, vt[i], off);
-        for (int i = 0; i < 3; ++i) gp[i] += __shfl_xor_sync(0xffffffffu, gp[i], off);
-      }
-      if (lane == 0) {
-        point_inv(vt, lam, opt, Vis + k * 9);
-        for (int i = 0; i < 3; ++i) Gps[k * 3 + i] = gp[i];
-      }
-    }
-    __syncthreads();
-
-    // Observation pass: one (track, view) entry per item, for the views of
-    // the tile's rows and of its columns.
-    const int items = KT * (nvr + nvc);
-    for (int it = tid; it < items; it += NT) {
-      const int k = it % KT, vv = it / KT;
-      const bool isrow = vv < nvr;
-      const int v = isrow ? vr0 + vv : vc0 + (vv - nvr);
-      const int t = t0 + k;
-      if (t >= t_end || maskT[v * T + t] == 0.f) continue;
-      PointPre P;
-      point_pre(pT, T, t, P);
-      float r[2], w, Jc[2][6], Jp[2][3];
-      obs_block(quat, cams[v], P, obsT[(v * 2) * T + t], obsT[(v * 2 + 1) * T + t], huber, r,
-                w, Jc, Jp);
-      const float sqw = sqrtf(w);
-      const float* Vi = Vis + k * 9;
-      const float* gpk = Gps + k * 3;
-      const int base = isrow ? r0 : c0;
-      for (int a = 0; a < 6; ++a) {
-        const int row = v * 6 + a - base;
-        if (row < 0 || row >= TS) continue;
-        float Wc[3];
-        for (int q = 0; q < 3; ++q) Wc[q] = w * (Jc[0][a] * Jp[0][q] + Jc[1][a] * Jp[1][q]);
-        if (isrow) {
-          float wvi[3];
-          for (int q = 0; q < 3; ++q)
-            wvi[q] = Wc[0] * Vi[0 * 3 + q] + Wc[1] * Vi[1 * 3 + q] + Wc[2] * Vi[2 * 3 + q];
-          for (int q = 0; q < 3; ++q) Xs[row * XS + k * 3 + q] = wvi[q];
-          Zr[row * ZS + k * 2 + 0] = sqw * Jc[0][a];
-          Zr[row * ZS + k * 2 + 1] = sqw * Jc[1][a];
-          if (tx == 0) {
-            Gs[row * KT + k] = -w * (Jc[0][a] * r[0] + Jc[1][a] * r[1]) -
-                               (wvi[0] * gpk[0] + wvi[1] * gpk[1] + wvi[2] * gpk[2]);
-            Ds[row * KT + k] = w * (Jc[0][a] * Jc[0][a] + Jc[1][a] * Jc[1][a]);
+          for (int a = 0; a < 6; ++a) {
+            for (int q = 0; q < 3; ++q) Y[a][q] = w * (Jc[0][a] * Jp[0][q] + Jc[1][a] * Jp[1][q]);
+            for (int q = 0; q < 3; ++q)
+              X[a][q] = Y[a][0] * Vi[0 * 3 + q] + Y[a][1] * Vi[1 * 3 + q] + Y[a][2] * Vi[2 * 3 + q];
+            for (int b = a; b < 6; ++b)
+              u[upper6(a, b)] = w * (Jc[0][a] * Jc[0][b] + Jc[1][a] * Jc[1][b]);
+            u[21 + a] = -w * (Jc[0][a] * r[0] + Jc[1][a] * r[1]) -
+                        (X[a][0] * gp[0] + X[a][1] * gp[1] + X[a][2] * gp[2]);
           }
-        } else {
-          for (int q = 0; q < 3; ++q) Ys[row * XS + k * 3 + q] = Wc[q];
-          Zc[row * ZS + k * 2 + 0] = sqw * Jc[0][a];
-          Zc[row * ZS + k * 2 + 1] = sqw * Jc[1][a];
         }
       }
+      if (opt) {
+        // Each group's 6G floats of a scratch row are contiguous (views
+        // jG .. jG + G - 1): stage them, then the warp stores its 192 floats
+        // of each row lane by lane.
+        const int gw = lane / G, base = j * G * 6;
+        for (int q = 0; q < 3; ++q)
+          for (int a = 0; a < 6; ++a) {
+            stage[warp][q * 192 + gw * G * 6 + gl * 6 + a] = X[a][q];
+            stage[warp][(3 + q) * 192 + gw * G * 6 + gl * 6 + a] = Y[a][q];
+          }
+        __syncwarp();
+        for (int e = lane; e < 192; e += 32) {
+          const int g2 = e / (G * 6), off = e % (G * 6), s2 = wslot[warp][g2];
+          if (s2 < 0 || base + off >= 6 * V) continue;
+          for (int q = 0; q < 3; ++q) {
+            const size_t at = (cbase + 3 * s2 + q) * ldx + base + off;
+            Xk[at] = stage[warp][q * 192 + e];
+            Yk[at] = stage[warp][(3 + q) * 192 + e];
+          }
+        }
+        __syncwarp();
+      }
+      // the groups of a warp that hold the same view, then the warps' sums
+      // in turn (every warp's lanes gl hold views jG + gl)
+      for (int off = G; off < 32; off <<= 1)
+        for (int e = 0; e < NU; ++e) u[e] += __shfl_xor_sync(0xffffffffu, u[e], off);
+      if (lane < G)
+        for (int e = 0; e < NU; ++e) stage[warp][lane * NU + e] = u[e];
+      __syncthreads();
+      for (int i = tid; i < G * NU && j * G * NU + i < V * NU; i += BLK_NT) {
+        float s = usum[j * G * NU + i];
+        for (int w = 0; w < NW; ++w) s += stage[w][i];
+        usum[j * G * NU + i] = s;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-
-    // Tile accumulation: S' += blkdiag(U) - (W V^-1) W^T over the staged tracks.
-    for (int e = 0; e < 4; ++e) {
-      const int j = ej0 + e;
-      float s = 0.f;
-      for (int d = 0; d < 3 * KT; ++d) s += Xs[ei * XS + d] * Ys[j * XS + d];
-      float u = 0.f;
-      if ((r0 + ei) / 6 == (c0 + j) / 6)
-        for (int d = 0; d < 2 * KT; ++d) u += Zr[ei * ZS + d] * Zc[j * ZS + d];
-      acc[e] += u - s;
-    }
-    if (tx == 0 && tid < 2 * TS) {
-      const float* src = tid < TS ? Gs : Ds;
-      const int row = tid % TS;
-      for (int k = 0; k < KT; ++k) accv += src[row * KT + k];
-    }
-    __syncthreads();
   }
-
-  float* Sp = Spart + (size_t)blockIdx.x * n * n;
-  for (int e = 0; e < 4; ++e) {
-    const int i = r0 + ei, j = c0 + ej0 + e;
-    if (i < n && j < n) Sp[(size_t)i * n + j] = acc[e];
-  }
-  if (tx == 0 && tid < 2 * TS) {
-    const int row = r0 + tid % TS;
-    if (row < n) vpart[((size_t)blockIdx.x * 2 + tid / TS) * n + row] = accv;
-  }
+  for (int i = tid; i < V * NU; i += BLK_NT) vpart[(size_t)c * V * NU + i] = usum[i];
 }
 
-// Second launch of K1: sums the per-chunk partials in chunk order.
-__global__ void schur_reduce_kernel(const float* __restrict__ state, int n, int n_chunks,
-                                    const float* __restrict__ Spart,
-                                    const float* __restrict__ vpart, float* __restrict__ S,
-                                    float* __restrict__ dU, float* __restrict__ rhs) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// The k-tile after (c, kt) among the chunks before c_end; false at the end.
+__device__ __forceinline__ bool next_ktile(const int* __restrict__ counts, int c_end, int& c,
+                                           int& kt) {
+  ++kt;
+  while (c < c_end && kt * KTT >= counts[c]) {
+    ++c;
+    kt = 0;
+  }
+  return c < c_end;
+}
+
+__global__ void __launch_bounds__(PROD_NT) schur_product_kernel(
+    const float* __restrict__ state, int ldx, int n_chunks, int cps,
+    const int* __restrict__ counts, const float* __restrict__ Xk, const float* __restrict__ Yk,
+    float* __restrict__ Ppart) {
   if (state[DONE] != 0.f) return;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nn = n * n;
-  if (idx < nn) {
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += Spart[(size_t)c * nn + idx];
-    S[idx] = s;
-  } else if (idx < nn + 2 * n) {
-    const int which = (idx - nn) / n, row = (idx - nn) % n;
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += vpart[((size_t)c * 2 + which) * n + row];
-    (which == 0 ? rhs : dU)[row] = s;
+  __shared__ __align__(16) float Xs[2][KT3][PT];
+  __shared__ __align__(16) float Ys[2][KT3][PT];
+  const int nt = ldx / PT;
+  int ti = 0, u = blockIdx.x;
+  while (u >= nt - ti) {
+    u -= nt - ti;
+    ++ti;
+  }
+  const int r0 = ti * PT, c0 = (ti + u) * PT;
+  const int c_end = min(n_chunks, (int)(blockIdx.y + 1) * cps);
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+
+  auto load = [&](int buf, int c, int kt) {
+    const size_t col0 = (size_t)c * 3 * TC + kt * KT3;
+    for (int i = tid; i < KT3 * (PT / 4); i += PROD_NT) {
+      const int kk = i / (PT / 4), q4 = (i % (PT / 4)) * 4;
+      cp_async16(&Xs[buf][kk][q4], Xk + (col0 + kk) * ldx + r0 + q4);
+      cp_async16(&Ys[buf][kk][q4], Yk + (col0 + kk) * ldx + c0 + q4);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[4][4];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  int c = blockIdx.y * cps, kt = -1;
+  bool have = next_ktile(counts, c_end, c, kt);
+  int buf = 0;
+  if (have) load(0, c, kt);
+  while (have) {
+    int cn = c, ktn = kt;
+    const bool more = next_ktile(counts, c_end, cn, ktn);
+    if (more) {
+      load(buf ^ 1, cn, ktn);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < KT3; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&Xs[buf][kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Ys[buf][kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+    __syncthreads();
+    buf ^= 1;
+    c = cn;
+    kt = ktn;
+    have = more;
+  }
+  float* P = Ppart + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * PT * PT;
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(&P[(ty * 4 + i) * PT + tx * 4]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// schur_reduce: RL lanes per output value, each summing every RL-th partial
+// in order, eight loads in flight, then a shuffle tree: the order is fixed.
+constexpr int RL = 8;
+
+__device__ __forceinline__ float tree_sum(float x) {
+  for (int off = RL / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Lane `sub`'s share of the sum of p[0], p[stride], ... (count terms).
+__device__ __forceinline__ float strided_sum(const float* __restrict__ p, size_t stride,
+                                             int count, int sub) {
+  float s = 0.f;
+  for (int k0 = sub; k0 < count; k0 += 8 * RL) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = k0 + q * RL;
+      v[q] = k < count ? p[(size_t)k * stride] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) s += v[q];
+  }
+  return s;
+}
+
+// Item i of the first n * n: S'(i / n, i % n) and its mirror, for i / n <=
+// i % n (blkdiag(U) minus the product's partials); then rhs, then diag(U).
+// Every lane of a warp reaches the shuffles; idle groups add zeros.
+__global__ void __launch_bounds__(NT) schur_reduce_kernel(
+    const float* __restrict__ state, int V, int ldx, int n_split, int n_chunks,
+    const float* __restrict__ Ppart, const float* __restrict__ vpart, float* __restrict__ S,
+    float* __restrict__ dU, float* __restrict__ rhs) {
+  if (state[DONE] != 0.f) return;
+  const int n = 6 * V, nt = ldx / PT, n_tiles = nt * (nt + 1) / 2;
+  const int item = (blockIdx.x * NT + threadIdx.x) / RL, sub = threadIdx.x % RL;
+  const bool is_s = item < n * n;
+  int i = 0, j = 0, e = -1;  // e: the per-view sum this item needs, if any
+  bool live = item < n * n + 2 * n;
+  if (live && is_s) {
+    i = item / n;
+    j = item % n;
+    live = i <= j;
+    if (i / 6 == j / 6) e = upper6(i % 6, j % 6);
+  } else if (live) {
+    i = j = (item - n * n) % n;
+    e = item - n * n < n ? 21 + i % 6 : upper6(i % 6, i % 6);
+  }
+  float u = 0.f, p = 0.f;
+  if (live && e >= 0)
+    u = strided_sum(vpart + (size_t)(i / 6) * NU + e, (size_t)V * NU, n_chunks, sub);
+  if (live && is_s) {
+    const int ti = i / PT, tj = j / PT;
+    p = strided_sum(Ppart + (size_t)(ti * nt - ti * (ti - 1) / 2 + (tj - ti)) * PT * PT +
+                        (i % PT) * PT + j % PT,
+                    (size_t)n_tiles * PT * PT, n_split, sub);
+  }
+  u = tree_sum(u);
+  p = tree_sum(p);
+  if (!live || sub != 0) return;
+  if (is_s) {
+    S[(size_t)i * n + j] = u - p;
+    S[(size_t)j * n + i] = u - p;
+  } else {
+    (item - n * n < n ? rhs : dU)[i] = u;
   }
 }
 
@@ -395,165 +557,728 @@ __global__ void schur_reduce_kernel(const float* __restrict__ state, int n, int 
 // K3: camera_solve — replaces the reduced camera system, _gauss_jordan and
 // the camera retraction of ba_fused.py run_lm (:369-407, :199-226).
 //
-// Bound: n sequential elimination steps, each a rank-1 update of the n x
-// (n+1) augmented matrix that must finish before the next step can start.
-// At n = 96 the barriers of the steps (latency) set the time; at n = 384 the
-// matrix (590 KB) no longer fits one SM, and a single CTA streaming it
-// through L2 is bound by that SM's L2 bandwidth. Design: Gauss-Jordan
-// without row scaling (each row i != k subtracts (a_ik / a_kk) row k, and
-// x_i = a_in / a_ii at the end), so the pivot row is only read during its
-// step and a single CTA needs one block barrier per step. A thread-block
-// cluster of C CTAs (C = 1..8, chosen by solve_plan) splits the rows into
-// contiguous blocks of whole cameras, each block in its CTA's shared memory
-// (in a global scratch buffer only past ~110 views, through the same code).
-// With C > 1, per step the CTA owning the pivot row publishes a copy in its
-// shared memory (double-buffered, so one cluster barrier per step suffices)
-// and every CTA copies it over distributed shared memory. Rows are updated
-// one warp per row, the lanes along the row (no index division). No
-// pivoting: the system is Jacobi-scaled SPD, and pinned parameters are
-// identity rows. Each CTA then retracts its own cameras.
+// Bound: n^3/6 FMA for a Cholesky of the n x n system and n^2 for the two
+// triangular solves: 0.16 MFMA at n = 96, 9.4 MFMA at n = 384, far below the
+// card's peak; reading S (n^2 floats) takes 0.01 us at n = 96. What sets the
+// time is the chain of dependent steps: n pivots, each a few shuffles and
+// an rsqrt long, and the barriers and memory round trips between them; at
+// n = 384 the matrix (590 KB) no longer fits one SM's shared memory, so it
+// is spread over a cluster's. Design: the damped, pinned, Jacobi-scaled system is
+// symmetric positive definite, so a Cholesky (a third of Gauss-Jordan's
+// FMAs) of the bordered matrix [[S_s, .], [b^T, .]], whose last row becomes
+// y = L^-1 b, then the back substitution L^T x = y. Every load of S is
+// issued before the first is used (one memory round trip, not one per row).
+//   n <= 30 (up to 5 views, the local BAs): one warp, lane i holding row i
+//     in registers; a pivot is a shuffle and an rsqrt, the rank-1 update n
+//     shuffles and FMAs, with no barrier at all; n is a template argument,
+//     so every loop is unrolled.
+//   6 to 37 views (n <= 222): one CTA, its whole matrix in shared memory, a
+//     blocked right-looking factorization with panels of PW = 16 columns:
+//     one warp factors the panel's diagonal block in registers with
+//     shuffles, one thread per row below solves its row against it (staging
+//     the panel in shared memory), and the trailing lower triangle takes a
+//     rank-16 update in 4 x 4 register tiles read as 16-byte loads: three
+//     barriers per panel instead of one per column. The back substitution
+//     is two barriers per panel: one warp solves the panel's triangle, then
+//     every thread takes the panel's x out of the rows above.
+//   38 views and more: the same panels on a cluster of 8 CTAs (below), each
+//     owning every eighth 16-row block and exchanging one solved panel per
+//     step over distributed shared memory: two cluster barriers a panel, and
+//     eight SMs' shared memory and FMA units on the trailing update. A
+//     one-CTA version with its matrix in a global scratch read through one
+//     SM's L1/L2 path took 0.495 ms at n = 384 against the cluster's 0.176
+//     (scripts/torch_ba_kernel_turns.py, both in one run on an H100 SXM at
+//     700 W). The cluster keeps its rows in shared memory up to 119 views
+//     and in a global scratch from 120 views to its limit of 1365 (64 row
+//     blocks a CTA).
+// No pivoting, no clamp: a pivot that is not positive makes the whole step
+// NaN, every camera's (pinned and unobserved ones too, whose NaN K2's cost
+// would not see), so K2's cost is NaN and K4 rejects the step and raises
+// lambda, as Ceres treats a failed Cholesky. The plain version's LU solves
+// an indefinite system; a damped reduced camera system is positive definite,
+// and only f32 rounding at a small lambda makes it otherwise. Then the
+// kernel retracts the cameras.
 
-// Row i's update at step k, lanes along the row: a_ij -= c a_kj for j > k.
-// The two rows never overlap, so several columns' loads can be in flight.
-__device__ __forceinline__ void eliminate_row(float* __restrict__ Ai,
-                                              const float* __restrict__ Ak, int k, int n,
-                                              int lane, float c) {
-#pragma unroll 4
-  for (int j = k + 1 + lane; j <= n; j += 32) Ai[j] -= c * Ak[j];
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_SOLVE_V = 5;  // views of the one-warp solve (n <= 30)
+constexpr int PW = 16;           // panel width of the blocked Cholesky
+constexpr int PS = PW + 4;       // row stride of the staged panel (16-byte aligned rows)
+constexpr int DS = PW + 1;       // row stride of the staged diagonal block
+
+// Candidate camera: q <- normalize(exp(d) (x) q) or angles += d; offsets and
+// scale additive (cameras.retract; ba_fused.py _retract_quat/_euler).
+__device__ __forceinline__ void retract_camera(int quat, const float* d, const float* q,
+                                               const float* cp, float* qo, float* co) {
+  if (quat) {
+    const float a2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    const bool small = a2 < 1e-12f;
+    const float angle = sqrtf(small ? 1.f : a2);
+    const float kk = small ? 0.5f - a2 / 48.f : sinf(0.5f * angle) / angle;
+    const float aw = small ? 1.f - a2 / 8.f : cosf(0.5f * angle);
+    const float ax = kk * d[0], ay = kk * d[1], az = kk * d[2];
+    const float o[4] = {aw * q[0] - ax * q[1] - ay * q[2] - az * q[3],
+                        aw * q[1] + ax * q[0] + ay * q[3] - az * q[2],
+                        aw * q[2] - ax * q[3] + ay * q[0] + az * q[1],
+                        aw * q[3] + ax * q[2] - ay * q[1] + az * q[0]};
+    const float nrm = sqrtf(o[0] * o[0] + o[1] * o[1] + o[2] * o[2] + o[3] * o[3]);
+    for (int i = 0; i < 4; ++i) qo[i] = o[i] / nrm;
+  } else {
+    for (int i = 0; i < 3; ++i) qo[i] = q[i] + d[i];
+    qo[3] = q[3];
+  }
+  for (int i = 0; i < 8; ++i) co[i] = cp[i];
+  co[0] += d[5];
+  co[3] += d[3];
+  co[4] += d[4];
 }
 
-__device__ __forceinline__ float safe_inv(float p) {
-  return 1.f / (fabsf(p) < 1e-30f ? 1e-30f : p);
-}
-
-__global__ void __launch_bounds__(SOLVE_NT) camera_solve_kernel(
+template <int V>
+__global__ void __launch_bounds__(32) camera_solve_warp_kernel(
     int quat, const float* __restrict__ S, const float* __restrict__ dU,
     const float* __restrict__ rhs, const float* __restrict__ free,
     const float* __restrict__ state, const float* __restrict__ rot,
-    const float* __restrict__ camp, int V, int vc, float* gscratch, float* __restrict__ delta,
-    float* __restrict__ rot_c, float* __restrict__ camp_c) {
-  if (state[DONE] != 0.f) return;  // the same for every CTA of the cluster
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const bool single = cluster.num_blocks() == 1;
-  const int n = 6 * V, ld = n + 1;
-  const int R = 6 * vc;  // rows per CTA
-  const int row0 = rank * R;
-  const int nrows = max(0, min(R, n - row0));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int NW = SOLVE_NT / 32;
-  extern __shared__ float smem[];
-  float* rowk = smem;             // [ld]     the pivot row, local copy (C > 1)
-  float* pub = rowk + ld;         // [2][ld]  the pivot row published to the cluster
-  float* dsc = pub + 2 * ld;      // [n]      Jacobi scale of every row
-  float* A = gscratch ? gscratch + (size_t)rank * R * ld : dsc + n;  // [R][ld]
+    const float* __restrict__ camp, float* __restrict__ delta, float* __restrict__ rot_c,
+    float* __restrict__ camp_c) {
+  constexpr int N = 6 * V;
+  __shared__ float Ls[N][N + 1];
+  __shared__ float ds[32];
+  const int i = threadIdx.x;
+  const bool row = i < N;
+  // Every load first: row i of S, dU, rhs and the free mask of unknown i,
+  // camera i's parameters and the scalar state.
+  float a[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j] = row ? S[i * N + j] : 0.f;
+  const float du = row ? dU[i] : 0.f, bi = row ? rhs[i] : 0.f, f = row ? free[i] : 0.f;
+  float q[4], cp[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = i < V ? rot[i * 4 + k] : 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cp[k] = i < V ? camp[i * 8 + k] : 0.f;
   const float lam = state[LAM];
+  if (state[DONE] != 0.f) return;
 
-  for (int i = tid; i < n; i += SOLVE_NT) {
-    const float d = (S[(size_t)i * n + i] + lam * fmaxf(dU[i], 1e-8f)) * free[i] * free[i] +
-                    (1.f - free[i]);
-    dsc[i] = sqrtf(fmaxf(fabsf(d), 1e-12f));
+  // The damped, pinned, Jacobi-scaled system (ba.prepare_camera_system).
+  float aii = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) aii = j == i ? a[j] : aii;
+  const float damp = lam * fmaxf(du, 1e-8f);
+  // one reciprocal of the scale per unknown: a division per entry costs
+  // more than the whole factorization
+  const float rd = row ? 1.f / sqrtf(fmaxf(fabsf((aii + damp) * f * f + (1.f - f)), 1e-12f)) : 1.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float fj = __shfl_sync(FULL, f, j), rdj = __shfl_sync(FULL, rd, j);
+    const float v = (j == i ? a[j] + damp : a[j]) * f * fj + (j == i ? 1.f - f : 0.f);
+    a[j] = v * rd * rdj;
+  }
+  float y = bi * f * rd;
+
+  // Cholesky of the bordered system: column c's pivot, its column of L, and
+  // the rank-1 update of the rows below (y with them).
+  bool bad = false;
+  float il_own = 1.f;  // 1 / L_ii of this lane's row
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const float piv = __shfl_sync(FULL, a[c], c);
+    bad |= !(piv > 0.f);
+    const float il = rsqrtf(piv);
+    a[c] = i == c ? piv * il : (i > c ? a[c] * il : a[c]);
+    y = i == c ? y * il : y;
+    il_own = i == c ? il : il_own;
+    const float yc = __shfl_sync(FULL, y, c);
+    float l[N];
+#pragma unroll
+    for (int j = c + 1; j < N; ++j) l[j] = __shfl_sync(FULL, a[c], j);
+#pragma unroll
+    for (int j = c + 1; j < N; ++j)
+      if (i >= j) a[j] -= a[c] * l[j];
+    if (i > c) y -= a[c] * yc;
+  }
+
+  // Back substitution L^T x = y: x_c from lane c, then the rows above.
+  if (row) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) Ls[i][j] = a[j];
+  }
+  __syncwarp();
+  float r = y, x = 0.f;
+#pragma unroll
+  for (int c = N - 1; c >= 0; --c) {
+    const float xc = __shfl_sync(FULL, r * il_own, c);
+    x = i == c ? xc : x;
+    if (i < c) r -= Ls[c][i] * xc;
+  }
+
+  bad = bad || __any_sync(FULL, row && f != 0.f && !isfinite(x));
+  const float dl = bad ? __int_as_float(0x7fc00000) : (f != 0.f ? x * rd * f : 0.f);
+  if (row) delta[i] = dl;
+  ds[i] = dl;
+  __syncwarp();
+  if (i < V) retract_camera(quat, ds + 6 * i, q, cp, rot_c + 4 * i, camp_c + 8 * i);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT) camera_solve_kernel(
+    int quat, const float* __restrict__ S, const float* __restrict__ dU,
+    const float* __restrict__ rhs, const float* __restrict__ free,
+    const float* __restrict__ state, const float* __restrict__ rot,
+    const float* __restrict__ camp, int V, float* __restrict__ delta,
+    float* __restrict__ rot_c, float* __restrict__ camp_c) {
+  const int n = 6 * V, N = n + 1, ld = round4(N);
+  extern __shared__ __align__(16) float solve_smem[];
+  float* rds = solve_smem;            // [n]       1 / Jacobi scale
+  float* fr = rds + round4(n);        // [n]       free mask
+  float* dmp = fr + round4(n);        // [n]       LM damping of the diagonal
+  float* xs = dmp + round4(n);        // [n]       y, then the solution
+  float* inv = xs + round4(n);        // [n]       1 / L_ii
+  float* dg = inv + round4(n);        // [PW][DS]  the panel's diagonal block
+  float* dgi = dg + round4(PW * DS);  // [PW]      1 / its diagonal (1 past kb)
+  float* pan = dgi + PW;              // [N + 3][PS] the panel's rows below its block
+  float* A = pan + (n + 4) * PS;      // [N][ld]   the lower triangle
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ int s_failed;  // a pivot was not positive
+  const float lam = state[LAM];
+  if (state[DONE] != 0.f) return;
+  if (tid == 0) s_failed = 0;
+
+  // Per unknown: damping, free mask and the reciprocal of the Jacobi scale
+  // (multiplying by it, not dividing, in the loops below: a division per
+  // entry cost more than the factorization); row n of A is b^T.
+  for (int i = tid; i < n; i += NT) {
+    const float f = free[i], damp = lam * fmaxf(dU[i], 1e-8f);
+    const float rd =
+        1.f / sqrtf(fmaxf(fabsf((S[(size_t)i * n + i] + damp) * f * f + (1.f - f)), 1e-12f));
+    rds[i] = rd;
+    fr[i] = f;
+    dmp[i] = damp;
+    A[(size_t)n * ld + i] = rhs[i] * f * rd;
   }
   __syncthreads();
-  // This CTA's rows of the damped, pinned, Jacobi-scaled [S | rhs].
-  for (int r = warp; r < nrows; r += NW) {
-    const int i = row0 + r;
-    for (int j = lane; j <= n; j += 32) {
-      float a;
-      if (j < n) {
-        a = S[(size_t)i * n + j];
-        if (i == j) a += lam * fmaxf(dU[i], 1e-8f);
-        a = a * free[i] * free[j] + (i == j ? 1.f - free[i] : 0.f);
-        a = a / dsc[i] / dsc[j];
-      } else {
-        a = rhs[i] * free[i] / dsc[i];
+  // The lower triangle of the damped, pinned, scaled system, from S read as
+  // float4 (n * n is a multiple of 4, S 16-byte aligned), eight loads a
+  // thread in flight.
+  const float4* S4 = reinterpret_cast<const float4*>(S);
+  const int n4 = n * n / 4;
+  for (int e0 = tid; e0 < n4; e0 += 8 * NT) {
+    float4 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = e0 + q * NT;
+      v[q] = e < n4 ? S4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = e0 + q * NT;
+      if (e >= n4) continue;
+      int r = (4 * e) / n, j = 4 * e - r * n;
+      const float vv[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (j <= r) {
+          const float a = (r == j ? vv[k] + dmp[r] : vv[k]) * fr[r] * fr[j] +
+                          (r == j ? 1.f - fr[r] : 0.f);
+          A[(size_t)r * ld + j] = a * rds[r] * rds[j];
+        }
+        if (++j == n) {
+          j = 0;
+          ++r;
+        }
       }
-      A[(size_t)r * ld + j] = a;
     }
   }
   __syncthreads();
 
-  for (int k = 0; k < n; ++k) {
-    const float* Ak = A + (size_t)k * ld;  // a cluster of one reads row k in place
-    if (!single) {
-      const int owner = k / R;
-      float* buf = pub + (k & 1) * ld;
-      if (rank == owner)
-        for (int j = k + tid; j <= n; j += SOLVE_NT) buf[j] = A[(size_t)(k - row0) * ld + j];
-      cluster.sync();
-      const float* src = cluster.map_shared_rank(buf, owner);
-      for (int j = k + tid; j <= n; j += SOLVE_NT) rowk[j] = src[j];
-      __syncthreads();
-      Ak = rowk;
+  for (int k0 = 0; k0 < n; k0 += PW) {
+    const int kb = min(PW, n - k0);
+    if (warp == 0) {
+      // Lane r holds row k0 + r of the diagonal block (identity past kb).
+      float a[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        a[c] = (lane < kb && c <= lane) ? A[(size_t)(k0 + lane) * ld + k0 + c]
+                                        : (c == lane ? 1.f : 0.f);
+      bool bad = false;
+      float il_own = 1.f;
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        const float piv = __shfl_sync(FULL, a[c], c);
+        bad |= !(piv > 0.f);
+        const float il = rsqrtf(piv);
+        a[c] = lane == c ? piv * il : (lane > c ? a[c] * il : a[c]);
+        il_own = lane == c ? il : il_own;
+        float l[PW];
+#pragma unroll
+        for (int c2 = c + 1; c2 < PW; ++c2) l[c2] = __shfl_sync(FULL, a[c], c2);
+#pragma unroll
+        for (int c2 = c + 1; c2 < PW; ++c2)
+          if (lane >= c2) a[c2] -= a[c] * l[c2];
+      }
+      if (lane < PW) {
+        dgi[lane] = il_own;
+        if (lane < kb) inv[k0 + lane] = il_own;
+#pragma unroll
+        for (int c = 0; c < PW; ++c)
+          if (c <= lane) {
+            dg[lane * DS + c] = a[c];
+            if (lane < kb) A[(size_t)(k0 + lane) * ld + k0 + c] = a[c];
+          }
+      }
+      if (bad && lane == 0) s_failed = 1;
     }
-    const float inv_piv = safe_inv(Ak[k]);
-    for (int r = warp; r < nrows; r += NW) {
-      float* Ai = A + (size_t)r * ld;
-      if (row0 + r != k) eliminate_row(Ai, Ak, k, n, lane, Ai[k] * inv_piv);
+    __syncthreads();
+    // The rows below: l_i = a_i L_kk^-T, one thread a row, staged in `pan`.
+    const int b0 = k0 + kb;
+    for (int i = b0 + tid; i < N; i += NT) {
+      float x[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c) x[c] = c < kb ? A[(size_t)i * ld + k0 + c] : 0.f;
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        float s = x[c];
+#pragma unroll
+        for (int c2 = 0; c2 < c; ++c2) s -= x[c2] * dg[c * DS + c2];
+        x[c] = s * dgi[c];
+      }
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        if (c < kb) A[(size_t)i * ld + k0 + c] = x[c];
+        pan[i * PS + c] = x[c];
+      }
+    }
+    __syncthreads();
+    // Trailing update of the lower triangle, rows and columns b0..n.
+    const int mb = (N - b0 + 3) / 4;
+    const int n_tiles = mb * (mb + 1) / 2;
+    for (int t = tid; t < n_tiles; t += NT) {
+      const float t8 = 8.f * t + 1.f;  // bi from an approximate root, then exact
+      int bi = (int)((t8 * rsqrtf(t8) - 1.f) * 0.5f);
+      while (bi * (bi + 1) / 2 > t) --bi;
+      while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+      const int i0 = b0 + 4 * bi, j0 = b0 + 4 * (t - bi * (bi + 1) / 2);
+      float acc[4][4];  // the tile's current values, loaded before the sums
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[p][q] = (i0 + p < N && j0 + q <= i0 + p) ? A[(size_t)(i0 + p) * ld + j0 + q] : 0.f;
+#pragma unroll
+      for (int c = 0; c < PW; c += 4) {
+        float4 ri[4], cj[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          ri[p] = *reinterpret_cast<const float4*>(&pan[(i0 + p) * PS + c]);
+          cj[p] = *reinterpret_cast<const float4*>(&pan[(j0 + p) * PS + c]);
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[p][q] -= ri[p].x * cj[q].x + ri[p].y * cj[q].y + ri[p].z * cj[q].z +
+                         ri[p].w * cj[q].w;
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = i0 + p, j = j0 + q;
+          if (i < N && j <= i) A[(size_t)i * ld + j] = acc[p][q];
+        }
     }
     __syncthreads();
   }
 
-  for (int r = tid; r < nrows; r += SOLVE_NT) {
-    const int i = row0 + r;
-    delta[i] = A[(size_t)r * ld + n] * safe_inv(A[(size_t)r * ld + i]) / dsc[i] * free[i];
+  // Back substitution L^T x = y (y = row n), a panel at a time from the end:
+  // warp 0 solves the panel's triangle, then every thread takes the panel's
+  // x out of the rows above it.
+  for (int i = tid; i < n; i += NT) xs[i] = A[(size_t)n * ld + i];
+  __syncthreads();
+  for (int k0 = ((n - 1) / PW) * PW; k0 >= 0; k0 -= PW) {
+    const int kb = min(PW, n - k0);
+    if (warp == 0) {
+      float l[PW];  // lane r: L[k0 + c][k0 + r] for c > r
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        l[c] = (c < kb && lane < c) ? A[(size_t)(k0 + c) * ld + k0 + lane] : 0.f;
+      float r = lane < kb ? xs[k0 + lane] : 0.f, x = 0.f;
+      const float il = lane < kb ? inv[k0 + lane] : 0.f;
+#pragma unroll
+      for (int c = PW - 1; c >= 0; --c) {
+        const float xc = __shfl_sync(FULL, r * il, c);
+        x = lane == c ? xc : x;
+        r -= l[c] * xc;
+      }
+      if (lane < kb) xs[k0 + lane] = x;
+    }
+    __syncthreads();
+    for (int i = tid; i < k0; i += NT) {
+      float s = xs[i];
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        if (c < kb) s -= A[(size_t)(k0 + c) * ld + i] * xs[k0 + c];
+      xs[i] = s;
+    }
+    __syncthreads();
+  }
+
+  // A failed factorization (a pivot not positive, or a free unknown that
+  // came out non-finite) fails the whole step, pinned and unobserved cameras
+  // included, so that no part of it can pass K4's cost test; otherwise a
+  // pinned parameter's step is exactly 0.
+  for (int i = tid; i < n; i += NT)
+    if (fr[i] != 0.f && !isfinite(xs[i])) s_failed = 1;
+  __syncthreads();
+  const bool failed = s_failed != 0;
+  for (int i = tid; i < n; i += NT)
+    delta[i] = failed ? __int_as_float(0x7fc00000)
+                      : (fr[i] != 0.f ? xs[i] * rds[i] * fr[i] : 0.f);
+  __syncthreads();
+  for (int v = tid; v < V; v += NT)
+    retract_camera(quat, delta + 6 * v, rot + 4 * v, camp + 8 * v, rot_c + 4 * v, camp_c + 8 * v);
+}
+
+// The cluster version, for a matrix too large for one CTA's shared memory:
+// a cluster of CL_C CTAs, each owning the row blocks b with b % CL_C == its
+// rank (block b: rows 16b..16b+15, the rows of panel b's diagonal block).
+// Per panel: the owner's warp 0 factors the diagonal block and writes it into
+// every CTA's shared memory; a cluster barrier; every CTA solves its own rows
+// below against it, one thread a row, and writes each row's 16 panel values
+// into every CTA's staged panel; a cluster barrier; every CTA updates the
+// lower triangle of its own rows from its staged panel, in 4 x 4 register
+// tiles, the tiles spread evenly over its threads. The back substitution
+// runs a panel at a time from the end on the panel's owner, which gathers
+// the other CTAs' sums of the solved rows (sum_j L[j][i] x_j, each CTA over
+// its own rows j) and adds its own: one cluster barrier a panel. Where a
+// CTA's rows and the panel do not fit its shared memory (G), they live in
+// a global scratch read through L1/L2, the panel once for the cluster.
+
+constexpr int CL_C = 8;     // CTAs of the cluster (the portable limit)
+constexpr int CL_NT = 512;  // threads per CTA
+constexpr int CL_RT = 256;  // own row tiles a CTA can hold: 64 blocks
+constexpr int RB = PW;      // rows per row block
+
+// Floats of a row of block r: its columns up to 16r + 15, padded so that
+// consecutive rows start four banks apart.
+__host__ __device__ __forceinline__ int row_len(int r) { return RB * (r + 1) + 4; }
+
+// Offset of CTA q's l-th own block (block q + l C) in its rows.
+__host__ __device__ __forceinline__ size_t blk_off(int q, int l) {
+  return (size_t)RB * ((size_t)l * (RB * (q + 1) + 4) + (size_t)RB * CL_C * l * (l - 1) / 2);
+}
+
+// Blocks CTA q owns among nblk.
+__host__ __device__ __forceinline__ int own_blocks(int q, int nblk) {
+  return q < nblk ? (nblk - 1 - q) / CL_C + 1 : 0;
+}
+
+// Shared floats of the cluster solve besides its rows and staged panel:
+// six vectors of n, the diagonal block, its inverse diagonal, and the ints
+// (the failure flag, the tile count, the row tiles' tile prefix).
+__host__ __device__ int cluster_vec_floats(int n) {
+  return 6 * round4(n) + round4(PW * DS) + PW + round4(2 + CL_RT);
+}
+
+template <bool G>
+__global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
+    int quat, const float* __restrict__ S, const float* __restrict__ dU,
+    const float* __restrict__ rhs, const float* __restrict__ free,
+    const float* __restrict__ state, const float* __restrict__ rot,
+    const float* __restrict__ camp, int V, size_t rows_max, float* gscratch,
+    float* __restrict__ delta, float* __restrict__ rot_c, float* __restrict__ camp_c) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n = 6 * V, N = n + 1, nblk = (N + RB - 1) / RB, npan = (n + PW - 1) / PW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) float cl_smem[];
+  float* rds = cl_smem;               // [n] 1 / Jacobi scale
+  float* fr = rds + round4(n);        // [n] free mask
+  float* dmp = fr + round4(n);        // [n] LM damping of the diagonal
+  float* con = dmp + round4(n);       // [n] sum_j L[j][i] x_j over own solved rows j
+  float* xs = con + round4(n);        // [n] x: own panels' (rank 0: all of it)
+  float* inv = xs + round4(n);        // [n] 1 / L_ii of own panels
+  float* dg = inv + round4(n);        // [PW][DS] the panel's diagonal block
+  float* dgi = dg + round4(PW * DS);  // [PW] 1 / its diagonal (1 past kb)
+  int* ctl = reinterpret_cast<int*>(dgi + PW);  // failed, tiles, row tiles' prefix
+  int* rt_end = ctl + 2;
+  float* vec_end = dgi + PW + round4(2 + CL_RT);
+  // [N + 3][PS] the staged panel, then this CTA's row blocks
+  float* pan = G ? gscratch + (size_t)CL_C * rows_max : vec_end;
+  float* rows = G ? gscratch + (size_t)rank * rows_max : vec_end + (size_t)(N + 3) * PS;
+  const float lam = state[LAM];
+  if (state[DONE] != 0.f) return;  // the same for every CTA of the cluster
+  if (tid == 0) ctl[0] = 0;
+
+  for (int i = tid; i < n; i += CL_NT) {
+    const float f = free[i], damp = lam * fmaxf(dU[i], 1e-8f);
+    rds[i] = 1.f / sqrtf(fmaxf(fabsf((S[(size_t)i * n + i] + damp) * f * f + (1.f - f)), 1e-12f));
+    fr[i] = f;
+    dmp[i] = damp;
+    con[i] = 0.f;
+  }
+  __syncthreads();
+  // Own rows of the damped, pinned, scaled bordered matrix (row n is b^T).
+  const int own = own_blocks(rank, nblk);
+  for (int l = 0; l < own; ++l) {
+    const int r = rank + l * CL_C, len = RB * (r + 1), rl = row_len(r);
+    float* blk = rows + blk_off(rank, l);
+#pragma unroll 4
+    for (int e = tid; e < RB * len; e += CL_NT) {
+      const int q = e / len, j = e - q * len, i = RB * r + q;
+      float a = 0.f;
+      if (i < n && j <= i) {
+        const float v = S[(size_t)i * n + j];
+        a = ((i == j ? v + dmp[i] : v) * fr[i] * fr[j] + (i == j ? 1.f - fr[i] : 0.f)) * rds[i] *
+            rds[j];
+      } else if (i == n && j < n) {
+        a = rhs[j] * fr[j] * rds[j];
+      }
+      blk[q * rl + j] = a;
+    }
   }
   __syncthreads();
 
-  // Candidate cameras of this CTA's rows: q <- normalize(exp(d) (x) q) or
-  // angles += d; offsets and scale additive (cameras.retract; ba_fused.py
-  // _retract_quat/_retract_euler).
-  for (int v = rank * vc + tid; v < min(V, (rank + 1) * vc); v += SOLVE_NT) {
-    const float* d = delta + v * 6;
-    const float* q = rot + v * 4;
-    float* qo = rot_c + v * 4;
-    if (quat) {
-      const float a2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-      const bool small = a2 < 1e-12f;
-      const float angle = sqrtf(small ? 1.f : a2);
-      const float kk = small ? 0.5f - a2 / 48.f : sinf(0.5f * angle) / angle;
-      const float aw = small ? 1.f - a2 / 8.f : cosf(0.5f * angle);
-      const float ax = kk * d[0], ay = kk * d[1], az = kk * d[2];
-      float o[4] = {aw * q[0] - ax * q[1] - ay * q[2] - az * q[3],
-                    aw * q[1] + ax * q[0] + ay * q[3] - az * q[2],
-                    aw * q[2] - ax * q[3] + ay * q[0] + az * q[1],
-                    aw * q[3] + ax * q[2] - ay * q[1] + az * q[0]};
-      const float nrm = sqrtf(o[0] * o[0] + o[1] * o[1] + o[2] * o[2] + o[3] * o[3]);
-      for (int i = 0; i < 4; ++i) qo[i] = o[i] / nrm;
-    } else {
-      for (int i = 0; i < 3; ++i) qo[i] = q[i] + d[i];
-      qo[3] = q[3];
+  for (int p = 0; p < npan; ++p) {
+    const int k0 = p * PW, kb = min(PW, n - k0), b0 = k0 + kb;
+    const int l0 = rank >= p ? 0 : (p - rank + CL_C - 1) / CL_C;  // first own block >= p
+    const int K = 4 * (own - l0);                                 // own row tiles from there
+    if (warp == 1) {
+      // tiles of the trailing update a row tile holds (its columns b0 up to
+      // its last row), and their running sum
+      int run = 0;
+      for (int kk = 0; kk < K; kk += 32) {
+        const int k = kk + lane;
+        int cnt = 0;
+        if (k < K) {
+          const int i0 = RB * (rank + (l0 + k / 4) * CL_C) + 4 * (k % 4);
+          const int last = min(i0 + 3, N - 1);
+          cnt = i0 < N && last >= b0 ? (last - b0) / 4 + 1 : 0;
+        }
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(FULL, cnt, off);
+          if (lane >= off) cnt += y;
+        }
+        if (k < K) rt_end[k] = run + cnt;
+        run += __shfl_sync(FULL, cnt, 31);
+      }
+      if (lane == 0) ctl[1] = run;
     }
-    for (int i = 0; i < 8; ++i) camp_c[v * 8 + i] = camp[v * 8 + i];
-    camp_c[v * 8 + 0] += d[5];
-    camp_c[v * 8 + 3] += d[3];
-    camp_c[v * 8 + 4] += d[4];
+    if (rank == p % CL_C && warp == 0) {
+      float* blk = rows + blk_off(rank, p / CL_C);
+      const int rl = row_len(p);
+      // Lane r holds row k0 + r of the diagonal block (identity past kb).
+      float a[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        a[c] = (lane < kb && c <= lane) ? blk[lane * rl + k0 + c] : (c == lane ? 1.f : 0.f);
+      bool bad = false;
+      float il_own = 1.f;
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        const float piv = __shfl_sync(FULL, a[c], c);
+        bad |= !(piv > 0.f);
+        const float il = rsqrtf(piv);
+        a[c] = lane == c ? piv * il : (lane > c ? a[c] * il : a[c]);
+        il_own = lane == c ? il : il_own;
+        float lc[PW];
+#pragma unroll
+        for (int c2 = c + 1; c2 < PW; ++c2) lc[c2] = __shfl_sync(FULL, a[c], c2);
+#pragma unroll
+        for (int c2 = c + 1; c2 < PW; ++c2)
+          if (lane >= c2) a[c2] -= a[c] * lc[c2];
+      }
+      if (lane < PW) {
+        if (lane < kb) {
+          inv[k0 + lane] = il_own;
+#pragma unroll
+          for (int c = 0; c < PW; ++c)
+            if (c <= lane) blk[lane * rl + k0 + c] = a[c];
+        }
+        for (int q = 0; q < CL_C; ++q) {
+          float* rdg = cluster.map_shared_rank(dg, q);
+          cluster.map_shared_rank(dgi, q)[lane] = il_own;
+#pragma unroll
+          for (int c = 0; c < PW; ++c)
+            if (c <= lane) rdg[lane * DS + c] = a[c];
+        }
+      }
+      if (bad && lane == 0) ctl[0] = 1;
+    }
+    cluster.sync();
+    // Own rows below: l_i = a_i L_kk^-T, one thread a row, written back and
+    // into every CTA's staged panel.
+    for (int t = tid;; t += CL_NT) {
+      const int l = l0 + t / RB, q = t % RB;
+      if (l >= own) break;
+      const int r = rank + l * CL_C, i = RB * r + q;
+      if (i < b0 || i >= N) continue;
+      float* row = rows + blk_off(rank, l) + (size_t)q * row_len(r);
+      float x[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c) x[c] = c < kb ? row[k0 + c] : 0.f;
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        float v = x[c];
+#pragma unroll
+        for (int c2 = 0; c2 < c; ++c2) v -= x[c2] * dg[c * DS + c2];
+        x[c] = v * dgi[c];
+      }
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        if (c < kb) row[k0 + c] = x[c];
+      const float4 x4[4] = {make_float4(x[0], x[1], x[2], x[3]), make_float4(x[4], x[5], x[6], x[7]),
+                            make_float4(x[8], x[9], x[10], x[11]),
+                            make_float4(x[12], x[13], x[14], x[15])};
+      if (G) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) reinterpret_cast<float4*>(pan + (size_t)i * PS)[m] = x4[m];
+      } else {
+        for (int dst = 0; dst < CL_C; ++dst) {
+          float4* rp = reinterpret_cast<float4*>(cluster.map_shared_rank(pan, dst) + i * PS);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) rp[m] = x4[m];
+        }
+      }
+    }
+    cluster.sync();
+    // Trailing update of own rows i >= b0, columns b0..i: tile t belongs to
+    // the row tile k whose running sum first exceeds t.
+    const int n_tiles = ctl[1];
+    for (int t = tid; t < n_tiles; t += CL_NT) {
+      int lo = 0, hi = K - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (rt_end[mid] > t) hi = mid; else lo = mid + 1;
+      }
+      const int k = lo, u = t - (k ? rt_end[k - 1] : 0);
+      const int l = l0 + k / 4, r = rank + l * CL_C, q0 = 4 * (k % 4);
+      const int i0 = RB * r + q0, j0 = b0 + 4 * u, rl = row_len(r);
+      float* blk = rows + blk_off(rank, l);
+      float acc[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = i0 + a, j = j0 + b;
+          acc[a][b] = (i >= b0 && i < N && j <= i) ? blk[(q0 + a) * rl + j] : 0.f;
+        }
+#pragma unroll
+      for (int c = 0; c < PW; c += 4) {
+        float4 ri[4], cj[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          ri[a] = *reinterpret_cast<const float4*>(&pan[(size_t)(i0 + a) * PS + c]);
+          cj[a] = *reinterpret_cast<const float4*>(&pan[(size_t)(j0 + a) * PS + c]);
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[a][b] -= ri[a].x * cj[b].x + ri[a].y * cj[b].y + ri[a].z * cj[b].z +
+                         ri[a].w * cj[b].w;
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = i0 + a, j = j0 + b;
+          if (i >= b0 && i < N && j <= i) blk[(q0 + a) * rl + j] = acc[a][b];
+        }
+    }
+    __syncthreads();
   }
-  // No CTA may leave while another can still read its published row.
-  if (!single) cluster.sync();
+
+  // Back substitution L^T x = y, y = row n (on its owner), a panel at a time
+  // from the end, on the panel's owner.
+  if (ctl[0] && tid == 0) *cluster.map_shared_rank(ctl, 0) = 1;
+  const int bn = n / RB, qn = bn % CL_C;
+  const size_t yoff = blk_off(qn, bn / CL_C) + (size_t)(n % RB) * row_len(bn);
+  const float* y =
+      G ? gscratch + (size_t)qn * rows_max + yoff : cluster.map_shared_rank(rows + yoff, qn);
+  for (int p = npan - 1; p >= 0; --p) {
+    const int k0 = p * PW, kb = min(PW, n - k0);
+    if (rank == p % CL_C) {
+      const float* blk = rows + blk_off(rank, p / CL_C);
+      const int rl = row_len(p);
+      if (warp == 0) {
+        float l[PW];  // lane r: L[k0 + c][k0 + r] for c > r
+#pragma unroll
+        for (int c = 0; c < PW; ++c) l[c] = (c < kb && lane < c) ? blk[c * rl + k0 + lane] : 0.f;
+        float v = 0.f;
+        if (lane < kb) {
+          v = y[k0 + lane];
+          for (int q = 0; q < CL_C; ++q) v -= cluster.map_shared_rank(con, q)[k0 + lane];
+        }
+        const float il = lane < kb ? inv[k0 + lane] : 0.f;
+        float x = 0.f;
+#pragma unroll
+        for (int c = PW - 1; c >= 0; --c) {
+          const float xc = __shfl_sync(FULL, v * il, c);
+          x = lane == c ? xc : x;
+          v -= l[c] * xc;
+        }
+        if (lane < kb) {
+          xs[k0 + lane] = x;
+          cluster.map_shared_rank(xs, 0)[k0 + lane] = x;
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < k0; i += CL_NT) {
+        float v = con[i];
+#pragma unroll
+        for (int c = 0; c < PW; ++c)
+          if (c < kb) v += blk[c * rl + i] * xs[k0 + c];
+        con[i] = v;
+      }
+    }
+    cluster.sync();
+  }
+  if (rank != 0) return;
+
+  // Rank 0: as the one-CTA kernel's end.
+  for (int i = tid; i < n; i += CL_NT)
+    if (fr[i] != 0.f && !isfinite(xs[i])) ctl[0] = 1;
+  __syncthreads();
+  const bool failed = ctl[0] != 0;
+  for (int i = tid; i < n; i += CL_NT)
+    delta[i] = failed ? __int_as_float(0x7fc00000)
+                      : (fr[i] != 0.f ? xs[i] * rds[i] * fr[i] : 0.f);
+  __syncthreads();
+  for (int v = tid; v < V; v += CL_NT)
+    retract_camera(quat, delta + 6 * v, rot + 4 * v, camp + 8 * v, rot_c + 4 * v, camp_c + 8 * v);
 }
 
-// Cluster size and rows of K3 for V cameras: the fewest CTAs (a power of
-// two, at most SOLVE_MAX_CLUSTER) whose row blocks fit SOLVE_SMEM_TARGET.
+// The camera solve's launch for V > WARP_SOLVE_V views: the one-CTA kernel
+// where its whole matrix fits shared memory (a little kept for static shared
+// memory), else the cluster, its rows and panel in shared memory where they
+// fit, else in the global scratch (G).
 struct SolvePlan {
-  int cluster, vc;
-  size_t fixed_bytes, block_bytes;  // shared bytes besides / of the row block
+  bool cluster, global;
+  int nt;             // threads of the one-CTA kernel
+  size_t smem;        // dynamic shared bytes per CTA
+  size_t rows_max;    // floats of the largest CTA's rows (cluster)
+  size_t scratch;     // floats of the global scratch (G)
 };
 
 SolvePlan solve_plan(int V) {
-  const size_t n = 6 * (size_t)V, ld = n + 1;
-  SolvePlan p;
-  p.fixed_bytes = sizeof(float) * (3 * ld + n);
-  for (p.cluster = 1;; p.cluster *= 2) {
-    p.vc = (V + p.cluster - 1) / p.cluster;
-    p.block_bytes = sizeof(float) * 6 * (size_t)p.vc * ld;
-    if (p.fixed_bytes + p.block_bytes <= SOLVE_SMEM_TARGET || p.cluster == SOLVE_MAX_CLUSTER)
-      return p;
+  const int n = 6 * V, N = n + 1, nblk = (N + RB - 1) / RB;
+  SolvePlan p = {};
+  p.nt = n <= 192 ? 256 : 512;
+  p.smem = sizeof(float) * (5 * round4(n) + round4(PW * DS) + PW + (size_t)(n + 4) * PS +
+                            (size_t)N * round4(N));
+  if (p.smem + 64 <= SMEM_MAX) return p;
+  p.cluster = true;
+  for (int q = 0; q < CL_C; ++q) {
+    const size_t rows = blk_off(q, own_blocks(q, nblk));
+    p.rows_max = rows > p.rows_max ? rows : p.rows_max;
   }
-}
-
-bool solve_block_in_smem(const SolvePlan& p) {
-  return p.fixed_bytes + p.block_bytes <= SMEM_MAX;
+  const size_t vec = cluster_vec_floats(n), pan = (size_t)(N + 3) * PS;
+  p.smem = sizeof(float) * (vec + pan + p.rows_max);
+  p.global = p.smem + 64 > SMEM_MAX;
+  if (p.global) {
+    p.smem = sizeof(float) * vec;
+    p.scratch = CL_C * p.rows_max + pan;
+  }
+  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -640,7 +1365,9 @@ __global__ void __launch_bounds__(NT) point_update_cost_kernel(
       project(cams_n[v], p3, local, pix);
       const float rx = pix[0] - obsT[(v * 2) * T + t], ry = pix[1] - obsT[(v * 2 + 1) * T + t];
       const float s2 = rx * rx + ry * ry;
-      rho_sum += s2 <= d2 ? s2 : 2.f * huber * sqrtf(fmaxf(s2, 1e-20f)) - d2;
+      // a NaN residual (a failed camera step) stays NaN, as in torch.clamp:
+      // fmaxf would drop it and count -huber^2
+      rho_sum += s2 <= d2 ? s2 : 2.f * huber * sqrtf(s2 < 1e-20f ? 1e-20f : s2) - d2;
     }
   }
   for (int off = 16; off > 0; off >>= 1) rho_sum += __shfl_down_sync(0xffffffffu, rho_sum, off);
@@ -705,9 +1432,68 @@ __global__ void __launch_bounds__(NT) lm_accept_kernel(
     for (int i = blockIdx.x * NT + tid; i < 4 * T; i += gridDim.x * NT) pT[i] = p_c[i];
 }
 
-int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// Lets `fn` take up to SMEM_MAX bytes of shared memory, static and dynamic
+// together: without it a launch whose two sum past 48 KB is refused. Each
+// kernel's attribute is set once (a few kernels: a full table just sets it
+// again).
+int allow_smem(const void* fn) {
+  static const void* done[16];
+  static int n_done = 0;
+  for (int i = 0; i < n_done; ++i)
+    if (done[i] == fn) return 0;
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, fn);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)(SMEM_MAX - attr.sharedSizeBytes));
+  if (!err && n_done < 16) done[n_done++] = fn;
+  return err;
+}
+
+template <int K>
+int launch_camera_solve(size_t smem, cudaStream_t st, int quat, const float* S, const float* dU,
+                        const float* rhs, const float* free, const float* state,
+                        const float* rot, const float* camp, int V, float* delta, float* rot_c,
+                        float* camp_c) {
+  int err = allow_smem((const void*)camera_solve_kernel<K>);
+  if (err) return err;
+  camera_solve_kernel<K><<<1, K, smem, st>>>(quat, S, dU, rhs, free, state, rot, camp, V, delta,
+                                             rot_c, camp_c);
+  return (int)cudaGetLastError();
+}
+
+template <bool G>
+int launch_cluster_solve(const SolvePlan& p, cudaStream_t st, int quat, const float* S,
+                         const float* dU, const float* rhs, const float* free,
+                         const float* state, const float* rot, const float* camp, int V,
+                         float* gscratch, float* delta, float* rot_c, float* camp_c) {
+  int err = allow_smem((const void*)camera_solve_cluster_kernel<G>);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL_C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL_C);
+  cfg.blockDim = dim3(CL_NT);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, camera_solve_cluster_kernel<G>, quat, S, dU, rhs, free,
+                                state, rot, camp, V, p.rows_max, gscratch, delta, rot_c, camp_c);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+int launch_warp_solve(cudaStream_t st, int quat, const float* S, const float* dU,
+                      const float* rhs, const float* free, const float* state, const float* rot,
+                      const float* camp, float* delta, float* rot_c, float* camp_c) {
+  camera_solve_warp_kernel<V><<<1, 32, 0, st>>>(quat, S, dU, rhs, free, state, rot, camp, delta,
+                                                rot_c, camp_c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -715,31 +1501,39 @@ int set_smem(const void* fn, size_t bytes) {
 extern "C" {
 
 // Floats of the global scratch buffer the camera solve needs for V cameras
-// (0 when its row blocks fit in shared memory).
+// (0 when its rows and panel fit in shared memory).
 int osfm_camera_solve_scratch_floats(int V) {
-  const SolvePlan p = solve_plan(V);
-  return solve_block_in_smem(p) ? 0 : (int)(p.cluster * p.block_bytes / sizeof(float));
+  return V <= WARP_SOLVE_V ? 0 : (int)solve_plan(V).scratch;
 }
 
 int osfm_schur_assemble(int quat, const float* pT, const float* obsT, const float* maskT,
                         const float* rot, const float* camp, const float* free,
-                        const float* state, float huber, int opt, int V, int T, int chunk,
-                        int n_chunks, float* Spart, float* vpart, float* S, float* dU,
-                        float* rhs, void* stream) {
+                        const float* state, float huber, int opt, int V, int T, int ldx,
+                        int n_chunks, int n_split, int cps, float* Xk, float* Yk, int* counts,
+                        float* vpart, float* Ppart, float* S, float* dU, float* rhs,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = 6 * V;
-  const int ntile = (n + TS - 1) / TS;
-  const size_t smem = sizeof(Cam) * V +
-                      sizeof(float) * (TS * (2 * XS + 2 * ZS + 2 * KT) + KT * 12);
-  int err = set_smem((const void*)schur_assemble_kernel, smem);
+  int G = 1;  // lanes per track: the views of a track, up to a warp
+  while (G < V && G < 32) G *= 2;
+  const size_t smem = sizeof(Cam) * V + sizeof(float) * V * NU;
+  int err = allow_smem((const void*)schur_blocks_kernel);
   if (err) return err;
-  schur_assemble_kernel<<<dim3(n_chunks, ntile * ntile), NT, smem, st>>>(
-      quat, pT, obsT, maskT, rot, camp, free, state, huber, opt, V, T, chunk, Spart, vpart);
+  schur_blocks_kernel<<<n_chunks, BLK_NT, smem, st>>>(quat, pT, obsT, maskT, rot, camp, free,
+                                                      state, huber, opt, V, T, G, ldx, Xk, Yk,
+                                                      counts, vpart);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const int total = n * n + 2 * n;
-  schur_reduce_kernel<<<(total + NT - 1) / NT, NT, 0, st>>>(state, n, n_chunks, Spart, vpart,
-                                                            S, dU, rhs);
+  if (opt) {  // with the points held fixed V^-1 = 0, and S' is blkdiag(U)
+    const int nt = ldx / PT;
+    schur_product_kernel<<<dim3(nt * (nt + 1) / 2, n_split), PROD_NT, 0, st>>>(
+        state, ldx, n_chunks, cps, counts, Xk, Yk, Ppart);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const int blocks = ((n * n + 2 * n) * RL + NT - 1) / NT;
+  schur_reduce_kernel<<<blocks, NT, 0, st>>>(state, V, ldx, opt ? n_split : 0, n_chunks, Ppart,
+                                             vpart, S, dU, rhs);
   return (int)cudaGetLastError();
 }
 
@@ -747,27 +1541,39 @@ int osfm_camera_solve(int quat, const float* S, const float* dU, const float* rh
                       const float* free, const float* state, const float* rot,
                       const float* camp, int V, float* gscratch, float* delta, float* rot_c,
                       float* camp_c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (V) {
+    case 1:
+      return launch_warp_solve<1>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
+                                  camp_c);
+    case 2:
+      return launch_warp_solve<2>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
+                                  camp_c);
+    case 3:
+      return launch_warp_solve<3>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
+                                  camp_c);
+    case 4:
+      return launch_warp_solve<4>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
+                                  camp_c);
+    case 5:
+      return launch_warp_solve<5>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
+                                  camp_c);
+    default:
+      break;
+  }
   const SolvePlan p = solve_plan(V);
-  if (!gscratch && !solve_block_in_smem(p)) return (int)cudaErrorInvalidValue;
-  const size_t smem = p.fixed_bytes + (gscratch ? 0 : p.block_bytes);
-  int err = set_smem((const void*)camera_solve_kernel, smem);
-  if (err) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cluster);
-  cfg.blockDim = dim3(SOLVE_NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = (int)cudaLaunchKernelEx(&cfg, camera_solve_kernel, quat, S, dU, rhs, free, state, rot,
-                                camp, V, p.vc, gscratch, delta, rot_c, camp_c);
-  if (err) return err;
-  return (int)cudaGetLastError();
+  if (p.global && !gscratch) return (int)cudaErrorInvalidValue;
+  if (own_blocks(0, (6 * V + RB) / RB) * 4 > CL_RT) return (int)cudaErrorInvalidValue;
+  if (p.cluster)
+    return p.global ? launch_cluster_solve<true>(p, st, quat, S, dU, rhs, free, state, rot, camp,
+                                                 V, gscratch, delta, rot_c, camp_c)
+                    : launch_cluster_solve<false>(p, st, quat, S, dU, rhs, free, state, rot,
+                                                  camp, V, nullptr, delta, rot_c, camp_c);
+  if (p.nt == 256)
+    return launch_camera_solve<256>(p.smem, st, quat, S, dU, rhs, free, state, rot, camp, V,
+                                    delta, rot_c, camp_c);
+  return launch_camera_solve<512>(p.smem, st, quat, S, dU, rhs, free, state, rot, camp, V,
+                                  delta, rot_c, camp_c);
 }
 
 int osfm_point_update_cost(int quat, const float* pT, const float* obsT, const float* maskT,
@@ -776,7 +1582,7 @@ int osfm_point_update_cost(int quat, const float* pT, const float* obsT, const f
                            const float* camp_c, float huber, int update_points, int V, int T,
                            float* p_out, float* cost_part, void* stream) {
   const size_t smem = sizeof(Cam) * 2 * V + sizeof(float) * 6 * V;
-  int err = set_smem((const void*)point_update_cost_kernel, smem);
+  int err = allow_smem((const void*)point_update_cost_kernel);
   if (err) return err;
   point_update_cost_kernel<<<(T + NT - 1) / NT, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       quat, pT, obsT, maskT, rot, camp, free, state, delta, rot_c, camp_c, huber, update_points,

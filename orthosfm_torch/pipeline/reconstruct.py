@@ -14,6 +14,7 @@ import time
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from orthosfm_torch.config import ReconstructionConfig
 from orthosfm_torch.data.views import View, load_views
@@ -21,10 +22,15 @@ from orthosfm_torch.io import cameras_io, ply, timing, tracks_io
 from orthosfm_torch.pipeline import incremental, matching, track_utils
 
 
-def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cpu"
+def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cuda"
                 ) -> Tuple[incremental.PoseEstimationResult, List[View]]:
     """Full reconstruction on ``device``, from ``config.track_file`` when it
-    is set and from the images otherwise."""
+    is set and from the images otherwise. The device is CUDA unless the
+    caller names another; without a CUDA device this raises at once rather
+    than run on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass device="cpu" to run on the CPU')
     start_all = time.monotonic()
 
     # --- Initialization: load views (+ masks) ---------------------------------

@@ -232,19 +232,24 @@ def damped_point_inverse(Vt, lam, optimize_points: bool):
     return inv3x3_T(V_d) if optimize_points else torch.zeros_like(V_d)
 
 
-def _solve_camera_system(S_p, dU, rhs, free_c, lam):
-    """Dense solve of the damped/pinned/preconditioned reduced camera system.
-    S_p is U−WV̂⁻¹Wᵀ with U already on the block diagonal; dU its raw diag."""
+def prepare_camera_system(S_p, dU, rhs, free_c, lam):
+    """The damped, pinned, Jacobi-scaled reduced camera system: (S_s (n, n),
+    b (n,), d (n,)) with S_s x = b and the camera step x / d. S_p is
+    U−WV̂⁻¹Wᵀ with U already on the block diagonal; dU its raw diag."""
     n = S_p.shape[0]
     S_f = S_p + torch.diag(lam * torch.clamp(dU, min=1e-8))
     fm = free_c.reshape(n).to(S_p.dtype)
     S_f = S_f * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
-    rhs_f = rhs * fm
     d = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(S_f)), min=1e-12))
-    S_s = S_f / d[:, None] / d[None, :]
+    return S_f / d[:, None] / d[None, :], rhs * fm / d, d
+
+
+def _solve_camera_system(S_p, dU, rhs, free_c, lam):
+    """Dense solve of the damped/pinned/preconditioned reduced camera system."""
+    S_s, b, d = prepare_camera_system(S_p, dU, rhs, free_c, lam)
     # solve_ex does not raise on a singular system: like the JAX package's
     # solve, it returns a non-finite step, whose cost the LM step rejects.
-    delta_c = (torch.linalg.solve_ex(S_s, rhs_f / d)[0] / d).reshape(-1, 6)
+    delta_c = (torch.linalg.solve_ex(S_s, b)[0] / d).reshape(-1, 6)
     return delta_c * free_c.reshape(-1, 6).to(S_p.dtype)
 
 

@@ -7,6 +7,8 @@ plain PyTorch version.
                                                                     ba_fused.run_lm pass 1
   camera solve+retract  camera_solve         camera_solve_ref       ba_fused._gauss_jordan and the
                                                                     in-kernel reduced system
+                                                                    (a Cholesky on the card, LU in
+                                                                    the plain version)
   point update + cost   point_update_cost    point_update_cost_ref  ba_pallas.point_update_cost,
                                                                     ba_fused.run_lm pass 2
   accept                lm_accept            lm_accept_ref          ba_fused.run_lm accept/λ/done
@@ -43,10 +45,12 @@ STATE_SIZE = 8
 SOURCE = kernel_build.CSRC / "ba_kernels.cu"
 
 # Launch geometry shared with the CUDA source
-_NT = 256
-_TS = 32
-_KT = 16
-_TARGET_CTAS = 264  # two CTAs per SM on the 132-SM H100
+_NT = 256          # threads of K2 and K4
+_TC = 32           # tracks per chunk of K1's block pass (one CTA each)
+_PT = 32           # edge of the product's output tiles
+_NU = 27           # per-view sums of the block pass: U's upper triangle and the rhs
+_PRODUCT_CTAS = 1056  # aim of the product's split over K: eight 64-thread CTAs per SM
+_TARGET_CTAS = 264    # K4's grid: two CTAs per SM on the 132-SM H100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,8 +180,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "osfm_schur_assemble": [_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P, _P],
+    "osfm_schur_assemble": [_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "osfm_camera_solve": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "osfm_point_update_cost": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                                _P, _P, _P],
@@ -245,6 +249,20 @@ def _check_problem(kind, pT, obsT, maskT, rot, camp, free):
 # Kernel wrappers
 
 
+def schur_plan(V: int, T: int) -> tuple:
+    """K1's geometry for V views and T tracks: (ldx, n_chunks, n_split, cps).
+    The scratch holds 3·_TC columns per chunk of n = 6V floats padded to
+    ldx; the product runs over the upper-triangle tiles of the output, split
+    over K into n_split ranges of cps chunks."""
+    n = 6 * V
+    ldx = math.ceil(n / _PT) * _PT
+    n_chunks = math.ceil(T / _TC)
+    nt = ldx // _PT
+    n_split = max(1, min(n_chunks, math.ceil(_PRODUCT_CTAS / (nt * (nt + 1) // 2))))
+    cps = math.ceil(n_chunks / n_split)
+    return ldx, n_chunks, math.ceil(n_chunks / cps), cps
+
+
 def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta,
                    optimize_points):
     """K1: S', dU, rhs of normal_eq_schur_ref, on the card."""
@@ -254,19 +272,28 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     V, T, dev = _check_problem(kind, pT, obsT, maskT, rot, camp, free)
     _check("state_in", state_in, (STATE_SIZE,), dev)
     n = 6 * V
-    n_tiles = math.ceil(n / _TS) ** 2
-    n_chunks = max(1, min(math.ceil(T / _KT), math.ceil(_TARGET_CTAS / n_tiles)))
-    chunk = math.ceil(math.ceil(T / n_chunks) / _KT) * _KT
-    n_chunks = math.ceil(T / chunk)
-    Spart = torch.empty((n_chunks, n, n), dtype=torch.float32, device=dev)
-    vpart = torch.empty((n_chunks, 2, n), dtype=torch.float32, device=dev)
+    ldx, n_chunks, n_split, cps = schur_plan(V, T)
+    opt = bool(optimize_points)
+    nt = ldx // _PT
+    # one float workspace: the X and Y scratch (only when points move), the
+    # blocks' per-chunk sums and the product's per-split tiles, each at a
+    # 16-byte aligned offset
+    sizes = [3 * _TC * n_chunks * ldx if opt else 0] * 2 + [
+        n_chunks * V * _NU, (n_split * nt * (nt + 1) // 2 if opt else 0) * _PT * _PT]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + -(-size // 4) * 4)
+    ws = torch.empty((offsets[-1],), dtype=torch.float32, device=dev)
+    Xk, Yk, vpart, Ppart = (ws.data_ptr() + 4 * o for o in offsets[:4])
+    counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     S = torch.empty((n, n), dtype=torch.float32, device=dev)
     dU = torch.empty((n,), dtype=torch.float32, device=dev)
     rhs = torch.empty((n,), dtype=torch.float32, device=dev)
     err = library().osfm_schur_assemble(
         int(kind == "quat"), _ptr(pT), _ptr(obsT), _ptr(maskT), _ptr(rot), _ptr(camp),
-        _ptr(free), _ptr(state_in), float(huber_delta), int(bool(optimize_points)), V, T,
-        chunk, n_chunks, _ptr(Spart), _ptr(vpart), _ptr(S), _ptr(dU), _ptr(rhs), _stream())
+        _ptr(free), _ptr(state_in), float(huber_delta), int(opt), V, T, ldx, n_chunks,
+        n_split, cps, Xk, Yk, _ptr(counts), vpart, Ppart, _ptr(S), _ptr(dU), _ptr(rhs),
+        _stream())
     _raise_on(err, "schur_assemble")
     schur_assemble.launches += 1
     return S, dU, rhs
@@ -274,7 +301,9 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
 
 def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
     """K3: delta (V, 6), rot_c (V, 4), camp_c (V, 8) of camera_solve_ref, on
-    the card."""
+    the card, by a Cholesky factorization. Where it meets a pivot that is not
+    positive (an indefinite system) every entry of delta is NaN, so the LM
+    step is rejected; the plain version's LU solves such a system."""
     if S.device.type == "cpu":
         return camera_solve_ref(kind, S, dU, rhs, free, state_in, rot, camp)
     _check_kind(kind)
@@ -288,6 +317,8 @@ def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
     _check("state_in", state_in, (STATE_SIZE,), dev)
     _check("rot", rot, (V, 4), dev)
     _check("camp", camp, (V, 8), dev)
+    if S.data_ptr() % 16:
+        raise ValueError("S must be 16-byte aligned (the kernel reads it as float4)")
     lib = library()
     n_scratch = lib.osfm_camera_solve_scratch_floats(V)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None

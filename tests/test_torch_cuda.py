@@ -7,9 +7,9 @@ with a GPU and no JAX; tests/conftest.py imports jax, so there run it as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: the kernels sum over tracks in per-CTA partials and solve the
-camera system by Gauss-Jordan without pivoting, the plain versions sum in
-torch's order and solve by LU; both are f32. Relative 1e-4 on sums of ~1e4
+Tolerances: the kernels sum over tracks in per-chunk and per-split partials
+and solve the camera system by a Cholesky factorization, the plain versions
+sum in torch's order and solve by LU; both are f32. Relative 1e-4 on sums of ~1e4
 terms, 1e-5 on the solve (measured: ~1e-6), which a solve that mishandles the
 damping fails at both lambdas checked, 1e-5 on unit-norm points. top2: d2
 within 1e-5 absolute (the kernel's FMA chain and cuBLAS's GEMM sum in
@@ -55,12 +55,18 @@ def _stage_inputs(kind, dev, num_views, n_points):
 
 @pytest.mark.parametrize("kind", ["quat", "euler"])
 @pytest.mark.parametrize("optimize_points", [True, False])
-@pytest.mark.parametrize("shape", [(8, 1000), (64, 3000), (120, 1000)])
+@pytest.mark.parametrize("shape", [(3, 7800), (8, 1000), (16, 3000), (64, 3000), (120, 1000),
+                                   (200, 600), (256, 600), (400, 500)])
 def test_stages_match_plain_versions(dev, kind, optimize_points, shape):
-    """K1-K4 against their plain versions; 1000 and 3000 tracks are ragged
-    against every chunk size. The camera solve runs on one CTA at 8 views,
-    on a cluster of 8 CTAs at 64 views (n = 384), and with its row blocks in
-    a global scratch buffer at 120 views (n = 720)."""
+    """K1-K4 against their plain versions; 7800, 1000, 3000, 600 and 500
+    tracks are ragged against every chunk and k-tile. K1 writes X and Y to
+    its scratch at every size and sums the per-view blocks in one [V][27]
+    buffer of shared memory, up to 400 views here. The camera solve runs in
+    one warp at 3 views (n = 18, the local BA), in one CTA with its matrix in
+    shared memory at 8 and 16 views (n = 48, 96), on a cluster of 8 CTAs
+    with its rows in their shared memory at 64 views (n = 384), and on the
+    cluster with its rows and panel in a global scratch buffer at 120 to 400
+    views (n = 720 to 2400)."""
     pT, obsT, maskT, rot, camp, free = _stage_inputs(kind, dev, *shape)
     state = bk.new_state(1e-3, dev)
     args = (kind, pT, obsT, maskT, rot, camp, free, state, 1.0, optimize_points)
@@ -114,6 +120,23 @@ def test_ba_run_kernel_path_converges_like_plain(dev, kind):
     torch.testing.assert_close(r_k.cams.rot[0], cams.rot[0], rtol=0.0, atol=2e-7)
 
 
+@pytest.mark.parametrize("num_views", [200, 256])
+def test_ba_run_at_many_views(dev, num_views):
+    """Global BA over more views than grouping.DENSE_S3_MAX_VIEWS: every
+    kernel launches (K1's per-view sums and K3's matrix must fit their
+    memory at this size) and the kernel path converges like the plain one."""
+    cams, points, obs, mask = make_problem("quat", dev, num_views, 1000)
+    cfg = BundleAdjustConfig(max_iterations=15, function_tolerance=0.0, min_lambda=1e-12)
+    bk.reset_launch_counts()
+    r_k = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="kernel"))
+    counts = bk.launch_counts()
+    r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
+    assert all(v > 0 for v in counts.values()), counts
+    np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
+    assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
+    assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
+
+
 def _done_flag_runs(dev, sigma):
     """The kernel path allowed 50 iterations, the kernel path allowed exactly
     the iterations that run used, and the plain path; after convergence the
@@ -160,6 +183,83 @@ def test_done_flag_stops_the_loop_with_noise(dev):
     np.testing.assert_allclose(float(r_50.cost), float(r_t.cost), rtol=1e-3)
 
 
+@pytest.mark.parametrize("shape", [(3, 7800), (16, 8192), (200, 600)])
+def test_schur_assemble_is_bit_stable(dev, shape):
+    """No float atomics: two launches on the same inputs give the same bits
+    (the done-flag tests rely on it)."""
+    pT, obsT, maskT, rot, camp, free = _stage_inputs("quat", dev, *shape)
+    args = ("quat", pT, obsT, maskT, rot, camp, free, bk.new_state(1e-3, dev), 1.0, True)
+    first = bk.schur_assemble(*args)
+    second = bk.schur_assemble(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    S = first[0]
+    assert torch.equal(S, S.T)
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+@pytest.mark.parametrize("shape", [(3, 7800), (16, 3000), (64, 3000)])
+def test_schur_assemble_with_unobserved_entries(dev, kind, shape):
+    """K1 skips masked (track, view) entries and tracks no view observes,
+    as the local BAs' masks have them."""
+    pT, obsT, maskT, rot, camp, free = _stage_inputs(kind, dev, *shape)
+    rng = np.random.default_rng(1)
+    keep = torch.as_tensor(rng.random(maskT.shape) > 0.4, device=dev)
+    keep[:, : shape[1] // 5] = False
+    maskT = (maskT * keep).contiguous()
+    for opt in (True, False):
+        args = (kind, pT, obsT, maskT, rot, camp, free, bk.new_state(1e-3, dev), 1.0, opt)
+        S, dU, rhs = bk.schur_assemble(*args)
+        S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
+        assert max(_rel(S, S_r), _rel(dU, dU_r), _rel(rhs, rhs_r)) < 1e-4
+
+
+def test_camera_solve_rejects_an_indefinite_system(dev):
+    """The Cholesky of K3 meets a negative pivot on -S': the step comes out
+    non-finite, K2's cost with it is not below the current one, and K4
+    rejects the step and raises lambda; ba.run, whose every system is made
+    indefinite, leaves the cameras and points as they were."""
+    kind = "quat"
+    pT, obsT, maskT, rot, camp, free = _stage_inputs(kind, dev, 8, 1000)
+    state = bk.new_state(1e-3, dev)
+    S, dU, rhs = bk.schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state, 1.0, True)
+    delta, rot_c, camp_c = bk.camera_solve(kind, -S, dU, rhs, free, state, rot, camp)
+    assert not bool(torch.isfinite(delta).all())
+    _, init_parts = bk.point_update_cost(kind, pT, obsT, maskT, rot, camp, free, None, None,
+                                         rot, camp, 1.0, False)
+    state[bk.COST] = init_parts.sum()
+    p_c, parts = bk.point_update_cost(kind, pT, obsT, maskT, rot, camp, free, state, delta,
+                                      rot_c, camp_c, 1.0, True)
+    cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
+    s_out = torch.zeros_like(state)
+    r, c, q = rot.clone(), camp.clone(), pT.clone()
+    bk.lm_accept(parts, state, s_out, r, c, q, rot_c, camp_c, p_c, cfg)
+    assert float(s_out[bk.LAM]) == pytest.approx(1e-3 * 4.0)
+    assert float(s_out[bk.COST]) == float(state[bk.COST])
+    assert float(s_out[bk.ITERS]) == 1.0
+    assert torch.equal(r, rot) and torch.equal(c, camp) and torch.equal(q, pT)
+
+    cams, points, obs, mask = make_problem(kind, dev, 8, 1000)
+    assemble = bk.schur_assemble
+
+    def negated(*args):
+        S, dU, rhs = assemble(*args)
+        return -S, dU, rhs
+
+    negated.launches = 0  # the wrapper counts its launches under its module name
+
+    cfg = BundleAdjustConfig(max_iterations=3, impl="kernel")
+    try:
+        bk.schur_assemble = negated
+        res = ba.run(cams, points, obs, mask, True, cfg)
+    finally:
+        bk.schur_assemble = assemble
+    assert int(res.iterations) == 3
+    assert float(res.cost) == float(res.initial_cost)
+    assert torch.equal(res.cams.rot, cams.rot)
+    assert torch.equal(res.points, ba.prepare(points, obs, mask)[0].T)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     pT, obsT, maskT, rot, camp, free = _stage_inputs("quat", dev, 4, 300)
     state = bk.new_state(1e-3, dev)
@@ -170,6 +270,10 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         bk.point_update_cost("quat", pT, obsT.transpose(0, 1).contiguous().transpose(0, 1),
                              maskT, rot, camp, free, None, None, rot, camp, 1.0, False)
+    S, dU, rhs = bk.schur_assemble("quat", pT, obsT, maskT, rot, camp, free, state, 1.0, True)
+    shifted = torch.empty(S.numel() + 1, device=dev)[1:].view_as(S).copy_(S)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.camera_solve("quat", shifted, dU, rhs, free, state, rot, camp)
 
 
 # ---------------------------------------------------------------------------
