@@ -8,13 +8,17 @@ Phases:
      of orthosfm_torch/csrc/ (the BA kernels, the top-2 matching kernel and
      the union-find), one compiler each, all started together;
   2. each kernel against its plain PyTorch version on the card: the BA
-     kernels (schur_assemble, camera_solve, point_update_cost, lm_accept) at
-     the shapes of the standard BA problem (16 views x 8192 sphere tracks,
-     2048^2, cameras perturbed by up to 1 degree), for quaternion and Euler
-     cameras, with points optimized and fixed; schur_assemble and
-     camera_solve also at 3 views x 7800 tracks (the local BA) and 64 x 4096,
-     each timed beside its plain version, its bound and, for camera_solve,
-     torch.linalg.solve_ex alone on the same prepared system; top2 on random
+     kernels (schur_assemble, camera_solve, and point_update_cost with the
+     accept rule of lm_accept in its last CTA, held against
+     point_update_cost_ref then lm_accept_ref, for a step accepted and one
+     rejected) at the shapes of the standard BA problem (16 views x 8192
+     sphere tracks, 2048^2, cameras perturbed by up to 1 degree), for
+     quaternion and Euler cameras, with points optimized and fixed; each
+     also at 3 views x 7800 tracks (the local BA) and 64 x 4096, and timed
+     at all three beside its plain version, its bound and, for camera_solve,
+     torch.linalg.solve_ex alone on the same prepared system, and
+     point_update_cost also without its tail (the difference is the time
+     the accept rule adds, lm_accept's row); top2 on random
      unit descriptors, 8 pairs x 8192 rows x 128 and x 64, with duplicated
      rows (exact ties), repeated views and databases of 0 and 1 valid rows;
   3. pose estimation from tracks (run_pose_estimation with the kernels) on
@@ -71,6 +75,8 @@ REPLACES = {
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
+# lm_accept is no kernel of its own: its rule runs in the last CTA of K2
+FOLDED = {"lm_accept": "point_update_cost"}
 # Kernel vs plain version on the same inputs. Sums over 8192 tracks run in
 # another order on the card (per-CTA partials) than in the CPU-style plain
 # path, and a Cholesky factorization replaces an LU solve: f32 rounding of
@@ -80,9 +86,11 @@ BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept"
 TOL_SCHUR_REL = 1e-4      # max |S' - S'_ref| / max |S'_ref| (and rhs, dU)
 TOL_SOLVE_REL = 1e-5      # max |delta - delta_ref| / max |delta_ref|
 SOLVE_LAMBDAS = (1e-3, 1.0)
+# K2 takes the plain step of each: lambda 1e-3 is the size of step the main
+# path takes (from lambda_0 = 1e-4 downward), lambda 1 a damped one
 BA_SHAPES = ((N_VIEWS, N_TRACKS), (64, 4096))
-# K1 and K3 are timed at the main path's three shapes: the local BA of a
-# 3-view group (n = 18, the slice's 7800 tracks), the global BA
+# K1, K3 and K2 are timed at the main path's three shapes: the local BA of
+# a 3-view group (n = 18, the slice's 7800 tracks), the global BA
 # (make_problem(), n = 96) and many views (n = 384)
 BA_SHAPES_TIMED = ((3, 7800), (N_VIEWS, N_TRACKS), (64, 4096))
 # Bounds: the card's published peaks (H100 SXM data sheet): f32 outside the
@@ -101,7 +109,8 @@ K2_OBS_FMA = 120
 SLEEP_CYCLES_PER_S = 2.0e9
 TOL_POINTS_ABS = 1e-5     # retracted unit points, abs
 TOL_COST_REL = 1e-4       # robust cost, relative
-TOL_STATE_REL = 1e-5      # LM scalar state after accept, relative
+TOL_STATE_REL = 1e-5      # LM scalar state after accept but its cost, relative
+LM_CFG_ARGS = (1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)  # lam0, func_tol, up, down, min, max
 # top2: the kernel sums each dot product in one FMA chain, the plain
 # version by cuBLAS's f32 GEMM in another order; d2 = 2 - 2 sim of unit
 # vectors differs by a few 1e-7. Indices must agree except on rows whose
@@ -161,12 +170,13 @@ def bound(flops, nbytes):
 
 
 def ba_work(maskT, opt):
-    """(flops, bytes) of K1, K3 and K2 on this problem, counting the
-    observations the mask holds (m_t views of track t): the Schur term is
-    the symmetric half of a rank-3 update of the (6 m_t)-square block per
-    track, 3 (6m)(6m+1)/2 FMA; the per-observation block math is counted as
-    K1_OBS_FMA and K2_OBS_FMA. Each input is read once, each output written
-    once."""
+    """(flops, bytes) of K1, K3 and K2 (with its accept tail) on this
+    problem, counting the observations the mask holds (m_t views of track
+    t): the Schur term is the symmetric half of a rank-3 update of the
+    (6 m_t)-square block per track, 3 (6m)(6m+1)/2 FMA; the per-observation
+    block math is counted as K1_OBS_FMA and K2_OBS_FMA. Each input is read
+    once, each output written once; the tail alone (lm_accept) reads K2's
+    per-CTA partials and a state slot and writes the other."""
     V, T = maskT.shape
     n = 6 * V
     m = (maskT != 0).sum(dim=0).double()
@@ -175,8 +185,10 @@ def ba_work(maskT, opt):
     inputs = 16 * T + 12 * V * T + 72 * V  # pT, obsT + maskT, rot + camp + free
     k1 = (2 * (schur + K1_OBS_FMA * n_obs), inputs + 4 * (n * n + 2 * n))
     k3 = (2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 4 * (6 + 4 + 8) * V)
-    k2 = (2 * K2_OBS_FMA * n_obs, inputs + 4 * 6 * V + 48 * V + 16 * T + 4 * math.ceil(T / 256))
-    return {"schur_assemble": k1, "camera_solve": k3, "point_update_cost": k2}
+    # the step, the candidate cameras, the new points, the state in and out
+    k2 = (2 * K2_OBS_FMA * n_obs, inputs + 4 * 6 * V + 48 * V + 16 * T + 2 * 32)
+    tail = (0.0, 4 * math.ceil(T / 32) + 2 * 32)
+    return {"schur_assemble": k1, "camera_solve": k3, "point_update_cost": k2, "lm_accept": tail}
 
 
 def stage_inputs(kind, device, num_views, n_tracks):
@@ -191,14 +203,33 @@ def stage_inputs(kind, device, num_views, n_tracks):
             cam_mod.free_mask(cams).float().contiguous())
 
 
+def lm_inputs(inputs):
+    """The stage inputs with the points and cameras as fresh LM buffers."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    pT, obsT, maskT, rot, camp, free = inputs
+    p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+    return p2, obsT, maskT, r2, c2, free
+
+
+def camera_step(solve, kind, S, dU, rhs, free, lam, rot, camp):
+    """One camera solve (K3 or its plain version) at lambda `lam` from fresh
+    LM buffers of rot and camp: (delta, candidate rot, candidate camp)."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    r2, c2 = bk.lm_buffers(rot, camp)
+    delta = solve(kind, S, dU, rhs, free, bk.new_state(lam, rot.device), r2, c2)
+    return delta, r2[1], c2[1]
+
+
 def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
     """K1 and K3 against their plain versions on one problem; returns the
-    plain S', dU, rhs."""
+    plain step and candidate cameras of each lambda of SOLVE_LAMBDAS."""
     from orthosfm_torch.solvers import ba_kernels as bk
 
     pT, obsT, maskT, rot, camp, free = inputs
     device = pT.device
-    args = (kind, pT, obsT, maskT, rot, camp, free, bk.new_state(1e-3, device), 1.0, opt)
+    args = (kind, *lm_inputs(inputs), bk.new_state(1e-3, device), 1.0, opt)
     S, dU, rhs = bk.schur_assemble(*args)
     S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
     e = max(rel_err(S, S_r), rel_err(rhs, rhs_r), rel_err(dU, dU_r))
@@ -207,10 +238,11 @@ def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
     rels["schur_assemble"] = max(rels["schur_assemble"], e)
     errs["schur_assemble"] = max(errs["schur_assemble"], max_err(S, S_r),
                                  max_err(rhs, rhs_r), max_err(dU, dU_r))
+    steps = {}
     for lam in SOLVE_LAMBDAS:
-        sargs = (kind, S_r, dU_r, rhs_r, free, bk.new_state(lam, device), rot, camp)
-        delta, rot_c, camp_c = bk.camera_solve(*sargs)
-        delta_r, rot_cr, camp_cr = bk.camera_solve_ref(*sargs)
+        sargs = (kind, S_r, dU_r, rhs_r, free, lam, rot, camp)
+        delta, rot_c, camp_c = camera_step(bk.camera_solve, *sargs)
+        delta_r, rot_cr, camp_cr = steps[lam] = camera_step(bk.camera_solve_ref, *sargs)
         e = rel_err(delta, delta_r)
         print(f"  camera_solve     {label} {kind:5s} opt={opt!s:5s} lambda={lam:g} "
               f"rel err {e:.3e}")
@@ -218,13 +250,142 @@ def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
         rels["camera_solve"] = max(rels["camera_solve"], e)
         errs["camera_solve"] = max(errs["camera_solve"], max_err(delta, delta_r),
                                    max_err(rot_c, rot_cr), max_err(camp_c, camp_cr))
-    return S_r, dU_r, rhs_r
+    return steps
 
 
-def time_schur_and_solve(inputs):
-    """K1 and K3 at one shape (quat, points optimized, lambda 1e-3): kernel,
-    plain and, for K3, torch.linalg.solve_ex alone on the same prepared
-    system, with each one's bound from this problem's mask."""
+def k2_stage(kind, inputs, opt, rot_c, camp_c, plain):
+    """K2 with its accept tail (or its plain version) on LM buffers whose
+    half 0 holds the current cameras and points and half 1 the candidate
+    cameras."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    p2, obsT, maskT, r2, c2, free = lm_inputs(inputs)
+    r2[1], c2[1] = rot_c, camp_c
+    return bk.PointUpdateCost(kind, p2, obsT, maskT, r2, c2, free, 1.0, opt,
+                              bk.LMConfig(*LM_CFG_ARGS), plain=plain), (p2, r2, c2)
+
+
+def check_point_update_cost(kind, inputs, opt, lam, step, errs, rels, label):
+    """K2 with its accept tail against point_update_cost_ref then
+    lm_accept_ref (point_update_accept_ref), for the plain step of lambda
+    `lam` held to a higher previous cost (accepted: state[CUR] flips) and to
+    a lower one (rejected)."""
+    import torch
+
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    delta, rot_c, camp_c = step
+    device = delta.device
+    _, parts_r = bk.point_update_cost_ref(kind, *inputs, bk.new_state(lam, device), delta,
+                                          rot_c, camp_c, 1.0, opt)
+    for factor, accepted in ((2.0, True), (0.5, False)):
+        s_in = bk.new_state(lam, device)
+        s_in[bk.COST] = parts_r.sum() * factor
+        outs = []
+        for plain in (False, True):
+            stage, bufs = k2_stage(kind, inputs, opt, rot_c, camp_c, plain)
+            s_out = torch.zeros_like(s_in)
+            outs.append((s_out, stage(s_in, s_out, delta), bufs))
+        (s_k, parts_k, (p_k, r_k, c_k)), (s_p, parts_p, (p_p, r_p, c_p)) = outs
+        e_p = max_err(p_k[1], p_p[1]) if opt else max_err(p_k, p_p)
+        e_c = rel_err(s_k[bk.COST], s_p[bk.COST]) if accepted else rel_err(parts_k.sum(),
+                                                                           parts_p.sum())
+        keep = [i for i in range(bk.STATE_SIZE) if i != bk.COST]
+        e_s = rel_err(s_k[keep], s_p[keep])
+        e_x = max(max_err(r_k, r_p), max_err(c_k, c_p), max_err(p_k[0], p_p[0]),
+                  abs(float(s_k[bk.CUR]) - float(accepted)))
+        step_kind = "accepted" if accepted else "rejected"
+        print(f"  point_update_cost {label} {kind:5s} opt={opt!s:5s} lambda={lam:g} {step_kind}: "
+              f"points {e_p:.3e} cost rel {e_c:.3e}; lm_accept state rel {e_s:.3e} selection "
+              f"{e_x:.3e}")
+        require(e_p < TOL_POINTS_ABS and e_c < TOL_COST_REL,
+                f"point_update_cost {label} {kind} opt={opt} lambda={lam} {step_kind}: {e_p} {e_c}")
+        require(e_s < TOL_STATE_REL and e_x == 0.0,
+                f"lm_accept {label} {kind} opt={opt} lambda={lam} {step_kind}: {e_s} {e_x}")
+        require(float(s_k[bk.ITERS]) == 1.0, "the accept tail did not step")
+        rels["point_update_cost"] = max(rels["point_update_cost"], e_p, e_c)
+        errs["point_update_cost"] = max(errs["point_update_cost"], e_p,
+                                        max_err(s_k[bk.COST], s_p[bk.COST]))
+        rels["lm_accept"] = max(rels["lm_accept"], e_s, e_x)
+        errs["lm_accept"] = max(errs["lm_accept"], max_err(s_k[keep], s_p[keep]), e_x)
+
+
+def near_fit_witness(device):
+    """K2 near an exact fit: the noise-free 3 x 7800 problem with a fifth of
+    its tracks unobserved and 40% of the other entries masked (as in the card
+    tests), and the plain step of lambda 1e-3, after which the cost is ~1e-4
+    of what it was. There f32 rounding in the cost pass moves the cost by up
+    to ~1e-3 (a rounding of a rotation matrix is one error shared by all of
+    a view's observations), so the kernel and the f32 plain version are no
+    witnesses of each other's cost to TOL_COST_REL. Holds the kernel's
+    points to the plain version's (TOL_POINTS_ABS) and returns the kernel's
+    cost beside the plain version's in f32 and in f64 (the same f32 inputs
+    and step), the plain f32 cost at the kernel's points, the plain f32 cost
+    with its rotation matrices rounded from f64, and the f64 cost at the
+    plain f32 points."""
+    import torch
+
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    n_views, n_tracks, lam = 3, 7800, 1e-3
+    pT, obsT, maskT, rot, camp, free = stage_inputs("quat", device, n_views, n_tracks)
+    rng = np.random.default_rng(1)
+    keep = torch.as_tensor(rng.random(maskT.shape) > 0.4, device=device)
+    keep[:, : n_tracks // 5] = False
+    keep[:, (keep & (maskT != 0)).sum(dim=0) < 2] = False
+    inputs = (pT, obsT, (maskT * keep).contiguous(), rot, camp, free)
+    S, dU, rhs = bk.normal_eq_schur_ref("quat", *lm_inputs(inputs), bk.new_state(lam, device),
+                                        1.0, True)
+    step = camera_step(bk.camera_solve_ref, "quat", S, dU, rhs, free, lam, rot, camp)
+    stage, (p2, _, _) = k2_stage("quat", inputs, True, step[1], step[2], False)
+    cost_k = float(stage(bk.new_state(lam, device), None, step[0]).double().sum())
+    p_k = p2[1]
+    p_r, parts_r = bk.point_update_cost_ref("quat", *inputs, bk.new_state(lam, device), *step,
+                                            1.0, True)
+    p_64, parts_64 = bk.point_update_cost_ref(
+        "quat", *(x.double() for x in inputs), bk.new_state(lam, device).double(),
+        *(x.double() for x in step), 1.0, True)
+    _, parts_at_k = bk.point_update_cost_ref("quat", p_k, *inputs[1:], None, None, *step[1:],
+                                             1.0, False)
+    _, parts_64_at_r = bk.point_update_cost_ref("quat", *(x.double() for x in (p_r, *inputs[1:])),
+                                                None, None, *(x.double() for x in step[1:]), 1.0,
+                                                False)
+    # the plain f32 cost at its own points, its rotation matrices rounded
+    # from f64 instead of formed in f32
+    m = inputs[2] != 0
+    r = ba._project_residuals_T(ba.rotation_tensors("quat", step[1].double())[0].float(),
+                                step[2], p_r, obsT)
+    cost_r64 = ba.robust_cost(torch.where(m[:, None, :], r, torch.zeros_like(r)), m, 1.0)
+    out = {"cost_kernel": cost_k, "cost_plain_f32": float(parts_r.double().sum()),
+           "cost_plain_f64": float(parts_64.sum()),
+           "cost_plain_f32_at_kernel_points": float(parts_at_k.double().sum()),
+           "cost_plain_f32_rotations_from_f64": float(cost_r64),
+           "cost_plain_f64_at_plain_f32_points": float(parts_64_at_r.sum()),
+           "points_kernel_vs_plain_f32": max_err(p_k, p_r),
+           "points_kernel_vs_plain_f64": max_err(p_k, p_64),
+           "points_plain_f32_vs_plain_f64": max_err(p_r, p_64)}
+    rel_64 = abs(cost_k - out["cost_plain_f64"]) / out["cost_plain_f64"]
+    print(f"  point_update_cost near an exact fit ({n_views}x{n_tracks} masked, noise-free, "
+          f"lambda={lam:g}): cost kernel {out['cost_kernel']:.6f} (rel to f64 {rel_64:.3e}), "
+          f"plain f32 {out['cost_plain_f32']:.6f}, plain f64 {out['cost_plain_f64']:.6f}, plain "
+          f"f32 at the kernel's points {out['cost_plain_f32_at_kernel_points']:.6f}, plain f32 "
+          f"with rotations rounded from f64 {out['cost_plain_f32_rotations_from_f64']:.6f}, "
+          f"plain f64 at the plain f32 points {out['cost_plain_f64_at_plain_f32_points']:.6f}; "
+          f"points kernel - plain f32 {out['points_kernel_vs_plain_f32']:.3e}, kernel - plain "
+          f"f64 {out['points_kernel_vs_plain_f64']:.3e}, plain f32 - plain f64 "
+          f"{out['points_plain_f32_vs_plain_f64']:.3e}")
+    require(out["points_kernel_vs_plain_f32"] < TOL_POINTS_ABS,
+            f"point_update_cost near an exact fit: points {out['points_kernel_vs_plain_f32']}")
+    return out
+
+
+def time_ba_kernels(inputs):
+    """K1, K3 and K2 with its accept tail at one shape (quat, points
+    optimized, lambda 1e-3): kernel, plain and, for K3,
+    torch.linalg.solve_ex alone on the same prepared system, with each one's
+    bound from this problem's mask; and the tail alone (lm_accept): K2's
+    time less K2's without the tail, beside lm_accept_ref."""
     import torch
 
     from orthosfm_torch.solvers import ba
@@ -232,126 +393,70 @@ def time_schur_and_solve(inputs):
 
     pT, obsT, maskT, rot, camp, free = inputs
     state = bk.new_state(1e-3, pT.device)
-    args = ("quat", pT, obsT, maskT, rot, camp, free, state, 1.0, True)
+    lm = lm_inputs(inputs)
+    args = ("quat", *lm, state, 1.0, True)
     S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
-    sargs = ("quat", S_r, dU_r, rhs_r, free, state, rot, camp)
+    # K3 writes the candidate into half 1 of the buffers, which K1 never reads
+    sargs = ("quat", S_r, dU_r, rhs_r, free, state, lm[3], lm[4])
     S_s, b, _ = ba.prepare_camera_system(S_r, dU_r, rhs_r, free, state[bk.LAM])
+    delta, rot_c, camp_c = camera_step(bk.camera_solve_ref, "quat", S_r, dU_r, rhs_r, free, 1e-3,
+                                       rot, camp)
+    kernel, _ = k2_stage("quat", inputs, True, rot_c, camp_c, False)
+    plain, _ = k2_stage("quat", inputs, True, rot_c, camp_c, True)
+    s_in = bk.new_state(1e-3, pT.device)
+    s_in[bk.COST] = 1e30
+    s_out = torch.zeros_like(s_in)
+    parts = plain(s_in, None, delta)
+    acc_args = (parts, s_in, s_out, rot.clone(), camp.clone(), pT.clone(), rot_c, camp_c,
+                pT.clone(), bk.LMConfig(*LM_CFG_ARGS))
     work = ba_work(maskT, True)
     n = 30 if maskT.shape[0] <= N_VIEWS else 10
     out = {}
-    for name, kern, plain, lib in (
+    for name, kern, plain_fn, lib in (
             ("schur_assemble", lambda: bk.schur_assemble(*args),
              lambda: bk.normal_eq_schur_ref(*args), None),
             ("camera_solve", lambda: bk.camera_solve(*sargs), lambda: bk.camera_solve_ref(*sargs),
-             lambda: torch.linalg.solve_ex(S_s, b))):
+             lambda: torch.linalg.solve_ex(S_s, b)),
+            ("point_update_cost", lambda: kernel(s_in, s_out, delta),
+             lambda: plain(s_in, s_out, delta), None)):
         b_ms, b_by = bound(*work[name])
-        out[name] = {"ms": cuda_ms(kern, n), "plain_ms": cuda_ms(plain, n),
+        out[name] = {"ms": cuda_ms(kern, n), "plain_ms": cuda_ms(plain_fn, n),
                      "library_ms": cuda_ms(lib, n) if lib else None,
                      "bound_ms": b_ms, "bound_by": b_by}
+    no_tail = cuda_ms(lambda: kernel(s_in, None, delta), n)
+    b_ms, b_by = bound(*work["lm_accept"])
+    out["lm_accept"] = {"ms": out["point_update_cost"]["ms"] - no_tail,
+                        "point_update_cost_without_tail_ms": no_tail,
+                        "plain_ms": cuda_ms(lambda: bk.lm_accept_ref(*acc_args), n),
+                        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
 def check_kernels(device):
     """Phase 2: every kernel against its plain version on the card."""
-    import torch
-
-    from orthosfm_torch.solvers import ba_kernels as bk
-
     errs = {name: 0.0 for name in BA_KERNELS}   # max abs error over all cases
     rels = {name: 0.0 for name in BA_KERNELS}   # max relative error over all cases
-    times = {}
-    cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
-    for kind in ("quat", "euler"):
-        inputs = stage_inputs(kind, device, N_VIEWS, N_TRACKS)
-        pT, obsT, maskT, rot, camp, free = inputs
-        state = bk.new_state(1e-3, device)
-        for opt in (True, False):
-            S_r, dU_r, rhs_r = check_schur_and_solve(kind, inputs, opt, errs, rels,
-                                                     f"{N_VIEWS}x{N_TRACKS}")
-            # the stages after the solve continue from the lambda of `state`
-            sargs = (kind, S_r, dU_r, rhs_r, free, state, rot, camp)
-            delta_r, rot_cr, camp_cr = bk.camera_solve_ref(*sargs)
-
-            uargs = (kind, pT, obsT, maskT, rot, camp, free, state, delta_r, rot_cr, camp_cr,
-                     1.0, opt)
-            p_new, parts = bk.point_update_cost(*uargs)
-            p_new_r, parts_r = bk.point_update_cost_ref(*uargs)
-            e_p = max_err(p_new, p_new_r)
-            e_c = rel_err(parts.sum(), parts_r.sum())
-            print(f"  point_update_cost {kind:5s} opt={opt!s:5s} points {e_p:.3e} "
-                  f"cost rel {e_c:.3e}")
-            require(e_p < TOL_POINTS_ABS and e_c < TOL_COST_REL,
-                    f"point_update_cost {kind} opt={opt}: {e_p} {e_c}")
-            rels["point_update_cost"] = max(rels["point_update_cost"], e_p, e_c)
-            errs["point_update_cost"] = max(errs["point_update_cost"], e_p,
-                                            max_err(parts.sum(), parts_r.sum()))
-
-            # Accept: the previous cost is the initial one, so a good step is taken
-            _, init_parts = bk.point_update_cost_ref(kind, pT, obsT, maskT, rot, camp, free,
-                                                     None, None, rot, camp, 1.0, False)
-            s_in = bk.new_state(1e-3, device)
-            s_in[bk.COST] = init_parts.sum()
-            outs = []
-            for accept in (bk.lm_accept, bk.lm_accept_ref):
-                st = torch.zeros_like(s_in)
-                r_, c_, p_ = rot.clone(), camp.clone(), pT.clone()
-                accept(parts_r, s_in, st, r_, c_, p_, rot_cr, camp_cr,
-                       p_new_r if opt else None, cfg)
-                outs.append((st, r_, c_, p_))
-            e_s = rel_err(outs[0][0], outs[1][0])
-            e_x = max(max_err(a, b) for a, b in zip(outs[0][1:], outs[1][1:]))
-            print(f"  lm_accept        {kind:5s} opt={opt!s:5s} state rel {e_s:.3e} "
-                  f"selection {e_x:.3e}")
-            require(e_s < TOL_STATE_REL and e_x == 0.0, f"lm_accept {kind} opt={opt}")
-            require(float(outs[0][0][bk.ITERS]) == 1.0, "lm_accept did not step")
-            rels["lm_accept"] = max(rels["lm_accept"], e_s, e_x)
-            errs["lm_accept"] = max(errs["lm_accept"], max_err(outs[0][0], outs[1][0]), e_x)
-
-            if kind == "quat" and opt:
-                st = torch.zeros_like(s_in)
-                r_, c_, p_ = rot.clone(), camp.clone(), pT.clone()
-                work = ba_work(maskT, opt)
-                accepted = float(parts_r.sum()) < float(s_in[bk.COST])
-                V, T = maskT.shape
-                k4_bytes = 4 * parts_r.numel() + 2 * 32 + (2 * (48 * V + 16 * T) if accepted else 0)
-                pairs = {
-                    "point_update_cost": (lambda: bk.point_update_cost(*uargs),
-                                          lambda: bk.point_update_cost_ref(*uargs),
-                                          work["point_update_cost"]),
-                    "lm_accept": (
-                        lambda: bk.lm_accept(parts_r, s_in, st, r_, c_, p_, rot_cr, camp_cr,
-                                             p_new_r, cfg),
-                        lambda: bk.lm_accept_ref(parts_r, s_in, st, r_, c_, p_, rot_cr,
-                                                 camp_cr, p_new_r, cfg),
-                        (0.0, k4_bytes)),
-                }
-                for name, (kern, plain, w) in pairs.items():
-                    b_ms, b_by = bound(*w)
-                    times[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-                                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-
-    # K1 and K3 at the three shapes of the main path: the local BA (3 views,
-    # n = 18, K3 in one warp), the global BA and make_problem() (16 views,
-    # n = 96), and many views (64, n = 384, where K3's matrix leaves shared
-    # memory).
+    # the main path's three shapes: the local BA (3 views, n = 18, K3 in one
+    # warp), the global BA and make_problem() (16 views, n = 96), and many
+    # views (64, n = 384, where K3's matrix leaves shared memory); both
+    # camera kinds, points optimized and fixed, at the standard shape
     shapes = {}
     for num_views, n_tracks in BA_SHAPES_TIMED:
         label = f"{num_views}x{n_tracks}"
-        inputs = stage_inputs("quat", device, num_views, n_tracks)
-        if (num_views, n_tracks) != (N_VIEWS, N_TRACKS):
+        kinds = ("quat", "euler") if (num_views, n_tracks) == (N_VIEWS, N_TRACKS) else ("quat",)
+        for kind in kinds:
+            inputs = stage_inputs(kind, device, num_views, n_tracks)
             for opt in (True, False):
-                check_schur_and_solve("quat", inputs, opt, errs, rels, label)
-        shapes[label] = time_schur_and_solve(inputs)
+                steps = check_schur_and_solve(kind, inputs, opt, errs, rels, label)
+                for lam, step in steps.items():
+                    check_point_update_cost(kind, inputs, opt, lam, step, errs, rels, label)
+        shapes[label] = time_ba_kernels(inputs)
         for name, t in shapes[label].items():
             lib = "" if t["library_ms"] is None else f"   solve_ex {t['library_ms']:.4f} ms"
             print(f"  {name:18s} {label:8s} kernel {t['ms']:.4f} ms   plain {t['plain_ms']:.4f} "
                   f"ms{lib}   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
-    times.update(shapes[f"{N_VIEWS}x{N_TRACKS}"])
-    for name in ("point_update_cost", "lm_accept"):
-        t = times[name]
-        print(f"  {name:18s} {N_VIEWS}x{N_TRACKS} kernel {t['ms']:.4f} ms   plain "
-              f"{t['plain_ms']:.4f} ms   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
-    return errs, rels, times, shapes
+    shapes["near_fit"] = near_fit_witness(device)
+    return errs, rels, dict(shapes[f"{N_VIEWS}x{N_TRACKS}"]), shapes
 
 
 def run_slice(device, project):
@@ -719,6 +824,7 @@ def main() -> int:
     launches = bk.launch_counts()
     slice_ba = recorder.summary()
     print(f"  launches {launches}")
+    require(set(launches) == set(BA_KERNELS) - set(FOLDED), f"BA kernels launched: {launches}")
     print(f"  BA: {slice_ba['ba_calls']} calls, {slice_ba['iterations_worked']} of "
           f"{slice_ba['iterations_launched']} iterations did work; host enqueue "
           f"{slice_ba['enqueue_ms_per_it']:.4f} ms per iteration")
@@ -760,10 +866,13 @@ def main() -> int:
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # a folded kernel's launches are those of the kernel whose last CTA runs it
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name], "launches": launches[FOLDED.get(name, name)],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
-                **{k: times[name][k] for k in keys}} for name in REPLACES]
+                **{k: times[name][k] for k in keys},
+                **({"folded_into": FOLDED[name]} if name in FOLDED else {})}
+               for name in REPLACES]
     print(json.dumps({"kernels": kernels, "ba_shapes": shapes, "ba_iter_per_s": rates,
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}}))

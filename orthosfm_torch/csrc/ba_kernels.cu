@@ -3,19 +3,22 @@
 // loaded with ctypes by orthosfm_torch/solvers/ba_kernels.py, which also
 // holds the plain PyTorch version of every kernel.
 //
-// One LM iteration is four stages, launched back to back on one stream with
-// no host sync; a device `done` flag (state[DONE]) makes the iterations after
-// convergence return at once (the analog of the cond-guarded body of the
-// JAX package's fused kernel, orthosfm_tpu/solvers/ba_fused.py:476-477):
+// One LM iteration is three stages, five launches back to back on one stream
+// with no host sync; a device `done` flag (state[DONE]) makes the iterations
+// after convergence return at once (the analog of the cond-guarded body of
+// the JAX package's fused kernel, orthosfm_tpu/solvers/ba_fused.py:476-477):
 //
 //   K1 schur_assemble     <- ba_pallas.py normal_eq_schur (+ ba_fused.py pass 1);
 //                            three launches: blocks, product, reduce
 //   K3 camera_solve       <- ba_fused.py _gauss_jordan + the in-kernel reduced
 //                            system and camera retraction (:369-407); a
 //                            Cholesky here: one warp up to 5 views, a
-//                            blocked one-CTA factorization above
+//                            blocked one-CTA factorization up to 37, the
+//                            same panels on a cluster of 8 CTAs above
 //   K2 point_update_cost  <- ba_pallas.py point_update_cost (+ ba_fused.py pass 2)
-//   K4 lm_accept          <- ba_fused.py accept / lambda / done (:457-474)
+//                            and, in its last CTA, ba_fused.py accept /
+//                            lambda / done (:457-474), the rule of K4
+//                            lm_accept
 //
 // The arithmetic is f32 SIMT FMA throughout: no tensor cores, so no TF32.
 // The per-observation math (ba_pallas.py _tile_blocks, _point_block_inv,
@@ -23,8 +26,12 @@
 // below, and shared by K1 and K2.
 //
 // Scalar LM state: float[STATE_SIZE] = [lambda, cost, iterations, done,
-// initial cost, 0, 0, 0]. Iteration i reads slot i%2 and K4 writes slot
-// (i+1)%2, so no CTA ever reads a scalar that another CTA is overwriting.
+// initial cost, current half, 0, 0]. Iteration i reads slot i%2 and K2's
+// last CTA writes slot (i+1)%2, so no CTA ever reads a scalar that another
+// CTA is overwriting. The points and cameras (rot, camp) live in two halves
+// each (a, b); state[CUR] names the current one: K1 reads it, K3 writes the
+// candidate cameras and K2 the candidate points into the other, and an
+// accepted step flips state[CUR] (nothing is copied).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -34,14 +41,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int LAM = 0, COST = 1, ITERS = 2, DONE = 3, INIT_COST = 4, STATE_SIZE = 8;
+constexpr int LAM = 0, COST = 1, ITERS = 2, DONE = 3, INIT_COST = 4, CUR = 5, STATE_SIZE = 8;
 
-constexpr int NT = 256;                 // threads per CTA (K2, K4)
+constexpr int NT = 256;                 // threads per CTA of schur_reduce
 constexpr size_t SMEM_MAX = 227 * 1024;  // shared bytes per CTA, sm_90
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
-// Per-camera tables, built in shared memory by every CTA that needs them.
+// K1's per-camera tables, built in shared memory by each of its CTAs.
 struct Cam {
   float R9[9];   // R9[b*3+a] = R[b][a], local->world rotation
   float dS[27];  // dS[a*9+k*3+b] = dS[b][a]/d angle_k (Euler; zeros for quat)
@@ -51,7 +58,7 @@ struct Cam {
 
 // Quaternion / Euler rotation tables (cameras.rotation_l2w and
 // spherical_matrix_derivs; ba_fused.py _r9_from_quat, _r9_ds27_from_euler).
-__device__ void cam_tables(int quat, const float* rot, float* R9, float* dS) {
+__device__ __forceinline__ void cam_tables(int quat, const float* rot, float* R9, float* dS) {
   if (quat) {
     float w = rot[0], x = rot[1], y = rot[2], z = rot[3];
     float inv = 1.0f / sqrtf(w * w + x * x + y * y + z * z);
@@ -120,8 +127,9 @@ struct PointPre {
   float p4[4], p3[3], sw, B[12], J3B[9];
 };
 
-__device__ void point_pre(const float* pT, int T, int t, PointPre& P) {
-  for (int i = 0; i < 4; ++i) P.p4[i] = pT[i * T + t];
+__device__ __forceinline__ void point_pre(const float p4[4], PointPre& P) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) P.p4[i] = p4[i];
   P.sw = safe_w(P.p4[3]);
   for (int i = 0; i < 3; ++i) P.p3[i] = P.p4[i] / P.sw;
   float sign = P.p4[3] >= 0.f ? 1.f : -1.f;
@@ -133,30 +141,36 @@ __device__ void point_pre(const float* pT, int T, int t, PointPre& P) {
     for (int q = 0; q < 3; ++q) P.J3B[j * 3 + q] = (P.B[j * 3 + q] - P.p3[j] * P.B[9 + q]) / P.sw;
 }
 
-// Pixel projection of p3 through camera c (ba_pallas.py _project_rows).
-__device__ __forceinline__ void project(const Cam& c, const float* p3, float local[3],
-                                        float pix[2]) {
-  for (int a = 0; a < 3; ++a)
-    local[a] = c.R9[a] * p3[0] + c.R9[3 + a] * p3[1] + c.R9[6 + a] * p3[2];
-  float s = c.camp[0];
-  for (int k = 0; k < 2; ++k)
-    pix[k] = c.camp[1 + k] * (-(local[k] / s - c.camp[3 + k]) * 0.5f + 0.5f);
+// Pixel projection of p3 through a camera's R9 and camp (ba_pallas.py
+// _project_rows).
+__device__ __forceinline__ void project(const float* R9, const float* camp, const float* p3,
+                                        float local[3], float pix[2]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) local[a] = R9[a] * p3[0] + R9[3 + a] * p3[1] + R9[6 + a] * p3[2];
+  float s = camp[0];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) pix[k] = camp[1 + k] * (-(local[k] / s - camp[3 + k]) * 0.5f + 0.5f);
 }
 
 // Residual, Huber weight and closed-form Jacobians of one observation with
-// mask m != 0 (ba_pallas.py _tile_blocks for one (view, track) entry).
-__device__ void obs_block(int quat, const Cam& c, const PointPre& P, float ox, float oy,
-                          float huber, float r[2], float& w, float Jc[2][6], float Jp[2][3]) {
+// mask m != 0 (ba_pallas.py _tile_blocks for one (view, track) entry), from
+// a camera's R9, the two pixel rows of its Euler derivatives dS[k*9 + j*3 + b]
+// (k < 2; unread for quaternions), camp and free mask; with free null the
+// camera Jacobian is not masked.
+__device__ __forceinline__ void obs_block(int quat, const float* R9, const float* dS,
+                                          const float* camp, const float* free,
+                                          const PointPre& P, float ox, float oy, float huber,
+                                          float r[2], float& w, float Jc[2][6], float Jp[2][3]) {
   float local[3], pix[2];
-  project(c, P.p3, local, pix);
+  project(R9, camp, P.p3, local, pix);
   r[0] = pix[0] - ox;
   r[1] = pix[1] - oy;
-  float s = c.camp[0];
-  float asc[2] = {-c.camp[1] / (2.f * s), -c.camp[2] / (2.f * s)};
+  float s = camp[0];
+  float asc[2] = {-camp[1] / (2.f * s), -camp[2] / (2.f * s)};
   float rn = sqrtf(fmaxf(r[0] * r[0] + r[1] * r[1], 1e-30f));
   w = fminf(1.f, huber / rn);
-  const float* R9 = c.R9;
   const float px = P.p3[0], py = P.p3[1], pz = P.p3[2];
+#pragma unroll
   for (int k = 0; k < 2; ++k) {
     float dl[3];
     if (quat) {
@@ -165,15 +179,21 @@ __device__ void obs_block(int quat, const Cam& c, const PointPre& P, float ox, f
       dl[2] = R9[k] * py - R9[3 + k] * px;
     } else {
       float Cp[3] = {px, -pz, py};
+#pragma unroll
       for (int j = 0; j < 3; ++j)
-        dl[j] = c.dS[k * 9 + j * 3 + 0] * Cp[0] + c.dS[k * 9 + j * 3 + 1] * Cp[1] +
-                c.dS[k * 9 + j * 3 + 2] * Cp[2];
+        dl[j] = dS[k * 9 + j * 3 + 0] * Cp[0] + dS[k * 9 + j * 3 + 1] * Cp[1] +
+                dS[k * 9 + j * 3 + 2] * Cp[2];
     }
+#pragma unroll
     for (int j = 0; j < 3; ++j) Jc[k][j] = asc[k] * dl[j];
-    Jc[k][3 + k] = c.camp[1 + k] * 0.5f;
+    Jc[k][3 + k] = camp[1 + k] * 0.5f;
     Jc[k][4 - k] = 0.f;
     Jc[k][5] = -asc[k] * local[k] / s;
-    for (int j = 0; j < 6; ++j) Jc[k][j] *= c.free[j];
+    if (free) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) Jc[k][j] *= free[j];
+    }
+#pragma unroll
     for (int q = 0; q < 3; ++q)
       Jp[k][q] = asc[k] * (R9[k] * P.J3B[q] + R9[3 + k] * P.J3B[3 + q] + R9[6 + k] * P.J3B[6 + q]);
   }
@@ -183,6 +203,7 @@ __device__ void obs_block(int quat, const Cam& c, const PointPre& P, float ox, f
 // 00,01,02,11,12,22) and the point gradient g_p = -sum w Jp^T r.
 __device__ __forceinline__ void add_point_block(float w, const float Jp[2][3], const float r[2],
                                                 float vt[6], float gp[3]) {
+#pragma unroll
   for (int k = 0; k < 2; ++k) {
     float a = w * Jp[k][0], b = w * Jp[k][1], cc = w * Jp[k][2];
     vt[0] += a * Jp[k][0]; vt[1] += a * Jp[k][1]; vt[2] += a * Jp[k][2];
@@ -193,7 +214,7 @@ __device__ __forceinline__ void add_point_block(float w, const float Jp[2][3], c
 
 // Inverse of the LM-damped 3x3 point block (ba_pallas.py _point_block_inv +
 // _inv3x3_rows); zeros when points are held fixed.
-__device__ void point_inv(const float vt[6], float lam, int opt, float Vi[9]) {
+__device__ __forceinline__ void point_inv(const float vt[6], float lam, int opt, float Vi[9]) {
   if (!opt) {
     for (int i = 0; i < 9; ++i) Vi[i] = 0.f;
     return;
@@ -235,7 +256,7 @@ __device__ void point_inv(const float vt[6], float lam, int opt, float Vi[9]) {
 //     one [V][27] buffer in shared memory (a barrier before and after; the
 //     warps' partials pass through their staging area): a fixed order, and
 //     shared memory of 38 KB + 308 bytes a view, so K1 takes up to ~630
-//     views (K2, 424 bytes a view, ~540). One partial per chunk. Masked
+//     views, BA's view ceiling (K2 takes ~990). One partial per chunk. Masked
 //     (track, view) entries are skipped (their X, Y columns are zeros).
 //   schur_product: S_p = X Y^T over the upper-triangle 32 x 32 output tiles
 //     only (the product is symmetric), split over K by chunks; 64 threads, a
@@ -260,13 +281,15 @@ constexpr int PROD_NT = 64;     // threads of schur_product, a 4 x 4 micro-tile 
 __device__ __forceinline__ int upper6(int a, int b) { return a * 6 - a * (a - 1) / 2 + (b - a); }
 
 __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
-    int quat, const float* __restrict__ pT, const float* __restrict__ obsT,
-    const float* __restrict__ maskT, const float* __restrict__ rot,
-    const float* __restrict__ camp, const float* __restrict__ free,
+    int quat, const float* pT_a, const float* pT_b, const float* __restrict__ obsT,
+    const float* __restrict__ maskT, const float* rot_a, const float* rot_b,
+    const float* camp_a, const float* camp_b, const float* __restrict__ free,
     const float* __restrict__ state, float huber, int opt, int V, int T, int G, int ldx,
     float* __restrict__ Xk, float* __restrict__ Yk, int* __restrict__ counts,
     float* __restrict__ vpart) {
   if (state[DONE] != 0.f) return;
+  const bool cur = state[CUR] != 0.f;
+  const float* __restrict__ pT = cur ? pT_b : pT_a;
   extern __shared__ float smem[];
   constexpr int NW = BLK_NT / 32;
   constexpr int STAGE = 2 * 3 * 192;  // floats of a warp's staging area
@@ -286,7 +309,7 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
   const float lam = state[LAM];
 
   __shared__ int seen[TC];
-  fill_cams(quat, rot, camp, free, V, cams);
+  fill_cams(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, V, cams);
   for (int i = tid; i < V * NU; i += BLK_NT) usum[i] = 0.f;
   if (tid < TC) seen[tid] = 0;
   __syncthreads();
@@ -325,12 +348,14 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
     PointPre P;
     float vt[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3] = {0.f, 0.f, 0.f};
     if (live) {
-      point_pre(pT, T, t, P);
+      const float p4[4] = {pT[t], pT[T + t], pT[2 * T + t], pT[3 * T + t]};
+      point_pre(p4, P);
       for (int v = gl; v < V; v += G) {
         if (maskT[v * T + t] == 0.f) continue;
         float r[2], w, Jc[2][6], Jp[2][3];
-        obs_block(quat, cams[v], P, obsT[(v * 2) * T + t], obsT[(v * 2 + 1) * T + t], huber,
-                  r, w, Jc, Jp);
+        const Cam& cv = cams[v];
+        obs_block(quat, cv.R9, cv.dS, cv.camp, cv.free, P, obsT[(v * 2) * T + t],
+                  obsT[(v * 2 + 1) * T + t], huber, r, w, Jc, Jp);
         add_point_block(w, Jp, r, vt, gp);
       }
     }
@@ -352,8 +377,9 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
       if (live && v < V) {
         if (maskT[v * T + t] != 0.f) {
           float r[2], w, Jc[2][6], Jp[2][3];
-          obs_block(quat, cams[v], P, obsT[(v * 2) * T + t], obsT[(v * 2 + 1) * T + t], huber,
-                    r, w, Jc, Jp);
+          const Cam& cv = cams[v];
+          obs_block(quat, cv.R9, cv.dS, cv.camp, cv.free, P, obsT[(v * 2) * T + t],
+                    obsT[(v * 2 + 1) * T + t], huber, r, w, Jc, Jp);
           for (int a = 0; a < 6; ++a) {
             for (int q = 0; q < 3; ++q) Y[a][q] = w * (Jc[0][a] * Jp[0][q] + Jc[1][a] * Jp[1][q]);
             for (int q = 0; q < 3; ++q)
@@ -593,11 +619,12 @@ __global__ void __launch_bounds__(NT) schur_reduce_kernel(
 //     blocks a CTA).
 // No pivoting, no clamp: a pivot that is not positive makes the whole step
 // NaN, every camera's (pinned and unobserved ones too, whose NaN K2's cost
-// would not see), so K2's cost is NaN and K4 rejects the step and raises
-// lambda, as Ceres treats a failed Cholesky. The plain version's LU solves
-// an indefinite system; a damped reduced camera system is positive definite,
-// and only f32 rounding at a small lambda makes it otherwise. Then the
-// kernel retracts the cameras.
+// would not see), so K2's cost is NaN and its last CTA rejects the step and
+// raises lambda, as Ceres treats a failed Cholesky. The plain version's LU
+// solves an indefinite system; a damped reduced camera system is positive
+// definite, and only f32 rounding at a small lambda makes it otherwise. Then
+// the kernel retracts the cameras into the half of the camera buffers that
+// state[CUR] does not name.
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARP_SOLVE_V = 5;  // views of the one-warp solve (n <= 30)
@@ -632,18 +659,32 @@ __device__ __forceinline__ void retract_camera(int quat, const float* d, const f
   co[4] += d[4];
 }
 
+// The cameras K3 reads (the half state[CUR] names) and the half it writes
+// the candidate into.
+struct CamHalves {
+  const float *rot, *camp;
+  float *rot_c, *camp_c;
+};
+
+__device__ __forceinline__ CamHalves cam_halves(const float* state, float* rot_a, float* rot_b,
+                                                float* camp_a, float* camp_b) {
+  const bool cur = state[CUR] != 0.f;
+  return {cur ? rot_b : rot_a, cur ? camp_b : camp_a, cur ? rot_a : rot_b, cur ? camp_a : camp_b};
+}
+
 template <int V>
 __global__ void __launch_bounds__(32) camera_solve_warp_kernel(
     int quat, const float* __restrict__ S, const float* __restrict__ dU,
     const float* __restrict__ rhs, const float* __restrict__ free,
-    const float* __restrict__ state, const float* __restrict__ rot,
-    const float* __restrict__ camp, float* __restrict__ delta, float* __restrict__ rot_c,
-    float* __restrict__ camp_c) {
+    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
+    float* __restrict__ delta) {
   constexpr int N = 6 * V;
   __shared__ float Ls[N][N + 1];
   __shared__ float ds[32];
   const int i = threadIdx.x;
   const bool row = i < N;
+  const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
+  const float *rot = h.rot, *camp = h.camp;
   // Every load first: row i of S, dU, rhs and the free mask of unknown i,
   // camera i's parameters and the scalar state.
   float a[N];
@@ -715,16 +756,15 @@ __global__ void __launch_bounds__(32) camera_solve_warp_kernel(
   if (row) delta[i] = dl;
   ds[i] = dl;
   __syncwarp();
-  if (i < V) retract_camera(quat, ds + 6 * i, q, cp, rot_c + 4 * i, camp_c + 8 * i);
+  if (i < V) retract_camera(quat, ds + 6 * i, q, cp, h.rot_c + 4 * i, h.camp_c + 8 * i);
 }
 
 template <int NT>
 __global__ void __launch_bounds__(NT) camera_solve_kernel(
     int quat, const float* __restrict__ S, const float* __restrict__ dU,
     const float* __restrict__ rhs, const float* __restrict__ free,
-    const float* __restrict__ state, const float* __restrict__ rot,
-    const float* __restrict__ camp, int V, float* __restrict__ delta,
-    float* __restrict__ rot_c, float* __restrict__ camp_c) {
+    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
+    int V, float* __restrict__ delta) {
   const int n = 6 * V, N = n + 1, ld = round4(N);
   extern __shared__ __align__(16) float solve_smem[];
   float* rds = solve_smem;            // [n]       1 / Jacobi scale
@@ -923,7 +963,7 @@ __global__ void __launch_bounds__(NT) camera_solve_kernel(
 
   // A failed factorization (a pivot not positive, or a free unknown that
   // came out non-finite) fails the whole step, pinned and unobserved cameras
-  // included, so that no part of it can pass K4's cost test; otherwise a
+  // included, so that no part of it can pass K2's cost test; otherwise a
   // pinned parameter's step is exactly 0.
   for (int i = tid; i < n; i += NT)
     if (fr[i] != 0.f && !isfinite(xs[i])) s_failed = 1;
@@ -933,8 +973,10 @@ __global__ void __launch_bounds__(NT) camera_solve_kernel(
     delta[i] = failed ? __int_as_float(0x7fc00000)
                       : (fr[i] != 0.f ? xs[i] * rds[i] * fr[i] : 0.f);
   __syncthreads();
+  const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
   for (int v = tid; v < V; v += NT)
-    retract_camera(quat, delta + 6 * v, rot + 4 * v, camp + 8 * v, rot_c + 4 * v, camp_c + 8 * v);
+    retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
+                   h.camp_c + 8 * v);
 }
 
 // The cluster version, for a matrix too large for one CTA's shared memory:
@@ -982,9 +1024,8 @@ template <bool G>
 __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
     int quat, const float* __restrict__ S, const float* __restrict__ dU,
     const float* __restrict__ rhs, const float* __restrict__ free,
-    const float* __restrict__ state, const float* __restrict__ rot,
-    const float* __restrict__ camp, int V, size_t rows_max, float* gscratch,
-    float* __restrict__ delta, float* __restrict__ rot_c, float* __restrict__ camp_c) {
+    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
+    int V, size_t rows_max, float* gscratch, float* __restrict__ delta) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n = 6 * V, N = n + 1, nblk = (N + RB - 1) / RB, npan = (n + PW - 1) / PW;
@@ -1243,8 +1284,10 @@ __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
     delta[i] = failed ? __int_as_float(0x7fc00000)
                       : (fr[i] != 0.f ? xs[i] * rds[i] * fr[i] : 0.f);
   __syncthreads();
+  const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
   for (int v = tid; v < V; v += CL_NT)
-    retract_camera(quat, delta + 6 * v, rot + 4 * v, camp + 8 * v, rot_c + 4 * v, camp_c + 8 * v);
+    retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
+                   h.camp_c + 8 * v);
 }
 
 // The camera solve's launch for V > WARP_SOLVE_V views: the one-CTA kernel
@@ -1283,153 +1326,314 @@ SolvePlan solve_plan(int V) {
 
 // ---------------------------------------------------------------------------
 // K2: point_update_cost — replaces ba_pallas.py point_update_cost (and pass 2
-// of ba_fused.py run_lm).
+// of ba_fused.py run_lm); its last CTA applies the accept / lambda / done
+// rule of ba_fused.py run_lm (:457-474; the same as ba.py:501-513), K4
+// lm_accept, which has no launch of its own.
 //
-// Bound: one thread per track does ~2V observation blocks (~600 FMA each)
-// and reads 4 + 3V floats: FMA-bound, with every input read coalesced along
-// the track axis. Design: the blocks are recomputed rather than stored by K1
-// (storing W and V^-1 would cost 24V floats per track of traffic);
-// W^T dc folds into the same pass as sum_k w Jp_k (Jc_k . dc); the retracted
-// point is projected through the candidate cameras in a second pass over
-// views; each CTA reduces its robust cost in a fixed tree order into one
-// partial, which K4 sums in order. With update_points = 0 and the current
-// cameras as candidates, it computes the initial cost (ba_fused.py cost_of).
-__global__ void __launch_bounds__(NT) point_update_cost_kernel(
-    int quat, const float* __restrict__ pT, const float* __restrict__ obsT,
-    const float* __restrict__ maskT, const float* __restrict__ rot,
-    const float* __restrict__ camp, const float* __restrict__ free,
-    const float* __restrict__ state, const float* __restrict__ delta,
-    const float* __restrict__ rot_c, const float* __restrict__ camp_c, float huber,
-    int update_points, int V, int T, float* __restrict__ p_out,
-    float* __restrict__ cost_part) {
-  if (state && state[DONE] != 0.f) return;
-  extern __shared__ float smem[];
-  Cam* cams = reinterpret_cast<Cam*>(smem);
-  Cam* cams_n = cams + V;
-  float* dl = reinterpret_cast<float*>(cams_n + V);  // [V*6]
-  __shared__ float red[NT / 32];
-  const int tid = threadIdx.x;
-  if (update_points) {
-    fill_cams(quat, rot, camp, free, V, cams);
-    for (int i = tid; i < V * 6; i += NT) dl[i] = delta[i];
-  }
-  fill_cams(quat, rot_c, camp_c, nullptr, V, cams_n);
-  const float lam = state ? state[LAM] : 0.f;
-  __syncthreads();
+// Bound: per observed (track, view) entry ~120 FMA in the point pass (the
+// Jacobians, the point block and gradient, W^T dc) and ~20 in the cost pass,
+// against 12 bytes of obsT and maskT: at 16 x 8192 0.5 us of either on the
+// f32 peak or the HBM rate. At the main path's sizes what sets the time is
+// the launch, the chain of dependent loads and math in each warp, and the
+// grid-wide tail. The blocks are recomputed rather than stored by K1
+// (storing W and V^-1 would cost 24V floats per track of traffic).
+// Design (the layout of 32 tracks by view slices; K1's G-lanes-per-track
+// scheme, with its cp.async input tile, was not built: with one lane a track
+// and a warp a view slice every load is already 128 coalesced bytes, and G
+// lanes a track would add a shuffle reduction per track to the chain of
+// dependent math that sets K2's time):
+//   - a CTA takes 32 consecutive tracks, one a lane, and its W warps take the
+//     views w, w + W, w + 2W, ... of the same 32 tracks: every load of obsT
+//     and maskT is 128 coalesced bytes along the track axis, the grid is
+//     ceil(T / 32) CTAs (256 at 16 x 8192), and a warp walks about four
+//     views, not V: W = ceil(V / 4) up to 16, the fastest of 1-16 warps at
+//     3 x 7800, 16 x 8192 and 64 x 4096 on an H100 (ba_kernels.py
+//     _k2_warps).
+//   - every load the point pass needs is issued before the scalar state
+//     arrives: the warp's first view, both halves of the lane's point and
+//     of the thread's camera (state[CUR] then picks); each view's loads are
+//     issued one view ahead.
+//   - each warp sums its views' point block (upper triangle, 6), g_p (3) and
+//     W^T dc = sum w Jp_k (Jc_k . dc) (3) per track in registers; the warps'
+//     sums meet in shared memory and warp 0 adds them in warp order, forms
+//     dp = V^-1 (g_p - W^T dc), retracts the point on S^3, writes it and
+//     shares the new dehomogenized point; the cost pass splits over the same
+//     views, and its per-track sums meet in warp order too, then a shuffle
+//     tree over the lanes: one partial per CTA, in a fixed order.
+//   - per-view tables in shared memory, built by every CTA: the candidate
+//     camera's R9 and camp[0..4] (14 floats) and, for the point pass, the
+//     current one's R9, camp[0..4], the two pixel rows of its Euler
+//     derivatives (zeros for quaternions) and dc * free (38): 208 bytes a
+//     view and 25 KB of static buffers, so K2 takes ~990 views and K1 (308
+//     bytes a view, ~630) sets BA's view ceiling. Tables built once per
+//     launch and staged from global memory were not tried: the CTAs build
+//     theirs at the same time, so a build costs the critical path once (the
+//     math of one camera, after loads issued before the state arrives);
+//     staging would move that math into a launch of its own (~2-3 us, what
+//     folding K4 saved) or into K3, and replace the loads of rot and camp by
+//     loads of the table, with the same latency.
+//   - every small array is indexed by constants in unrolled loops, and every
+//     device function is inlined: no spills (-Xptxas -v on sm_90a).
+//   - the accept tail: each CTA writes its partial, fences and takes a ticket
+//     (atomicAdd on a device counter); the CTA with the last ticket resets
+//     the counter for the next launch, sums the partials in index order
+//     (lane l the partials l, l + 32, ..., then a shuffle tree: bit-stable),
+//     applies the rule and writes the other state slot. The candidate points
+//     go to the half of the point buffer that state[CUR] does not name, as
+//     K3's candidate cameras do, so an accepted step only flips state[CUR].
+//     A NaN cost (a failed camera step) is not below the current one: the
+//     step is rejected and lambda raised.
+// With state_in null it computes the initial cost (ba_fused.py cost_of): the
+// current cameras as candidates, the points as they are, and writes the
+// first state. With state_out null it stops at the partials (to time the
+// tail). No float atomics: results are bit-stable from run to run.
 
-  const int t = blockIdx.x * NT + tid;
-  float rho_sum = 0.f;
-  if (t < T) {
-    float p4[4];
-    for (int i = 0; i < 4; ++i) p4[i] = pT[i * T + t];
-    if (update_points) {
-      PointPre P;
-      point_pre(pT, T, t, P);
-      float vt[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3] = {0.f, 0.f, 0.f};
-      float wd[3] = {0.f, 0.f, 0.f};
-      for (int v = 0; v < V; ++v) {
-        if (maskT[v * T + t] == 0.f) continue;
-        float r[2], w, Jc[2][6], Jp[2][3];
-        obs_block(quat, cams[v], P, obsT[(v * 2) * T + t], obsT[(v * 2 + 1) * T + t], huber,
-                  r, w, Jc, Jp);
-        add_point_block(w, Jp, r, vt, gp);
-        for (int k = 0; k < 2; ++k) {
-          float jd = 0.f;
-          for (int a = 0; a < 6; ++a) jd += Jc[k][a] * dl[v * 6 + a];
-          for (int q = 0; q < 3; ++q) wd[q] += w * jd * Jp[k][q];
-        }
-      }
-      float Vi[9];
-      point_inv(vt, lam, 1, Vi);
-      float tmp[3], dp[3];
-      for (int q = 0; q < 3; ++q) tmp[q] = gp[q] - wd[q];
-      for (int q = 0; q < 3; ++q)
-        dp[q] = Vi[q * 3 + 0] * tmp[0] + Vi[q * 3 + 1] * tmp[1] + Vi[q * 3 + 2] * tmp[2];
-      float nrm2 = 0.f;
-      for (int j = 0; j < 4; ++j) {
-        p4[j] = P.p4[j] + P.B[j * 3 + 0] * dp[0] + P.B[j * 3 + 1] * dp[1] + P.B[j * 3 + 2] * dp[2];
-        nrm2 += p4[j] * p4[j];
-      }
-      const float nrm = sqrtf(fmaxf(nrm2, 1e-40f));
-      for (int j = 0; j < 4; ++j) p4[j] /= nrm;
-    }
-    if (p_out)
-      for (int j = 0; j < 4; ++j) p_out[j * T + t] = p4[j];
+constexpr int K2_TRACKS = 32;  // tracks per CTA, one a lane
+constexpr int K2_MAXW = 16;    // warps per CTA at most
+constexpr int NQ = 12;         // per-track sums: point block (6), g_p (3), W^T dc (3)
+constexpr int TAB_CAND = 14;   // candidate table: R9 (9), camp[0..4] (5)
+constexpr int TAB_CUR = 38;    // current table: R9, camp[0..4], dS rows (18), dc * free (6)
 
-    const float sw = safe_w(p4[3]);
-    const float p3[3] = {p4[0] / sw, p4[1] / sw, p4[2] / sw};
-    const float d2 = huber * huber;
-    for (int v = 0; v < V; ++v) {
-      if (maskT[v * T + t] == 0.f) continue;
-      float local[3], pix[2];
-      project(cams_n[v], p3, local, pix);
-      const float rx = pix[0] - obsT[(v * 2) * T + t], ry = pix[1] - obsT[(v * 2 + 1) * T + t];
-      const float s2 = rx * rx + ry * ry;
-      // a NaN residual (a failed camera step) stays NaN, as in torch.clamp:
-      // fmaxf would drop it and count -huber^2
-      rho_sum += s2 <= d2 ? s2 : 2.f * huber * sqrtf(s2 < 1e-20f ? 1e-20f : s2) - d2;
-    }
+// The LM schedule constants of the accept rule.
+struct LMRule {
+  float lam0, func_tol, lam_up, lam_down, min_lam, max_lam;
+};
+
+// One view's cameras as K2 loads them, both halves, before the state says
+// which is current, and its step dc * free (zeros without a step).
+struct CamIn {
+  float rot[2][4], camp[2][5], dc[6];
+};
+
+__device__ __forceinline__ void load_cam(int v, const float* rot_a, const float* rot_b,
+                                         const float* camp_a, const float* camp_b,
+                                         const float* delta, const float* free, CamIn& c) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c.rot[0][k] = rot_a[4 * v + k];
+    c.rot[1][k] = rot_b[4 * v + k];
   }
-  for (int off = 16; off > 0; off >>= 1) rho_sum += __shfl_down_sync(0xffffffffu, rho_sum, off);
-  if ((tid & 31) == 0) red[tid >> 5] = rho_sum;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < NT / 32; ++i) s += red[i];
-    cost_part[blockIdx.x] = 0.5f * s;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    c.camp[0][k] = camp_a[8 * v + k];
+    c.camp[1][k] = camp_b[8 * v + k];
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) c.dc[j] = delta ? delta[6 * v + j] * free[6 * v + j] : 0.f;
+}
+
+// One camera's K2 table from half h of c: R9 and camp[0..4]; with dc, also
+// the two pixel rows of the Euler derivatives and dc * free.
+__device__ __forceinline__ void k2_table(int quat, const CamIn& c, bool h, bool dc,
+                                         float* tab) {
+  float rot[4], R9[9], dS[27];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) rot[k] = h ? c.rot[1][k] : c.rot[0][k];
+  cam_tables(quat, rot, R9, dS);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) tab[i] = R9[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) tab[9 + i] = h ? c.camp[1][i] : c.camp[0][i];
+  if (!dc) return;
+#pragma unroll
+  for (int i = 0; i < 18; ++i) tab[14 + i] = dS[i];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) tab[32 + j] = c.dc[j];
+}
+
+// Loads (m, ox, oy) of view v for column t; zeros past the last view.
+__device__ __forceinline__ void load_obs(const float* __restrict__ obsT,
+                                         const float* __restrict__ maskT, int V, int T, int v,
+                                         int t, float& m, float& ox, float& oy) {
+  m = ox = oy = 0.f;
+  if (v < V) {
+    m = maskT[v * T + t];
+    ox = obsT[(v * 2) * T + t];
+    oy = obsT[(v * 2 + 1) * T + t];
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4: lm_accept — replaces the accept/reject, lambda and done update of
-// ba_fused.py run_lm (:457-474; the same rule as ba.py:501-513).
-//
-// Bound: a copy of the 4T candidate point floats on acceptance, memory-bound
-// and tiny. Design: every CTA sums K2's partials in the same order and so
-// reaches the same decision without a grid-wide sync; CTA 0 alone writes the
-// new scalar state into the other slot and the accepted cameras.
-__global__ void __launch_bounds__(NT) lm_accept_kernel(
-    int init, const float* __restrict__ cost_part, int n_part,
-    const float* __restrict__ state_in, float* __restrict__ state_out, float* __restrict__ rot,
-    float* __restrict__ camp, float* __restrict__ pT, const float* __restrict__ rot_c,
-    const float* __restrict__ camp_c, const float* __restrict__ p_c, int V, int T, float lam0,
-    float func_tol, float lam_up, float lam_down, float min_lam, float max_lam) {
-  __shared__ int s_acc;
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < n_part; ++i) s += cost_part[i];
-    float out[STATE_SIZE] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    int acc = 0;
-    if (init) {
-      out[LAM] = lam0; out[COST] = s; out[INIT_COST] = s;
-    } else if (state_in[DONE] != 0.f) {
-      for (int i = 0; i < STATE_SIZE; ++i) out[i] = state_in[i];
-    } else {
-      const float lam = state_in[LAM], cost = state_in[COST];
-      acc = s < cost;
-      const float rel = (cost - s) / fmaxf(cost, 1e-20f);
-      bool done = acc && rel < func_tol;
-      const float nl = acc ? fmaxf(lam * lam_down, min_lam) : fminf(lam * lam_up, max_lam);
-      done = done || (!acc && nl >= max_lam);
-      out[LAM] = nl;
-      out[COST] = acc ? s : cost;
-      out[ITERS] = state_in[ITERS] + 1.f;
-      out[DONE] = done ? 1.f : 0.f;
-      out[INIT_COST] = state_in[INIT_COST];
-    }
-    if (blockIdx.x == 0)
-      for (int i = 0; i < STATE_SIZE; ++i) state_out[i] = out[i];
-    s_acc = acc;
+__global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
+    int quat, float* pT_a, float* pT_b, const float* __restrict__ obsT,
+    const float* __restrict__ maskT, const float* rot_a, const float* rot_b,
+    const float* camp_a, const float* camp_b, const float* __restrict__ free,
+    const float* __restrict__ state_in, const float* __restrict__ delta, float huber,
+    int update_points, int V, int T, float* __restrict__ state_out,
+    float* __restrict__ cost_part, unsigned int* __restrict__ ticket, LMRule rule) {
+  extern __shared__ float k2_smem[];
+  __shared__ float sums[K2_MAXW][NQ][K2_TRACKS];
+  __shared__ float p3s[3][K2_TRACKS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int t = blockIdx.x * K2_TRACKS + lane;
+  const bool live = t < T;
+  const int tc = live ? t : T - 1;  // a column the idle lanes may load
+  // Every load that the first pass needs is issued before the scalar state
+  // arrives: this warp's first view, both halves of this lane's point and of
+  // this thread's first camera (state[CUR] then picks), so no load waits
+  // on another.
+  const bool init = state_in == nullptr;
+  const bool upd = update_points && !init;
+  float st[STATE_SIZE];
+#pragma unroll
+  for (int i = 0; i < STATE_SIZE; ++i) st[i] = init ? 0.f : state_in[i];
+  float m, ox, oy;
+  load_obs(obsT, maskT, V, T, warp, tc, m, ox, oy);
+  float ph[2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ph[0][j] = pT_a[j * T + tc];
+    ph[1][j] = pT_b[j * T + tc];
+  }
+  CamIn ci;
+  if (tid < V) load_cam(tid, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
+  if (st[DONE] != 0.f) {  // converged: pass the state on
+    if (blockIdx.x == 0 && tid < STATE_SIZE && state_out) state_out[tid] = state_in[tid];
+    return;
+  }
+  const bool cur = st[CUR] != 0.f;
+  float p4[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) p4[j] = cur ? ph[1][j] : ph[0][j];
+  float* tab_c = k2_smem;             // [V][TAB_CAND] candidate cameras
+  float* tab = tab_c + V * TAB_CAND;  // [V][TAB_CUR]  current cameras (point pass)
+  for (int v = tid; v < V; v += blockDim.x) {
+    if (v != tid) load_cam(v, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
+    k2_table(quat, ci, init ? cur : !cur, false, tab_c + v * TAB_CAND);
+    if (upd) k2_table(quat, ci, cur, true, tab + v * TAB_CUR);
   }
   __syncthreads();
-  if (!s_acc) return;
-  if (blockIdx.x == 0) {
-    for (int i = tid; i < V * 4; i += NT) rot[i] = rot_c[i];
-    for (int i = tid; i < V * 8; i += NT) camp[i] = camp_c[i];
+
+  if (upd) {
+    PointPre P;
+    point_pre(p4, P);
+    float q[NQ];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) q[i] = 0.f;
+    for (int v = warp; v < V; v += nw) {  // each view's loads one view ahead
+      float mn, oxn, oyn;
+      load_obs(obsT, maskT, V, T, v + nw, tc, mn, oxn, oyn);
+      if (live && m != 0.f) {
+        const float* c = tab + v * TAB_CUR;
+        float r[2], w, Jc[2][6], Jp[2][3];
+        obs_block(quat, c, c + 14, c + 9, nullptr, P, ox, oy, huber, r, w, Jc, Jp);
+        add_point_block(w, Jp, r, q, q + 6);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float jd = 0.f;
+#pragma unroll
+          for (int a = 0; a < 6; ++a) jd += Jc[k][a] * c[32 + a];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) q[9 + j] += w * jd * Jp[k][j];
+        }
+      }
+      m = mn;
+      ox = oxn;
+      oy = oyn;
+    }
+    load_obs(obsT, maskT, V, T, warp, tc, m, ox, oy);  // the cost pass's first view
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) sums[warp][i][lane] = q[i];
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        for (int w2 = 1; w2 < nw; ++w2) q[i] += sums[w2][i][lane];  // q holds warp 0's
+      float Vi[9], tmp[3], dp[3], pn[4], nrm2 = 0.f;
+      point_inv(q, st[LAM], 1, Vi);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) tmp[j] = q[6 + j] - q[9 + j];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        dp[j] = Vi[j * 3 + 0] * tmp[0] + Vi[j * 3 + 1] * tmp[1] + Vi[j * 3 + 2] * tmp[2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pn[j] = P.p4[j] + P.B[j * 3 + 0] * dp[0] + P.B[j * 3 + 1] * dp[1] + P.B[j * 3 + 2] * dp[2];
+        nrm2 += pn[j] * pn[j];
+      }
+      const float nrm = sqrtf(fmaxf(nrm2, 1e-40f));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pn[j] /= nrm;
+      float* p_out = cur ? pT_a : pT_b;  // the other half
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p_out[j * T + t] = pn[j];
+      }
+      const float sw = safe_w(pn[3]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) p3s[j][lane] = pn[j] / sw;
+    }
+  } else if (warp == 0) {
+    const float sw = safe_w(p4[3]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) p3s[j][lane] = p4[j] / sw;
   }
-  if (p_c)
-    for (int i = blockIdx.x * NT + tid; i < 4 * T; i += gridDim.x * NT) pT[i] = p_c[i];
+  __syncthreads();
+
+  // The robust cost at the candidate cameras and the new point.
+  const float p3[3] = {p3s[0][lane], p3s[1][lane], p3s[2][lane]};
+  const float d2 = huber * huber;
+  float rho = 0.f;
+  for (int v = warp; v < V; v += nw) {
+    float mn, oxn, oyn;
+    load_obs(obsT, maskT, V, T, v + nw, tc, mn, oxn, oyn);
+    if (live && m != 0.f) {
+      const float* c = tab_c + v * TAB_CAND;
+      float local[3], pix[2];
+      project(c, c + 9, p3, local, pix);
+      const float rx = pix[0] - ox, ry = pix[1] - oy;
+      const float s2 = rx * rx + ry * ry;
+      // a NaN residual (a failed camera step) stays NaN, as in torch.clamp:
+      // fmaxf would drop it and count -huber^2
+      rho += s2 <= d2 ? s2 : 2.f * huber * sqrtf(s2 < 1e-20f ? 1e-20f : s2) - d2;
+    }
+    m = mn;
+    ox = oxn;
+    oy = oyn;
+  }
+  sums[warp][0][lane] = rho;
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w2 = 1; w2 < nw; ++w2) rho += sums[w2][0][lane];
+  for (int off = 16; off > 0; off >>= 1) rho += __shfl_xor_sync(FULL, rho, off);
+  if (lane == 0) cost_part[blockIdx.x] = 0.5f * rho;
+  if (!state_out) return;
+
+  // The accept tail, in the CTA that takes the last ticket.
+  unsigned int last = 0;
+  if (lane == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  if (!__shfl_sync(FULL, last, 0)) return;
+  __threadfence();
+  float s = 0.f;
+#pragma unroll 8
+  for (int i = lane; i < (int)gridDim.x; i += 32) s += __ldcg(cost_part + i);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  if (lane != 0) return;
+  *ticket = 0u;
+  float out[STATE_SIZE] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (init) {
+    out[LAM] = rule.lam0;
+    out[COST] = s;
+    out[INIT_COST] = s;
+  } else {
+    const float cost = st[COST];
+    const bool acc = s < cost;
+    const float rel = (cost - s) / fmaxf(cost, 1e-20f);
+    bool done = acc && rel < rule.func_tol;
+    const float nl = acc ? fmaxf(st[LAM] * rule.lam_down, rule.min_lam)
+                         : fminf(st[LAM] * rule.lam_up, rule.max_lam);
+    done = done || (!acc && nl >= rule.max_lam);
+    out[LAM] = nl;
+    out[COST] = acc ? s : cost;
+    out[ITERS] = st[ITERS] + 1.f;
+    out[DONE] = done ? 1.f : 0.f;
+    out[INIT_COST] = st[INIT_COST];
+    out[CUR] = acc != cur ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < STATE_SIZE; ++i) state_out[i] = out[i];
 }
 
 // Lets `fn` take up to SMEM_MAX bytes of shared memory, static and dynamic
@@ -1450,23 +1654,27 @@ int allow_smem(const void* fn) {
   return err;
 }
 
+// The camera solve's arguments, as each of its launches passes them on.
+struct SolveArgs {
+  int quat;
+  const float *S, *dU, *rhs, *free, *state;
+  float *rot_a, *rot_b, *camp_a, *camp_b;
+  int V;
+  float* delta;
+};
+
 template <int K>
-int launch_camera_solve(size_t smem, cudaStream_t st, int quat, const float* S, const float* dU,
-                        const float* rhs, const float* free, const float* state,
-                        const float* rot, const float* camp, int V, float* delta, float* rot_c,
-                        float* camp_c) {
+int launch_camera_solve(size_t smem, cudaStream_t st, const SolveArgs& a) {
   int err = allow_smem((const void*)camera_solve_kernel<K>);
   if (err) return err;
-  camera_solve_kernel<K><<<1, K, smem, st>>>(quat, S, dU, rhs, free, state, rot, camp, V, delta,
-                                             rot_c, camp_c);
+  camera_solve_kernel<K><<<1, K, smem, st>>>(a.quat, a.S, a.dU, a.rhs, a.free, a.state, a.rot_a,
+                                             a.rot_b, a.camp_a, a.camp_b, a.V, a.delta);
   return (int)cudaGetLastError();
 }
 
 template <bool G>
-int launch_cluster_solve(const SolvePlan& p, cudaStream_t st, int quat, const float* S,
-                         const float* dU, const float* rhs, const float* free,
-                         const float* state, const float* rot, const float* camp, int V,
-                         float* gscratch, float* delta, float* rot_c, float* camp_c) {
+int launch_cluster_solve(const SolvePlan& p, cudaStream_t st, const SolveArgs& a,
+                         float* gscratch) {
   int err = allow_smem((const void*)camera_solve_cluster_kernel<G>);
   if (err) return err;
   cudaLaunchAttribute attr[1];
@@ -1481,18 +1689,17 @@ int launch_cluster_solve(const SolvePlan& p, cudaStream_t st, int quat, const fl
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = (int)cudaLaunchKernelEx(&cfg, camera_solve_cluster_kernel<G>, quat, S, dU, rhs, free,
-                                state, rot, camp, V, p.rows_max, gscratch, delta, rot_c, camp_c);
+  err = (int)cudaLaunchKernelEx(&cfg, camera_solve_cluster_kernel<G>, a.quat, a.S, a.dU, a.rhs,
+                                a.free, a.state, a.rot_a, a.rot_b, a.camp_a, a.camp_b, a.V,
+                                p.rows_max, gscratch, a.delta);
   if (err) return err;
   return (int)cudaGetLastError();
 }
 
 template <int V>
-int launch_warp_solve(cudaStream_t st, int quat, const float* S, const float* dU,
-                      const float* rhs, const float* free, const float* state, const float* rot,
-                      const float* camp, float* delta, float* rot_c, float* camp_c) {
-  camera_solve_warp_kernel<V><<<1, 32, 0, st>>>(quat, S, dU, rhs, free, state, rot, camp, delta,
-                                                rot_c, camp_c);
+int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
+  camera_solve_warp_kernel<V><<<1, 32, 0, st>>>(a.quat, a.S, a.dU, a.rhs, a.free, a.state,
+                                                a.rot_a, a.rot_b, a.camp_a, a.camp_b, a.delta);
   return (int)cudaGetLastError();
 }
 
@@ -1506,8 +1713,11 @@ int osfm_camera_solve_scratch_floats(int V) {
   return V <= WARP_SOLVE_V ? 0 : (int)solve_plan(V).scratch;
 }
 
-int osfm_schur_assemble(int quat, const float* pT, const float* obsT, const float* maskT,
-                        const float* rot, const float* camp, const float* free,
+// The points and cameras come as two halves each (a, b), the current one
+// named by state[CUR].
+int osfm_schur_assemble(int quat, const float* pT_a, const float* pT_b, const float* obsT,
+                        const float* maskT, const float* rot_a, const float* rot_b,
+                        const float* camp_a, const float* camp_b, const float* free,
                         const float* state, float huber, int opt, int V, int T, int ldx,
                         int n_chunks, int n_split, int cps, float* Xk, float* Yk, int* counts,
                         float* vpart, float* Ppart, float* S, float* dU, float* rhs,
@@ -1519,9 +1729,9 @@ int osfm_schur_assemble(int quat, const float* pT, const float* obsT, const floa
   const size_t smem = sizeof(Cam) * V + sizeof(float) * V * NU;
   int err = allow_smem((const void*)schur_blocks_kernel);
   if (err) return err;
-  schur_blocks_kernel<<<n_chunks, BLK_NT, smem, st>>>(quat, pT, obsT, maskT, rot, camp, free,
-                                                      state, huber, opt, V, T, G, ldx, Xk, Yk,
-                                                      counts, vpart);
+  schur_blocks_kernel<<<n_chunks, BLK_NT, smem, st>>>(quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b,
+                                                      camp_a, camp_b, free, state, huber, opt, V,
+                                                      T, G, ldx, Xk, Yk, counts, vpart);
   err = (int)cudaGetLastError();
   if (err) return err;
   if (opt) {  // with the points held fixed V^-1 = 0, and S' is blkdiag(U)
@@ -1537,67 +1747,55 @@ int osfm_schur_assemble(int quat, const float* pT, const float* obsT, const floa
   return (int)cudaGetLastError();
 }
 
+// Reads the cameras of the half state[CUR] names and writes the candidate
+// into the other (with state[CUR] = 0: reads rot_a, camp_a, writes rot_b,
+// camp_b).
 int osfm_camera_solve(int quat, const float* S, const float* dU, const float* rhs,
-                      const float* free, const float* state, const float* rot,
-                      const float* camp, int V, float* gscratch, float* delta, float* rot_c,
-                      float* camp_c, void* stream) {
+                      const float* free, const float* state, float* rot_a, float* rot_b,
+                      float* camp_a, float* camp_b, int V, float* gscratch, float* delta,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const SolveArgs a = {quat, S, dU, rhs, free, state, rot_a, rot_b, camp_a, camp_b, V, delta};
   switch (V) {
-    case 1:
-      return launch_warp_solve<1>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
-                                  camp_c);
-    case 2:
-      return launch_warp_solve<2>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
-                                  camp_c);
-    case 3:
-      return launch_warp_solve<3>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
-                                  camp_c);
-    case 4:
-      return launch_warp_solve<4>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
-                                  camp_c);
-    case 5:
-      return launch_warp_solve<5>(st, quat, S, dU, rhs, free, state, rot, camp, delta, rot_c,
-                                  camp_c);
-    default:
-      break;
+    case 1: return launch_warp_solve<1>(st, a);
+    case 2: return launch_warp_solve<2>(st, a);
+    case 3: return launch_warp_solve<3>(st, a);
+    case 4: return launch_warp_solve<4>(st, a);
+    case 5: return launch_warp_solve<5>(st, a);
+    default: break;
   }
   const SolvePlan p = solve_plan(V);
   if (p.global && !gscratch) return (int)cudaErrorInvalidValue;
   if (own_blocks(0, (6 * V + RB) / RB) * 4 > CL_RT) return (int)cudaErrorInvalidValue;
   if (p.cluster)
-    return p.global ? launch_cluster_solve<true>(p, st, quat, S, dU, rhs, free, state, rot, camp,
-                                                 V, gscratch, delta, rot_c, camp_c)
-                    : launch_cluster_solve<false>(p, st, quat, S, dU, rhs, free, state, rot,
-                                                  camp, V, nullptr, delta, rot_c, camp_c);
-  if (p.nt == 256)
-    return launch_camera_solve<256>(p.smem, st, quat, S, dU, rhs, free, state, rot, camp, V,
-                                    delta, rot_c, camp_c);
-  return launch_camera_solve<512>(p.smem, st, quat, S, dU, rhs, free, state, rot, camp, V,
-                                  delta, rot_c, camp_c);
+    return p.global ? launch_cluster_solve<true>(p, st, a, gscratch)
+                    : launch_cluster_solve<false>(p, st, a, nullptr);
+  if (p.nt == 256) return launch_camera_solve<256>(p.smem, st, a);
+  return launch_camera_solve<512>(p.smem, st, a);
 }
 
-int osfm_point_update_cost(int quat, const float* pT, const float* obsT, const float* maskT,
-                           const float* rot, const float* camp, const float* free,
-                           const float* state, const float* delta, const float* rot_c,
-                           const float* camp_c, float huber, int update_points, int V, int T,
-                           float* p_out, float* cost_part, void* stream) {
-  const size_t smem = sizeof(Cam) * 2 * V + sizeof(float) * 6 * V;
+// K2 with its accept tail over ceil(T / 32) CTAs of `warps` warps. cost_part
+// holds one float per CTA; ticket is a device counter that is 0 before the
+// first launch (each launch leaves it 0). state_in null: the initial cost;
+// state_out null: no tail.
+int osfm_point_update_cost(int quat, float* pT_a, float* pT_b, const float* obsT,
+                           const float* maskT, const float* rot_a, const float* rot_b,
+                           const float* camp_a, const float* camp_b, const float* free,
+                           const float* state_in, const float* delta, float huber,
+                           int update_points, int V, int T, int warps, float* state_out,
+                           float* cost_part, unsigned int* ticket, float lam0, float func_tol,
+                           float lam_up, float lam_down, float min_lam, float max_lam,
+                           void* stream) {
+  if (warps < 1 || warps > K2_MAXW) return (int)cudaErrorInvalidValue;
+  const bool upd = update_points && state_in;
+  const size_t smem = sizeof(float) * V * (TAB_CAND + (upd ? TAB_CUR : 0));
   int err = allow_smem((const void*)point_update_cost_kernel);
   if (err) return err;
-  point_update_cost_kernel<<<(T + NT - 1) / NT, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      quat, pT, obsT, maskT, rot, camp, free, state, delta, rot_c, camp_c, huber, update_points,
-      V, T, p_out, cost_part);
-  return (int)cudaGetLastError();
-}
-
-int osfm_lm_accept(int init, const float* cost_part, int n_part, const float* state_in,
-                   float* state_out, float* rot, float* camp, float* pT, const float* rot_c,
-                   const float* camp_c, const float* p_c, int V, int T, int n_blocks,
-                   float lam0, float func_tol, float lam_up, float lam_down, float min_lam,
-                   float max_lam, void* stream) {
-  lm_accept_kernel<<<n_blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      init, cost_part, n_part, state_in, state_out, rot, camp, pT, rot_c, camp_c, p_c, V, T,
-      lam0, func_tol, lam_up, lam_down, min_lam, max_lam);
+  const LMRule rule = {lam0, func_tol, lam_up, lam_down, min_lam, max_lam};
+  point_update_cost_kernel<<<(T + K2_TRACKS - 1) / K2_TRACKS, 32 * warps, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b, free, state_in, delta, huber,
+      update_points, V, T, state_out, cost_part, ticket, rule);
   return (int)cudaGetLastError();
 }
 

@@ -16,13 +16,15 @@ Port of orthosfm_tpu/solvers/ba.py. The math is the same:
 Per-observation tensors keep the track dimension T minor-most: r (V,2,T),
 Jc (V,2,6,T), Jp (V,2,3,T).
 
-`run` drives one LM loop of four stages (solvers/ba_kernels.py):
-assemble → camera solve + retract → point update + cost → accept. With
+`run` drives one LM loop of three stages (solvers/ba_kernels.py):
+assemble → camera solve + retract → point update + cost + accept. With
 impl "kernel" each stage is a hand-written CUDA kernel, with impl "torch"
-its plain PyTorch version. On the card the loop runs ``max_iterations``
-times with no host sync for either impl (a device `done` flag turns the
-converged iterations into no-ops) and reads the state once at the end; on
-the CPU, where reading `done` syncs nothing, it stops at convergence.
+its plain PyTorch version. The points and cameras live in LM buffers of two
+halves; the scalar state names the current one, and an accepted step flips
+it. On the card the loop runs ``max_iterations`` times with no host sync
+for either impl (a device `done` flag turns the converged iterations into
+no-ops) and reads the state once at the end; on the CPU, where reading
+`done` syncs nothing, it stops at convergence.
 """
 
 from __future__ import annotations
@@ -299,39 +301,32 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     from orthosfm_torch.solvers import ba_kernels as bk
 
     impl = resolve_impl(config.impl, obs.device)
-    if impl == "kernel":
-        stages = (bk.schur_assemble, bk.camera_solve, bk.point_update_cost, bk.lm_accept)
-    else:
-        stages = (bk.normal_eq_schur_ref, bk.camera_solve_ref, bk.point_update_cost_ref,
-                  bk.lm_accept_ref)
-    assemble, solve, update, accept = stages
-
     kind = cams.kind
     T = obs.shape[0]
     pT, obsT, maskT = prepare(points4, obs.to(torch.float32), mask)
     free = cam_mod.free_mask(cams).to(torch.float32).contiguous()
-    rot = cams.rot.to(torch.float32).contiguous().clone()
-    camp = pack_camp(cams)
+    pT2, rot2, camp2 = bk.lm_buffers(pT, cams.rot.to(torch.float32), pack_camp(cams))
     hub = float(config.huber_delta)
-    lm_cfg = bk.LMConfig.of(config)
+    if impl == "kernel":
+        assemble, solve = bk.schur_assemble, bk.camera_solve
+    else:
+        assemble, solve = bk.normal_eq_schur_ref, bk.camera_solve_ref
+    update = bk.PointUpdateCost(kind, pT2, obsT, maskT, rot2, camp2, free, hub, optimize_points,
+                                bk.LMConfig.of(config), plain=impl == "torch")
 
     state = torch.zeros((2, bk.STATE_SIZE), dtype=torch.float32, device=obs.device)
-    _, parts = update(kind, pT, obsT, maskT, rot, camp, free, None, None, rot, camp, hub, False)
-    accept(parts, None, state[0], rot, camp, pT, rot, camp, None, lm_cfg, init=True)
+    update(None, state[0])
     for it in range(config.max_iterations):
         s_in, s_out = state[it % 2], state[(it + 1) % 2]
-        S, dU, rhs = assemble(kind, pT, obsT, maskT, rot, camp, free, s_in, hub,
+        S, dU, rhs = assemble(kind, pT2, obsT, maskT, rot2, camp2, free, s_in, hub,
                               optimize_points)
-        delta, rot_c, camp_c = solve(kind, S, dU, rhs, free, s_in, rot, camp)
-        p_c, parts = update(kind, pT, obsT, maskT, rot, camp, free, s_in, delta,
-                            rot_c, camp_c, hub, optimize_points)
-        accept(parts, s_in, s_out, rot, camp, pT, rot_c, camp_c,
-               p_c if optimize_points else None, lm_cfg)
+        delta = solve(kind, S, dU, rhs, free, s_in, rot2, camp2)
+        update(s_in, s_out, delta)
         if obs.device.type == "cpu" and bool(s_out[bk.DONE] != 0):
             state[config.max_iterations % 2] = s_out
             break
     final = state[config.max_iterations % 2]
-    cams_f = cams.replace(rot=rot, offset=camp[:, 3:5].clone(), scale=camp[:, 0].clone())
+    rot, camp, pT = (bk.current(x, final) for x in (rot2, camp2, pT2))
+    cams_f = cams.replace(rot=rot, offset=camp[:, 3:5].contiguous(), scale=camp[:, 0].contiguous())
     return BAResult(cams=cams_f, points=pT.T[:T], cost=final[bk.COST],
                     initial_cost=final[bk.INIT_COST], iterations=final[bk.ITERS].to(torch.int32))
-

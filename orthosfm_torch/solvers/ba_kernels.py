@@ -1,4 +1,4 @@
-"""The four stages of one bundle-adjustment LM iteration: hand-written CUDA
+"""The three stages of one bundle-adjustment LM iteration: hand-written CUDA
 kernels for Hopper (orthosfm_torch/csrc/ba_kernels.cu) and, beside each, its
 plain PyTorch version.
 
@@ -9,17 +9,25 @@ plain PyTorch version.
                                                                     in-kernel reduced system
                                                                     (a Cholesky on the card, LU in
                                                                     the plain version)
-  point update + cost   point_update_cost    point_update_cost_ref  ba_pallas.point_update_cost,
-                                                                    ba_fused.run_lm pass 2
-  accept                lm_accept            lm_accept_ref          ba_fused.run_lm accept/λ/done
+  point update + cost   PointUpdateCost      point_update_accept_ref  ba_pallas.point_update_cost,
+  + accept              (K2, its last CTA    (point_update_cost_ref   ba_fused.run_lm pass 2 and
+                        the accept rule)     then lm_accept_ref)      accept/λ/done
 
 A wrapper given CPU tensors calls the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
-integer attribute, ``wrapper.launches``.
+integer attribute (``schur_assemble.launches``, ``camera_solve.launches``,
+``PointUpdateCost.launches``); ``launch_counts()`` reads them by kernel name.
 
 The scalar LM state is a float tensor of STATE_SIZE entries
-[λ, cost, iterations, done, initial cost, 0, 0, 0]; ba.run keeps two slots
-and alternates them, so each iteration reads one and writes the other.
+[λ, cost, iterations, done, initial cost, current half, 0, 0]; ba.run keeps
+two slots and alternates them, so each iteration reads one and writes the
+other. The LM buffers (``lm_buffers``) hold the points (2, 4, T), rotations
+(2, V, 4) and packed camera params (2, V, 8) in two halves; the state's
+CUR slot names the current half. K1 reads it, K3 writes the candidate
+cameras and K2 the candidate points into the other half, and an accepted
+step flips CUR: nothing is copied. K1, K3 and K2 and their plain versions
+take the LM buffers; point_update_cost_ref and lm_accept_ref, the two halves
+of K2's plain version, take single tensors.
 
 The kernels are built at first use by orthosfm_torch.kernel_build (nvcc,
 from csrc/ only, into orthosfm_torch/_build/, under a name that hashes the
@@ -39,23 +47,25 @@ from orthosfm_torch import kernel_build
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.solvers import ba
 
-LAM, COST, ITERS, DONE, INIT_COST = 0, 1, 2, 3, 4
+LAM, COST, ITERS, DONE, INIT_COST, CUR = 0, 1, 2, 3, 4, 5
 STATE_SIZE = 8
 
 SOURCE = kernel_build.CSRC / "ba_kernels.cu"
 
 # Launch geometry shared with the CUDA source
-_NT = 256          # threads of K2 and K4
 _TC = 32           # tracks per chunk of K1's block pass (one CTA each)
 _PT = 32           # edge of the product's output tiles
 _NU = 27           # per-view sums of the block pass: U's upper triangle and the rhs
 _PRODUCT_CTAS = 1056  # aim of the product's split over K: eight 64-thread CTAs per SM
-_TARGET_CTAS = 264    # K4's grid: two CTAs per SM on the 132-SM H100
+_K2_TRACKS = 32    # tracks per CTA of K2, one a lane
+_K2_MAXW = 16      # warps per CTA of K2 at most
+_K2_VIEWS_PER_WARP = 4  # views each warp of K2 walks, up to _K2_MAXW warps
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The LM schedule constants lm_accept reads."""
+    """The LM schedule constants of the accept rule (lm_accept_ref and K2's
+    last CTA)."""
 
     lam0: float
     func_tol: float
@@ -77,6 +87,23 @@ def new_state(lam: float, device="cpu") -> torch.Tensor:
     return s
 
 
+def lm_buffers(*xs):
+    """The LM buffers of the given tensors, each (2, *x.shape) with both
+    halves holding x (a fresh state names half 0): ba.run's points (2, 4, T),
+    rotations (2, V, 4) and packed camera params (2, V, 8)."""
+    return tuple(torch.stack([x, x]).contiguous() for x in xs)
+
+
+def current(buf, state):
+    """The half of an LM buffer that state[CUR] names (no host sync)."""
+    return torch.where(state[CUR] != 0, buf[1], buf[0])
+
+
+def _put_candidate(buf, x, state):
+    """Writes x into the half of `buf` that state[CUR] does not name."""
+    buf.copy_(torch.where(state[CUR] != 0, torch.stack([x, buf[1]]), torch.stack([buf[0], x])))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 
@@ -85,7 +112,9 @@ def normal_eq_schur_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_
                         optimize_points):
     """S' (n, n) = blkdiag(U) − W V̂⁻¹ Wᵀ in block-major (view·6 + param)
     order, dU (n,) = diag(U), rhs (n,) = g_c − W V̂⁻¹ g_p, with n = 6V — the
-    contract of the JAX package's ba_pallas.normal_eq_schur."""
+    contract of the JAX package's ba_pallas.normal_eq_schur, at the current
+    halves of the LM buffers pT, rot and camp."""
+    pT, rot, camp = (current(x, state_in) for x in (pT, rot, camp))
     lam = state_in[LAM]
     V, T = obsT.shape[0], obsT.shape[2]
     R, dS = ba.rotation_tensors(kind, rot)
@@ -117,11 +146,14 @@ def retract_params(kind, rot, camp, delta):
 
 def camera_solve_ref(kind, S, dU, rhs, free, state_in, rot, camp):
     """Damped, pinned, Jacobi-scaled dense solve of the reduced camera system
-    (ba._solve_camera_system, torch.linalg.solve) and the camera retraction.
-    Returns (delta (V, 6), rot_c (V, 4), camp_c (V, 8))."""
+    (ba._solve_camera_system, torch.linalg.solve) and the camera retraction
+    of the current half of the LM buffers rot (2, V, 4) and camp (2, V, 8);
+    the candidate cameras go into the other half. Returns delta (V, 6)."""
     delta = ba._solve_camera_system(S, dU, rhs, free, state_in[LAM])
-    rot_c, camp_c = retract_params(kind, rot, camp, delta)
-    return delta.contiguous(), rot_c, camp_c
+    rot_c, camp_c = retract_params(kind, current(rot, state_in), current(camp, state_in), delta)
+    _put_candidate(rot, rot_c, state_in)
+    _put_candidate(camp, camp_c, state_in)
+    return delta.contiguous()
 
 
 def point_update_cost_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, delta, rot_c,
@@ -172,6 +204,39 @@ def lm_accept_ref(cost_part, state_in, state_out, rot, camp, pT, rot_c, camp_c, 
         pT.copy_(torch.where(acc, p_c, pT))
 
 
+def point_update_accept_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, state_out, delta,
+                            huber_delta, update_points, cfg: LMConfig):
+    """K2 with its accept tail, plain: point_update_cost_ref, then
+    lm_accept_ref, on the LM buffers pT (2, 4, T), rot (2, V, 4) and
+    camp (2, V, 8) with the kernel's bookkeeping: the current half is the one
+    state_in[CUR] names, the candidate cameras are in the other, the
+    candidate points are written there, and on acceptance state_out[CUR]
+    names it. With state_in None: the initial cost (current cameras as
+    candidates, points not updated) into state_out; with state_out None: no
+    accept. Returns the cost partials (1,)."""
+    init = state_in is None
+    s = torch.zeros(STATE_SIZE, dtype=pT.dtype, device=pT.device) if init else state_in
+    other = s.clone()
+    other[CUR] = 1.0 - (s[CUR] != 0).to(s.dtype)
+    p_cur, r_cur, c_cur = (current(x, s) for x in (pT, rot, camp))
+    r_c, c_c = (r_cur, c_cur) if init else (current(rot, other), current(camp, other))
+    upd = bool(update_points) and not init
+    p_new, parts = point_update_cost_ref(kind, p_cur, obsT, maskT, r_cur, c_cur, free, state_in,
+                                         delta, r_c, c_c, huber_delta, upd)
+    if upd:
+        _put_candidate(pT, p_new, s)
+    if state_out is None:
+        return parts
+    # lm_accept_ref's copies land in r_cur, c_cur and p_cur, fresh tensors,
+    # and are dropped: the buffers flip instead
+    lm_accept_ref(parts, state_in, state_out, r_cur, c_cur, p_cur, r_c, c_c,
+                  p_new if upd else None, cfg, init=init)
+    if not init:
+        acc = (s[DONE] == 0) & (torch.sum(parts) < s[COST])
+        state_out[CUR] = torch.where(acc, other[CUR], s[CUR])
+    return parts
+
+
 # ---------------------------------------------------------------------------
 # Build and binding
 
@@ -180,13 +245,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "osfm_schur_assemble": [_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "osfm_camera_solve": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-    "osfm_point_update_cost": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
-                               _P, _P, _P],
-    "osfm_lm_accept": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _P],
+    "osfm_schur_assemble": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "osfm_camera_solve": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "osfm_point_update_cost": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                               _I, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
     "osfm_camera_solve_scratch_floats": [_I],
 }
 
@@ -199,6 +262,12 @@ def library() -> ctypes.CDLL:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _halves(t):
+    """Device addresses of the two halves of an LM buffer (2, ...)."""
+    p = t.data_ptr()
+    return p, p + 2 * t.numel()  # half of numel() floats of 4 bytes
 
 
 def _stream():
@@ -223,6 +292,13 @@ def _check(name: str, t, shape, device, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_buffer(name: str, t, shape, device):
+    """An LM buffer of shape (2, *shape)."""
+    if isinstance(t, torch.Tensor) and t.dim() != len(shape) + 1:
+        raise ValueError(f"{name} must be an LM buffer of shape (2, {', '.join(map(str, shape))})")
+    _check(name, t, (2, *shape), device)
+
+
 def _check_kind(kind):
     if kind not in ("quat", "euler"):
         raise ValueError(f"unknown camera kind {kind!r}")
@@ -233,14 +309,14 @@ def _check_problem(kind, pT, obsT, maskT, rot, camp, free):
     V, T = obsT.shape[0], obsT.shape[2]
     if T < 1 or V < 1:
         raise ValueError("empty bundle-adjustment problem")
-    dev = pT.device
+    dev = obsT.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev.type} tensors")
-    _check("pT", pT, (4, T), dev)
+    _check_buffer("pT", pT, (4, T), dev)
     _check("obsT", obsT, (V, 2, T), dev)
     _check("maskT", maskT, (V, T), dev)
-    _check("rot", rot, (V, 4), dev)
-    _check("camp", camp, (V, 8), dev)
+    _check_buffer("rot", rot, (V, 4), dev)
+    _check_buffer("camp", camp, (V, 8), dev)
     _check("free", free, (V, 6), dev)
     return V, T, dev
 
@@ -265,7 +341,8 @@ def schur_plan(V: int, T: int) -> tuple:
 
 def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta,
                    optimize_points):
-    """K1: S', dU, rhs of normal_eq_schur_ref, on the card."""
+    """K1: S', dU, rhs of normal_eq_schur_ref, on the card, from the half of
+    the LM buffers pT, rot and camp that state_in[CUR] names."""
     if pT.device.type == "cpu":
         return normal_eq_schur_ref(kind, pT, obsT, maskT, rot, camp, free, state_in,
                                    huber_delta, optimize_points)
@@ -290,24 +367,26 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     dU = torch.empty((n,), dtype=torch.float32, device=dev)
     rhs = torch.empty((n,), dtype=torch.float32, device=dev)
     err = library().osfm_schur_assemble(
-        int(kind == "quat"), _ptr(pT), _ptr(obsT), _ptr(maskT), _ptr(rot), _ptr(camp),
-        _ptr(free), _ptr(state_in), float(huber_delta), int(opt), V, T, ldx, n_chunks,
-        n_split, cps, Xk, Yk, _ptr(counts), vpart, Ppart, _ptr(S), _ptr(dU), _ptr(rhs),
-        _stream())
+        int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT), *_halves(rot),
+        *_halves(camp), _ptr(free), _ptr(state_in), float(huber_delta), int(opt), V, T, ldx,
+        n_chunks, n_split, cps, Xk, Yk, _ptr(counts), vpart, Ppart, _ptr(S), _ptr(dU),
+        _ptr(rhs), _stream())
     _raise_on(err, "schur_assemble")
     schur_assemble.launches += 1
     return S, dU, rhs
 
 
 def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
-    """K3: delta (V, 6), rot_c (V, 4), camp_c (V, 8) of camera_solve_ref, on
-    the card, by a Cholesky factorization. Where it meets a pivot that is not
-    positive (an indefinite system) every entry of delta is NaN, so the LM
-    step is rejected; the plain version's LU solves such a system."""
+    """K3: camera_solve_ref on the card, by a Cholesky factorization: returns
+    delta (V, 6) and writes the candidate cameras into the half of the LM
+    buffers rot and camp that state_in[CUR] does not name. Where it meets a
+    pivot that is not positive (an indefinite system) every entry of delta
+    is NaN, so the LM step is rejected; the plain version's LU solves such a
+    system."""
     if S.device.type == "cpu":
         return camera_solve_ref(kind, S, dU, rhs, free, state_in, rot, camp)
     _check_kind(kind)
-    V = rot.shape[0]
+    V = rot.shape[1]
     n = 6 * V
     dev = S.device
     _check("S", S, (n, n), dev)
@@ -315,94 +394,92 @@ def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
     _check("rhs", rhs, (n,), dev)
     _check("free", free, (V, 6), dev)
     _check("state_in", state_in, (STATE_SIZE,), dev)
-    _check("rot", rot, (V, 4), dev)
-    _check("camp", camp, (V, 8), dev)
+    _check_buffer("rot", rot, (V, 4), dev)
+    _check_buffer("camp", camp, (V, 8), dev)
     if S.data_ptr() % 16:
         raise ValueError("S must be 16-byte aligned (the kernel reads it as float4)")
     lib = library()
     n_scratch = lib.osfm_camera_solve_scratch_floats(V)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     delta = torch.empty((V, 6), dtype=torch.float32, device=dev)
-    rot_c = torch.empty((V, 4), dtype=torch.float32, device=dev)
-    camp_c = torch.empty((V, 8), dtype=torch.float32, device=dev)
     err = lib.osfm_camera_solve(
         int(kind == "quat"), _ptr(S), _ptr(dU), _ptr(rhs), _ptr(free), _ptr(state_in),
-        _ptr(rot), _ptr(camp), V, _ptr(scratch), _ptr(delta), _ptr(rot_c), _ptr(camp_c),
-        _stream())
+        *_halves(rot), *_halves(camp), V, _ptr(scratch), _ptr(delta), _stream())
     _raise_on(err, "camera_solve")
     camera_solve.launches += 1
-    return delta, rot_c, camp_c
+    return delta
 
 
-def point_update_cost(kind, pT, obsT, maskT, rot, camp, free, state_in, delta, rot_c,
-                      camp_c, huber_delta, update_points):
-    """K2: (p_new (4, T), per-CTA cost partials) of point_update_cost_ref, on
-    the card. ``state_in`` and ``delta`` may be None when update_points is
-    False (the initial-cost mode)."""
-    if pT.device.type == "cpu":
-        return point_update_cost_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, delta,
-                                     rot_c, camp_c, huber_delta, update_points)
-    V, T, dev = _check_problem(kind, pT, obsT, maskT, rot, camp, free)
-    _check("rot_c", rot_c, (V, 4), dev)
-    _check("camp_c", camp_c, (V, 8), dev)
-    if state_in is not None:
-        _check("state_in", state_in, (STATE_SIZE,), dev)
-    if update_points:
-        if state_in is None or delta is None:
-            raise ValueError("point update needs state_in and delta")
-        _check("delta", delta, (V, 6), dev)
-    n_blocks = math.ceil(T / _NT)
-    p_out = torch.empty((4, T), dtype=torch.float32, device=dev) if update_points else None
-    parts = torch.empty((n_blocks,), dtype=torch.float32, device=dev)
-    err = library().osfm_point_update_cost(
-        int(kind == "quat"), _ptr(pT), _ptr(obsT), _ptr(maskT), _ptr(rot), _ptr(camp),
-        _ptr(free), _ptr(state_in), _ptr(delta if update_points else None), _ptr(rot_c),
-        _ptr(camp_c), float(huber_delta), int(bool(update_points)), V, T, _ptr(p_out),
-        _ptr(parts), _stream())
-    _raise_on(err, "point_update_cost")
-    point_update_cost.launches += 1
-    return (p_out if update_points else pT), parts
+def _k2_warps(V: int) -> int:
+    """K2's warps per CTA: one for every _K2_VIEWS_PER_WARP views, up to
+    _K2_MAXW (the fastest of 1, 2, 4, 8 and 16 warps at 3 x 7800, 16 x 8192
+    and 64 x 4096 on an H100, scripts/torch_ba_kernel_turns.py)."""
+    return min(_K2_MAXW, math.ceil(V / _K2_VIEWS_PER_WARP))
 
 
-def lm_accept(cost_part, state_in, state_out, rot, camp, pT, rot_c, camp_c, p_c,
-              cfg: LMConfig, init: bool = False):
-    """K4: lm_accept_ref on the card (in place, no host sync)."""
-    if pT.device.type == "cpu":
-        return lm_accept_ref(cost_part, state_in, state_out, rot, camp, pT, rot_c, camp_c, p_c,
-                             cfg, init=init)
-    dev = pT.device
-    V, T = rot.shape[0], pT.shape[1]
-    if cost_part.dim() != 1:
-        raise ValueError("cost_part must be 1-D")
-    _check("cost_part", cost_part, cost_part.shape, dev)
-    _check("state_out", state_out, (STATE_SIZE,), dev)
-    if not init:
-        _check("state_in", state_in, (STATE_SIZE,), dev)
-    for name, t, shape in (("rot", rot, (V, 4)), ("camp", camp, (V, 8)), ("pT", pT, (4, T)),
-                           ("rot_c", rot_c, (V, 4)), ("camp_c", camp_c, (V, 8))):
-        _check(name, t, shape, dev)
-    if p_c is not None:
-        _check("p_c", p_c, (4, T), dev)
-    n_blocks = max(1, min(math.ceil(4 * T / _NT), _TARGET_CTAS))
-    err = library().osfm_lm_accept(
-        int(bool(init)), _ptr(cost_part), cost_part.shape[0], _ptr(None if init else state_in),
-        _ptr(state_out), _ptr(rot), _ptr(camp), _ptr(pT), _ptr(rot_c), _ptr(camp_c), _ptr(p_c),
-        V, T, n_blocks, cfg.lam0, cfg.func_tol, cfg.lam_up, cfg.lam_down, cfg.min_lam,
-        cfg.max_lam, _stream())
-    _raise_on(err, "lm_accept")
-    lm_accept.launches += 1
+class PointUpdateCost:
+    """K2 with its accept tail, bound to one problem's LM buffers pT
+    (2, 4, T), rot (2, V, 4), camp (2, V, 8): it checks them and allocates
+    its cost partials and ticket once; each call is one launch. Called with
+    (state_in, state_out, delta), it updates the points from the current
+    half into the other, computes the robust cost at the candidate half, and
+    in its last CTA applies lm_accept's rule, writing state_out, whose CUR
+    names the other half on acceptance. With state_in None: the initial
+    cost; with state_out None: no accept tail. Returns the cost partials.
+    With CPU tensors, or plain=True (ba.run's impl "torch"), each call runs
+    point_update_accept_ref."""
 
+    launches = 0
 
-KERNELS = (schur_assemble, camera_solve, point_update_cost, lm_accept)
+    def __init__(self, kind, pT, obsT, maskT, rot, camp, free, huber_delta, update_points,
+                 cfg: LMConfig, plain: bool = False):
+        self.kind, self.pT, self.obsT, self.maskT = kind, pT, obsT, maskT
+        self.rot, self.camp, self.free, self.cfg = rot, camp, free, cfg
+        self.huber_delta, self.update_points = float(huber_delta), bool(update_points)
+        self.plain = plain or pT.device.type == "cpu"
+        if self.plain:
+            return
+        V, T, self.device = _check_problem(kind, pT, obsT, maskT, rot, camp, free)
+        self.V = V
+        warps = _k2_warps(V)
+        self.parts = torch.empty((math.ceil(T / _K2_TRACKS),), dtype=torch.float32,
+                                 device=self.device)
+        self.ticket = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self._args = ((int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT),
+                       *_halves(rot), *_halves(camp), _ptr(free)),
+                      (self.huber_delta, int(self.update_points), V, T, warps),
+                      (_ptr(self.parts), _ptr(self.ticket), cfg.lam0, cfg.func_tol, cfg.lam_up,
+                       cfg.lam_down, cfg.min_lam, cfg.max_lam))
+
+    def __call__(self, state_in, state_out, delta=None):
+        if self.plain:
+            return point_update_accept_ref(self.kind, self.pT, self.obsT, self.maskT, self.rot,
+                                           self.camp, self.free, state_in, state_out, delta,
+                                           self.huber_delta, self.update_points, self.cfg)
+        for name, t, shape in (("state_in", state_in, (STATE_SIZE,)),
+                               ("state_out", state_out, (STATE_SIZE,)),
+                               ("delta", delta, (self.V, 6))):
+            if t is not None:
+                _check(name, t, shape, self.device)
+        if self.update_points and state_in is not None and delta is None:
+            raise ValueError("the point update needs delta")
+        head, mid, tail = self._args
+        err = library().osfm_point_update_cost(*head, _ptr(state_in), _ptr(delta), *mid,
+                                               _ptr(state_out), *tail, _stream())
+        _raise_on(err, "point_update_cost")
+        PointUpdateCost.launches += 1
+        return self.parts
 
 
 def reset_launch_counts():
-    for fn in KERNELS:
-        fn.launches = 0
+    schur_assemble.launches = camera_solve.launches = PointUpdateCost.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """Launches of each kernel since the last reset_launch_counts(), by name;
+    K4 lm_accept has none of its own (it runs in K2's last CTA)."""
+    return {"schur_assemble": schur_assemble.launches, "camera_solve": camera_solve.launches,
+            "point_update_cost": PointUpdateCost.launches}
 
 
 reset_launch_counts()

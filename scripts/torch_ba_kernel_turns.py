@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's BA kernels K1 (schur_assemble) and K3 (camera_solve) of
-several source trees in turns, on one GPU.
+"""Times the port's BA kernels K1 (schur_assemble), K3 (camera_solve) and
+K2 (point_update_cost with the LM accept rule) of several source trees in
+turns, on one GPU.
 
     python3 scripts/torch_ba_kernel_turns.py TREE [TREE ...] [--json OUT]
 
@@ -12,8 +13,12 @@ csrc/ and times them with CUDA events (mean over many launches) at the
 three shapes of the main path: 3 views x 7800 tracks (the local BA,
 n = 18), 16 x 8192 (the global BA and make_problem(), n = 96) and
 64 x 4096 (n = 384), quaternion cameras, points optimized, lambda 1e-3.
-It also times torch.linalg.solve_ex alone on the same prepared system.
-Prints one JSON line per tree and a table; needs CUDA.
+It also times torch.linalg.solve_ex alone on the same prepared system. K2
+is timed with the accept of an LM step: in a tree whose K2 carries the
+accept rule in its last CTA (PointUpdateCost), one launch, and also without
+that tail; in an older tree, its K2 then its K4 (lm_accept, which copies
+the accepted step), and K2 alone. Prints one JSON line per tree and a
+table; needs CUDA.
 """
 
 import argparse
@@ -35,6 +40,43 @@ def _smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _stage_calls(bk, pT, obsT, maskT, rot, camp, free, state):
+    """(K1, K3, K2 with the accept of a step that lowers the cost, K2 without
+    it, the plain Schur system (S, dU, rhs)) as calls of `bk`, whichever tree
+    it comes from: a tree with PointUpdateCost takes the points and cameras
+    as LM buffers (K3 writes its candidate cameras into half 1, where K2
+    reads them and K1 does not), an older one as single tensors."""
+    import torch
+
+    cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
+    s_in = state.clone()
+    s_in[bk.COST] = 1e30
+    s_out = torch.zeros_like(s_in)
+    if hasattr(bk, "PointUpdateCost"):
+        p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+        args = ("quat", p2, obsT, maskT, r2, c2, free, state, 1.0, True)
+        S, dU, rhs = bk.normal_eq_schur_ref(*args)
+        sargs = ("quat", S, dU, rhs, free, state, r2, c2)
+        delta = bk.camera_solve_ref(*sargs)
+        stage = bk.PointUpdateCost("quat", p2, obsT, maskT, r2, c2, free, 1.0, True, cfg)
+        return ((lambda: bk.schur_assemble(*args)), (lambda: bk.camera_solve(*sargs)),
+                (lambda: stage(s_in, s_out, delta)), (lambda: stage(s_in, None, delta)),
+                (S, dU, rhs))
+    args = ("quat", pT, obsT, maskT, rot, camp, free, state, 1.0, True)
+    S, dU, rhs = bk.normal_eq_schur_ref(*args)
+    sargs = ("quat", S, dU, rhs, free, state, rot, camp)
+    delta, rot_c, camp_c = bk.camera_solve_ref(*sargs)
+    uargs = ("quat", pT, obsT, maskT, rot, camp, free, state, delta, rot_c, camp_c, 1.0, True)
+    r_, c_, p_ = rot.clone(), camp.clone(), pT.clone()
+
+    def k2_k4():
+        p_new, parts = bk.point_update_cost(*uargs)
+        bk.lm_accept(parts, s_in, s_out, r_, c_, p_, rot_c, camp_c, p_new, cfg)
+
+    return ((lambda: bk.schur_assemble(*args)), (lambda: bk.camera_solve(*sargs)), k2_k4,
+            (lambda: bk.point_update_cost(*uargs)), (S, dU, rhs))
 
 
 def time_tree(tree):
@@ -79,9 +121,8 @@ def time_tree(tree):
         free = cam_mod.free_mask(cams).float().contiguous()
         rot, camp = cams.rot.contiguous(), ba.pack_camp(cams)
         state = bk.new_state(1e-3, dev)
-        args = ("quat", pT, obsT, maskT, rot, camp, free, state, 1.0, True)
-        S, dU, rhs = bk.normal_eq_schur_ref(*args)
-        sargs = ("quat", S, dU, rhs, free, state, rot, camp)
+        k1, k3, k2, k2_alone, (S, dU, rhs) = _stage_calls(bk, pT, obsT, maskT, rot, camp, free,
+                                                          state)
         # the prepared system of ba.prepare_camera_system, written out: older
         # trees do not have that function
         S_f = S + torch.diag(1e-3 * torch.clamp(dU, min=1e-8))
@@ -91,11 +132,12 @@ def time_tree(tree):
         S_s, b = S_f / d[:, None] / d[None, :], rhs * fm / d
         n = 50 if V <= 16 else 20
         out[f"{V}x{T}"] = {
-            "schur_assemble_ms": cuda_ms(lambda: bk.schur_assemble(*args), n),
-            "camera_solve_ms": cuda_ms(lambda: bk.camera_solve(*sargs), n),
+            "schur_assemble_ms": cuda_ms(k1, n),
+            "camera_solve_ms": cuda_ms(k3, n),
             "solve_ex_ms": cuda_ms(lambda: torch.linalg.solve_ex(S_s, b), n),
-            "device_us_per_call": profile(lambda: (bk.schur_assemble(*args),
-                                                   bk.camera_solve(*sargs)), 10),
+            "point_update_cost_ms": cuda_ms(k2, n),
+            "point_update_cost_no_tail_ms": cuda_ms(k2_alone, n),
+            "device_us_per_call": profile(lambda: (k1(), k3(), k2()), 10),
         }
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
@@ -126,7 +168,9 @@ def main():
         for r in runs:
             t = r[key]
             print(f"{key:8s} {r['tree']:24s} K1 {t['schur_assemble_ms']:.4f} ms   "
-                  f"K3 {t['camera_solve_ms']:.4f} ms   solve_ex {t['solve_ex_ms']:.4f} ms")
+                  f"K3 {t['camera_solve_ms']:.4f} ms   solve_ex {t['solve_ex_ms']:.4f} ms   "
+                  f"K2 + accept {t['point_update_cost_ms']:.4f} ms   "
+                  f"K2 alone {t['point_update_cost_no_tail_ms']:.4f} ms")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"nvidia_smi": smi.stdout.strip(), "runs": runs}, f, indent=1)

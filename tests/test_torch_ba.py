@@ -67,7 +67,8 @@ def test_normal_eq_schur_ref_matches_pallas_interpret(kind, optimize_points):
         cams.kind, pT, obsT, maskT.astype(obsT.dtype), R, dSt, camp, free, lam, delta,
         optimize_points, interpret=True)
     _, pT_t, obsT_t, maskT_t, rot, camp_t, free_t = _port_inputs(cams, pT, obsT, maskT)
-    S, dU, rhs = bk.normal_eq_schur_ref(kind, pT_t, obsT_t, maskT_t, rot, camp_t, free_t,
+    p2, r2, c2 = bk.lm_buffers(pT_t, rot, camp_t)
+    S, dU, rhs = bk.normal_eq_schur_ref(kind, p2, obsT_t, maskT_t, r2, c2, free_t,
                                         bk.new_state(lam), delta, optimize_points)
     scale = float(jnp.max(jnp.abs(S_k)))
     assert float(np.max(np.abs(n(S) - n(S_k)))) / scale < 2e-5
@@ -125,13 +126,15 @@ def test_camera_solve_ref_matches_xla():
     ref = jba._solve_camera_system(S, dU, rhs, free_c, 1e-3)
     ref_cams = jcam.retract(cams, ref)
     tc = cam_mod.from_numpy(cams)
-    delta, rot_c, camp_c = bk.camera_solve_ref("quat", t(S), t(dU), t(rhs),
-                                               cam_mod.free_mask(tc).float(),
-                                               bk.new_state(1e-3), tc.rot, ba.pack_camp(tc))
+    _, r2, c2 = bk.lm_buffers(t(pT), tc.rot, ba.pack_camp(tc))
+    delta = bk.camera_solve_ref("quat", t(S), t(dU), t(rhs), cam_mod.free_mask(tc).float(),
+                                bk.new_state(1e-3), r2, c2)
     scale = float(np.abs(n(ref)).max())
     np.testing.assert_allclose(n(delta), n(ref), atol=1e-4 * scale)
-    np.testing.assert_allclose(n(rot_c), n(ref_cams.rot), atol=1e-6)
-    np.testing.assert_allclose(n(camp_c[:, 3:5]), n(ref_cams.offset), atol=1e-6)
+    # a fresh state names half 0: the candidate is in half 1
+    np.testing.assert_allclose(n(r2[1]), n(ref_cams.rot), atol=1e-6)
+    np.testing.assert_allclose(n(c2[1, :, 3:5]), n(ref_cams.offset), atol=1e-6)
+    assert torch.equal(r2[0], tc.rot)
 
 
 def _run_both(kind, optimize_points, max_iterations, fixed=None):
@@ -171,6 +174,120 @@ def test_full_lm_converges_like_fused(kind):
     assert float(rt.cost) < float(rt.initial_cost) * 1e-2, kind
     assert float(rt.cost) < float(rf.cost) * 1.5 + 1e-6
     assert int(rt.iterations) >= 1
+
+
+@functools.lru_cache(maxsize=None)
+def _rejecting_problem(kind):
+    """The test problem with every free camera's scale 2.5 times too large
+    (scale is pinned, so no step can repair it): from λ₀ = 1e-2 the first two
+    LM steps raise the cost and are rejected, the third is accepted."""
+    cams, points, obs, mask = _problem(kind, num_views=8, n_points=1024)
+    scale = np.asarray(cams.scale).copy()
+    scale[1:] *= 2.5
+    return cams.replace(scale=jnp.asarray(scale)), points, obs, mask
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+@pytest.mark.parametrize("max_iterations", [2, 3, 6])
+def test_lm_with_rejected_steps_matches_fused_interpret(kind, max_iterations):
+    """ba.run's three stages on the CPU, the buffer flip of an accepted step
+    included, against the JAX package's fused LM kernel in interpret mode,
+    over runs whose first two steps are rejected: after two iterations both
+    still hold the initial cameras and cost, after three and six they agree
+    on the accepted steps."""
+    cams, points, obs, mask = _rejecting_problem(kind)
+    kw = dict(max_iterations=max_iterations, function_tolerance=0.0, min_lambda=1e-12,
+              initial_lambda=1e-2)
+    pT, obsT, maskT = _fused_inputs(cams, points, obs, mask)
+    rf = jba._run_fused(cams, pT, obsT, maskT, jcam.free_mask(cams), True,
+                        JBAConfig(use_pallas=False, **kw), n_tracks=obs.shape[0], interpret=True)
+    rt = ba.run(cam_mod.from_numpy(cams), t(points), t(obs), t(mask), True,
+                BundleAdjustConfig(impl="torch", **kw))
+    assert int(rt.iterations) == int(rf.iterations) == max_iterations
+    np.testing.assert_allclose(float(rt.initial_cost), float(rf.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(rt.cost), float(rf.cost), rtol=1e-5)
+    np.testing.assert_allclose(n(rt.cams.rot), n(rf.cams.rot), atol=2e-6)
+    np.testing.assert_allclose(n(rt.cams.offset), n(rf.cams.offset), atol=1e-5)
+    np.testing.assert_allclose(n(rt.points), n(rf.points), atol=1e-5)
+    if max_iterations == 2:
+        assert float(rt.cost) == float(rt.initial_cost)
+        np.testing.assert_array_equal(n(rt.cams.rot), n(cams.rot))
+    else:
+        assert float(rt.cost) < float(rt.initial_cost) * 0.9
+
+
+def _accept_stage_inputs(kind):
+    """One LM iteration's inputs to the fused point-update/accept stage: the
+    LM buffers with the plain camera step's candidate in half 1, and the
+    step."""
+    cams, points, obs, mask = _problem(kind, n_points=512)
+    tc = cam_mod.from_numpy(cams)
+    pT, obsT, maskT = ba.prepare(t(points), t(obs), t(mask))
+    rot, camp, free = tc.rot.contiguous(), ba.pack_camp(tc), cam_mod.free_mask(tc).float()
+    s = bk.new_state(1e-3)
+    p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+    S, dU, rhs = bk.normal_eq_schur_ref(kind, p2, obsT, maskT, r2, c2, free, s, 1.0, True)
+    delta = bk.camera_solve_ref(kind, S, dU, rhs, free, s, r2, c2)
+    return pT, obsT, maskT, rot, camp, free, delta, r2[1].clone(), c2[1].clone()
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+@pytest.mark.parametrize("case", ["accept", "reject", "done", "points fixed", "from half 1"])
+def test_point_update_accept_ref_is_update_then_accept(kind, case):
+    """The plain fused stage equals point_update_cost_ref then lm_accept_ref
+    (which copy the accepted step): the half that its state_out[CUR] names
+    holds what lm_accept_ref leaves in place, and nothing is copied into the
+    current half."""
+    pT, obsT, maskT, rot, camp, free, delta, rot_c, camp_c = _accept_stage_inputs(kind)
+    cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
+    opt = case != "points fixed"
+    p_new, parts = bk.point_update_cost_ref(kind, pT, obsT, maskT, rot, camp, free,
+                                            bk.new_state(1e-3), delta, rot_c, camp_c, 1.0, opt)
+    s_in = bk.new_state(1e-3)
+    s_in[bk.COST] = float(parts.sum()) * (0.5 if case == "reject" else 2.0)
+    s_in[bk.DONE] = float(case == "done")
+    ref_out = torch.zeros(bk.STATE_SIZE)
+    r_ref, c_ref, p_ref = rot.clone(), camp.clone(), pT.clone()
+    bk.lm_accept_ref(parts, s_in, ref_out, r_ref, c_ref, p_ref, rot_c, camp_c,
+                     p_new if opt else None, cfg)
+
+    half = 1 if case == "from half 1" else 0
+    s_in[bk.CUR] = float(half)
+    p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+    r2[1 - half], c2[1 - half] = rot_c, camp_c
+    s_out = torch.zeros(bk.STATE_SIZE)
+    got = bk.point_update_accept_ref(kind, p2, obsT, maskT, r2, c2, free, s_in, s_out, delta,
+                                     1.0, opt, cfg)
+    assert torch.equal(got, parts)
+    accepted = case not in ("reject", "done")
+    assert float(s_out[bk.CUR]) == float(half ^ accepted)
+    expected = ref_out.clone()
+    expected[bk.CUR] = s_out[bk.CUR]
+    assert torch.equal(s_out, expected)
+    for buf, ref in ((r2, r_ref), (c2, c_ref), (p2, p_ref)):
+        assert torch.equal(bk.current(buf, s_out), ref)
+    for buf, orig in ((r2, rot), (c2, camp), (p2, pT)):
+        assert torch.equal(buf[half], orig)  # the current half is never written
+
+
+def test_point_update_accept_ref_initial_cost():
+    """With no state in, the plain fused stage writes the first state: λ₀,
+    the cost at the current cameras and points (also as the initial cost)
+    and half 0 current; without a state out it only returns the partials."""
+    pT, obsT, maskT, rot, camp, free, *_ = _accept_stage_inputs("quat")
+    cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
+    _, parts = bk.point_update_cost_ref("quat", pT, obsT, maskT, rot, camp, free, None, None,
+                                        rot, camp, 1.0, False)
+    p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+    r2[1] += 1.0  # an unrelated other half, never read
+    s_out = torch.full((bk.STATE_SIZE,), 7.0)
+    stage = bk.PointUpdateCost("quat", p2, obsT, maskT, r2, c2, free, 1.0, True, cfg)
+    assert torch.equal(stage(None, s_out), parts)
+    c = float(parts.sum())
+    assert s_out.tolist() == [pytest.approx(1e-4), c, 0.0, 0.0, c, 0.0, 0.0, 0.0]
+    assert torch.equal(p2[1], pT)  # the initial cost moves no point
+    assert torch.equal(stage(None, None), parts)
+    assert bk.launch_counts()["point_update_cost"] == 0
 
 
 def test_fixed_cameras_stay_fixed():
@@ -221,7 +338,7 @@ def test_wrappers_use_plain_versions_on_cpu():
     cfg = BundleAdjustConfig(max_iterations=4, function_tolerance=0.0, impl="kernel")
     r_k = ba.run(tc, tp, to, tm, True, cfg)
     r_t = ba.run(tc, tp, to, tm, True, dataclasses.replace(cfg, impl="torch"))
-    assert all(v == 0 for v in bk.launch_counts().values())
+    assert bk.launch_counts() == {"schur_assemble": 0, "camera_solve": 0, "point_update_cost": 0}
     np.testing.assert_array_equal(n(r_k.points), n(r_t.points))
     assert float(r_k.cost) == float(r_t.cost)
     with pytest.raises(ValueError):
