@@ -18,9 +18,12 @@ Phases:
      at all three beside its plain version, its bound and, for camera_solve,
      torch.linalg.solve_ex alone on the same prepared system, and
      point_update_cost also without its tail (the difference is the time
-     the accept rule adds, lm_accept's row); top2 on random
-     unit descriptors, 8 pairs x 8192 rows x 128 and x 64, with duplicated
-     rows (exact ties), repeated views and databases of 0 and 1 valid rows;
+     the accept rule adds, lm_accept's row); top2 (both directions from
+     one launch) on random unit descriptors, 8 pairs x 8192 rows x 128 and
+     x 64, with duplicated rows (exact ties), repeated views and databases
+     of 0 and 1 valid rows, against its plain version, a second run and
+     the swapped pair table (bit for bit), timed beside its plain version,
+     with the host's time a call;
   3. pose estimation from tracks (run_pose_estimation with the kernels) on
      the 16-view 2048^2 blob scene (7800 tracks), solvers 0 and 3,
      noise-free (mean angular error < 0.01 deg) and with sigma = 1 px pixel
@@ -38,7 +41,12 @@ Phases:
      stage, the counts of features, pairs and tracks, and the launch count
      of top2 over this phase; every view must be placed with a mean angular
      error < 1 deg. Then top2 against its plain version on the real SIFT and
-     SURF stacks of this run, with the cross-checked match counts per pair.
+     SURF stacks of this run, both directions, with the cross-checked match
+     counts per pair, timed beside the plain version and torch.bmm of the
+     gathered stacks (the product alone).
+
+With --parent DIR (a checkout of the parent commit), top2 is also timed in
+turns against DIR's by scripts/torch_top2_turns.py.
 
 Any failed check raises. On success the line before the last is a JSON
 object of per-kernel results, and the last line is
@@ -113,8 +121,9 @@ TOL_STATE_REL = 1e-5      # LM scalar state after accept but its cost, relative
 LM_CFG_ARGS = (1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)  # lam0, func_tol, up, down, min, max
 # top2: the kernel sums each dot product in one FMA chain, the plain
 # version by cuBLAS's f32 GEMM in another order; d2 = 2 - 2 sim of unit
-# vectors differs by a few 1e-7. Indices must agree except on rows whose
-# best and second d2 (plain version) lie within this of each other.
+# vectors differs by a few 1e-7. Indices must agree, in both directions,
+# except on rows whose best and second d2 (plain version) lie within this of
+# each other.
 TOL_TOP2 = 1e-5
 # Phase 5: the JAX package's reference-scale run
 # (testbench/bench_pipeline.py --views 16 --width 2048)
@@ -147,6 +156,21 @@ def cuda_ms(fn, n=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def host_ms(fn, n=20):
+    """Mean host time of fn() over n calls, none of which waits on the card:
+    the enqueue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return t
 
 
 def max_err(a, b):
@@ -581,56 +605,121 @@ class BARecorder:
                 "enqueue_ms_per_it": self.host_s * 1e3 / max(self.max_iterations, 1)}
 
 
-def top2_agreement(stack, bi, bj, ci, cj):
-    """top2 kernel against its plain version on one batch of pairs:
-    (max abs error of best and second d2, that error relative to the largest
-    plain d2, rows whose index differs outside a near tie, near-tie query
-    rows per pair)."""
+def top2_pairs(device, counts):
+    """(bi, bj, ci, cj) on the card: every pair i < j of len(counts) views."""
+    import torch
+
+    n = len(counts)
+    bi = np.array([i for i in range(n) for j in range(i + 1, n)])
+    bj = np.array([j for i in range(n) for j in range(i + 1, n)])
+    return [torch.as_tensor(np.asarray(a, np.int32), device=device)
+            for a in (bi, bj, counts[bi], counts[bj])]
+
+
+def random_top2_set(device, D, n=8192):
+    """Phase 2's random unit descriptors, 11 views x n rows x D, and its 8
+    pairs: exact ties (every database row of view 3 twice, view 2's queries
+    equal to duplicated rows, view 1 against itself with repeated rows), a
+    ragged pair, databases of 0 and 1 valid rows and a short query side."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(0 if D == 128 else 1)
+    stack = torch.randn((11, n, D), generator=gen, device=device)
+    stack /= torch.linalg.vector_norm(stack, dim=-1, keepdim=True)
+    stack[3, n // 2:] = stack[3, :n // 2]
+    stack[2, :n // 4] = stack[3, :n // 4]
+    stack[1, n - 100:] = stack[1, 100:200]
+    pairs = [(0, 1, n, n), (2, 3, n, n), (4, 5, n - 37, n - 100), (6, 7, n, 0),
+             (8, 9, n, 1), (1, 1, n, n), (10, 2, n // 8, n), (3, 0, n, n // 2 + 1)]
+    return stack, [torch.tensor(c, dtype=torch.int32, device=device) for c in zip(*pairs)]
+
+
+def feature_stacks(features, device):
+    """{"sift": (stack, cols), "surf": ...}: the (16, N, D) descriptor stacks
+    of phase 5's views and all their pairs, as match_all_pairs stacks them."""
+    from orthosfm_torch.pipeline import matching as matching_mod
+
+    out = {}
+    for kind in ("sift", "surf"):
+        descs = [f.sift_desc if kind == "sift" else f.surf_desc for f in features]
+        stack, counts = matching_mod._stack_descriptors(descs, max(d.shape[0] for d in descs))
+        out[kind] = (stack, top2_pairs(device, counts))
+    return out
+
+
+def front_end_stacks(device):
+    """feature_stacks of phase 5's scene, rendered and extracted anew."""
+    from orthosfm_torch.config import ReconstructionConfig
+    from orthosfm_torch.pipeline import matching as matching_mod
+
+    _, views = front_end_views(device)
+    features = matching_mod.extract_all_view_features(views, ReconstructionConfig(), device)
+    return feature_stacks(features, device)
+
+
+def top2_work(stack, ci, cj):
+    """(flops, bytes) of one product per pair, both directions' outputs: 2 D
+    FMA operations per (query, database) pair of valid rows; each valid
+    descriptor read once, the six (pairs, N) outputs written once."""
+    N, D = stack.shape[1:]
+    ci, cj = ci.double().cpu(), cj.double().cpu()
+    return (2.0 * float((ci * cj).sum()) * D,
+            4.0 * (float((ci + cj).sum()) * D + 6 * ci.shape[0] * N))
+
+
+def check_top2(name, stack, cols, n_time):
+    """The two-way top2 kernel against top2_ref on one batch of pairs, in
+    both directions (d2 to TOL_TOP2, indices outside near ties); against
+    itself bit for bit (a second run, the swapped pair table); and timed
+    beside the plain version and torch.bmm of the gathered stacks (the
+    product alone). Returns (max abs d2 error, relative, near-tie rows of
+    each pair in either direction, times)."""
     import torch
 
     from orthosfm_torch.ops import matching_kernels as mk
 
-    kb, ks, ki = mk.top2(stack, bi, bj, ci, cj, impl="kernel")
-    rb, rs, ri = mk.top2_ref(stack, bi, bj, ci, cj)
+    bi, bj, ci, cj = cols
+    out = mk.top2(stack, *cols, impl="kernel")
+    again = mk.top2(stack, *cols, impl="kernel")
+    swapped = mk.top2(stack, bj, bi, cj, ci, impl="kernel")
+    ref = mk.top2_ref(stack, *cols)
     torch.cuda.synchronize()
-    err = max(max_err(kb, rb), max_err(ks, rs))
-    rel = max(rel_err(kb, rb), rel_err(ks, rs))
-    rows = torch.arange(stack.shape[1], device=stack.device)[None, :] < ci[:, None]
-    near = ((rs - rb) <= TOL_TOP2) & rows
-    bad = int(((ki != ri) & ~near).sum())
-    return err, rel, bad, near.sum(dim=1)
+    err, rel, bad, near_rows = 0.0, 0.0, 0, 0
+    iota = torch.arange(stack.shape[1], device=stack.device)[None, :]
+    for k, counts in ((0, ci), (3, cj)):
+        (kb, ks, ki), (rb, rs, ri) = out[k:k + 3], ref[k:k + 3]
+        err = max(err, max_err(kb, rb), max_err(ks, rs))
+        rel = max(rel, rel_err(kb, rb), rel_err(ks, rs))
+        near = ((rs - rb) <= TOL_TOP2) & (iota < counts[:, None])
+        bad += int(((ki != ri) & ~near).sum())
+        near_rows = near_rows + near.sum(dim=1)
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    swap = all(torch.equal(a, b) for a, b in zip(out[3:] + out[:3], swapped))
+    print(f"  top2 {name} ({bi.shape[0]} pairs x {stack.shape[1]} x {stack.shape[2]}): max |d2 "
+          f"err| {err:.3e} both ways, index mismatches outside near ties {bad}, near-tie rows "
+          f"{int(near_rows.sum())}; second run identical {same}, swapped pairs bit-equal {swap}")
+    require(err < TOL_TOP2 and bad == 0, f"top2 {name}: {err} {bad}")
+    require(same and swap, f"top2 {name}: not bit-stable ({same}, {swap})")
+    qa, qb = stack[bi.long()], stack[bj.long()].transpose(1, 2)
+    b_ms, b_by = bound(*top2_work(stack, ci, cj))
+    call = lambda: mk.top2(stack, *cols, impl="kernel")  # noqa: E731
+    t = {"ms": cuda_ms(call, n_time), "host_ms": host_ms(call, n_time),
+         "plain_ms": cuda_ms(lambda: mk.top2_ref(stack, *cols), n_time),
+         "bmm_ms": cuda_ms(lambda: torch.bmm(qa, qb), n_time),
+         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    print(f"  top2 {name}: kernel {t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call), plain "
+          f"{t['plain_ms']:.4f} ms, bmm alone {t['bmm_ms']:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}, one product a pair)")
+    return err, rel, near_rows, t
 
 
 def check_top2_random(device):
-    """Phase 2, top2: random unit descriptors with exact ties, repeated views
-    and databases of 0 and 1 valid rows, D = 128 and 64; kernel and plain
-    times at 8 pairs x 8192 x 128."""
-    import torch
-
-    from orthosfm_torch.ops import matching_kernels as mk
-
-    n = 8192
-    gen = torch.Generator(device=device).manual_seed(0)
+    """Phase 2, top2: the random sets at D = 128 and 64."""
     err_all, rel_all, times = 0.0, 0.0, {}
-    # pairs (view i, view j, valid rows of i, valid rows of j)
-    pairs = [(0, 1, n, n), (2, 3, n, n), (4, 5, n - 37, n - 100), (6, 7, n, 0),
-             (8, 9, n, 1), (1, 1, n, n), (10, 2, 1000, n), (3, 0, n, 4097)]
     for D in (128, 64):
-        stack = torch.randn((11, n, D), generator=gen, device=device)
-        stack /= torch.linalg.vector_norm(stack, dim=-1, keepdim=True)
-        stack[3, 4096:] = stack[3, :4096]   # every database row of view 3 twice
-        stack[2, :2048] = stack[3, :2048]   # queries equal to duplicated rows: d2 = 0 twice
-        stack[1, 5000:5100] = stack[1, 100:200]
-        cols = [torch.tensor(c, dtype=torch.int32, device=device) for c in zip(*pairs)]
-        err, rel, bad, near = top2_agreement(stack, *cols)
-        print(f"  top2 random D={D}: 8 pairs x {n}: max |d2 err| {err:.3e}, index "
-              f"mismatches outside near ties {bad}, near-tie rows {int(near.sum())}")
-        require(err < TOL_TOP2 and bad == 0, f"top2 random D={D}")
+        stack, cols = random_top2_set(device, D)
+        err, rel, _, times[f"top2_random_{D}"] = check_top2(f"random D={D}", stack, cols, 5)
         err_all, rel_all = max(err_all, err), max(rel_all, rel)
-        times[f"top2_random_{D}"] = (cuda_ms(lambda: mk.top2(stack, *cols, impl="kernel"), 5),
-                                     cuda_ms(lambda: mk.top2_ref(stack, *cols), 5))
-    for name, (k_ms, p_ms) in times.items():
-        print(f"  {name:18s} kernel {k_ms:.4f} ms   plain {p_ms:.4f} ms  (8 pairs x {n} rows)")
     return err_all, rel_all, times
 
 
@@ -651,28 +740,36 @@ class StageTimer:
         self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
+def front_end_views(device):
+    """Phase 5's scene: (ground-truth cameras, 16 sphere views of 2048^2
+    rendered on the card), the views holding host arrays, as images loaded
+    from files do."""
+    from orthosfm_torch.data.views import View
+    from orthosfm_torch.testbench import render
+
+    gt, images, _ = render.make_scene_views(FRONT_VIEWS, FRONT_WIDTH, FRONT_WIDTH,
+                                            seed=FRONT_SEED, ring_degrees=FRONT_RING_DEG,
+                                            device=device)
+    return gt, [View(i, f"view_{i:02d}.png", FRONT_WIDTH, FRONT_WIDTH, pixels=img.cpu().numpy())
+                for i, img in enumerate(images)]
+
+
 def run_front_end(device):
     """Phase 5: the image front end and pose estimation at reference scale,
     through the functions reconstruct() calls, in its order."""
     import torch
 
     from orthosfm_torch.config import ReconstructionConfig, SolverType
-    from orthosfm_torch.data.views import View
     from orthosfm_torch.ops import ransac_f
     from orthosfm_torch.pipeline import incremental, track_utils
     from orthosfm_torch.pipeline import matching as matching_mod
-    from orthosfm_torch.testbench import metrics, render
+    from orthosfm_torch.testbench import metrics
 
     t0 = time.perf_counter()
-    gt, images, _ = render.make_scene_views(FRONT_VIEWS, FRONT_WIDTH, FRONT_WIDTH,
-                                            seed=FRONT_SEED, ring_degrees=FRONT_RING_DEG,
-                                            device=device)
+    gt, views = front_end_views(device)
     torch.cuda.synchronize()
     print(f"  rendered {FRONT_VIEWS} views of {FRONT_WIDTH}^2 on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    # the views hold host arrays, as images loaded from files do
-    views = [View(i, f"view_{i:02d}.png", FRONT_WIDTH, FRONT_WIDTH, pixels=img.cpu().numpy())
-             for i, img in enumerate(images)]
     cfg = ReconstructionConfig(solver=SolverType.ORTHO_QUATERNION)
     timer = StageTimer()
     t_all = time.perf_counter()
@@ -727,59 +824,51 @@ def run_front_end(device):
 
 def check_top2_real(device, features, cfg):
     """top2 against its plain version on the real SIFT and SURF stacks of
-    phase 5 (all 120 pairs, one direction), with the cross-checked match
-    counts per pair; kernel and plain times on the SIFT stack."""
-    import torch
-
+    phase 5 (all 120 pairs, both directions), with the cross-checked match
+    counts per pair held to their near-tie allowance."""
     from orthosfm_torch.ops import matching as match_ops
-    from orthosfm_torch.ops import matching_kernels as mk
-    from orthosfm_torch.pipeline import matching as matching_mod
 
-    pairs = [(i, j) for i in range(len(features)) for j in range(i + 1, len(features))]
     err_all, rel_all, times = 0.0, 0.0, {}
-    for kind, ratio in (("sift", cfg.matching.lowe_ratio), ("surf", cfg.matching.surf_lowe_ratio)):
-        descs = [f.sift_desc if kind == "sift" else f.surf_desc for f in features]
-        stack, counts = matching_mod._stack_descriptors(descs, max(d.shape[0] for d in descs))
-        bi = np.array([p[0] for p in pairs])
-        bj = np.array([p[1] for p in pairs])
-        fwd = [torch.as_tensor(np.asarray(a, np.int32), device=device)
-               for a in (bi, bj, counts[bi], counts[bj])]
-        bwd = [fwd[1], fwd[0], fwd[3], fwd[2]]
-        err, rel, bad, near = top2_agreement(stack, *fwd)
-        err2, rel2, bad2, near2 = top2_agreement(stack, *bwd)
-        m_k = match_ops.match_pairs_batched(stack, *fwd, lowe_ratio=ratio, impl="kernel")
-        m_t = match_ops.match_pairs_batched(stack, *fwd, lowe_ratio=ratio, impl="torch")
+    for kind, (stack, cols) in feature_stacks(features, device).items():
+        ratio = cfg.matching.lowe_ratio if kind == "sift" else cfg.matching.surf_lowe_ratio
+        err, rel, near, times[f"top2_{kind}"] = check_top2(f"{kind} stack", stack, cols, 20)
+        m_k = match_ops.match_pairs_batched(stack, *cols, lowe_ratio=ratio, impl="kernel")
+        m_t = match_ops.match_pairs_batched(stack, *cols, lowe_ratio=ratio, impl="torch")
         # a pair's cross-checked matches may differ by its near-tie rows
-        allowed = (near + near2).cpu().numpy()
         diff = np.abs((m_k >= 0).sum(dim=1).cpu().numpy() - (m_t >= 0).sum(dim=1).cpu().numpy())
-        near, near2 = int(near.sum()), int(near2.sum())
-        N, D = stack.shape[1:]
-        print(f"  top2 {kind} stack ({len(pairs)} pairs x {N} x {D}): max |d2 err| "
-              f"{max(err, err2):.3e}, index mismatches outside near ties {bad + bad2}, "
-              f"near-tie rows {near + near2}; cross-checked matches kernel "
-              f"{int((m_k >= 0).sum())} plain {int((m_t >= 0).sum())}, per-pair difference "
-              f"max {int(diff.max())}, pairs over their near-tie allowance "
-              f"{int((diff > allowed).sum())}")
-        require(max(err, err2) < TOL_TOP2 and bad + bad2 == 0, f"top2 {kind} stack")
-        require(bool(np.all(diff <= allowed)), f"top2 {kind}: match counts differ")
-        err_all, rel_all = max(err_all, err, err2), max(rel_all, rel, rel2)
-        # the bound: each pair's valid rows, each descriptor read once, the
-        # three (pairs, N) outputs written once
-        ci, cj = counts[bi].astype(np.float64), counts[bj].astype(np.float64)
-        b_ms, b_by = bound(2.0 * float(np.sum(ci * cj)) * D,
-                           4.0 * (float(np.sum(ci + cj)) * D + 3 * len(pairs) * N))
-        t = {"ms": cuda_ms(lambda: mk.top2(stack, *fwd, impl="kernel"), 3),
-             "plain_ms": cuda_ms(lambda: mk.top2_ref(stack, *fwd), 3),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        times[f"top2_{kind}"] = t
-        print(f"  top2_{kind}: kernel {t['ms']:.3f} ms   plain {t['plain_ms']:.3f} ms   bound "
-              f"{b_ms:.5f} ms ({b_by})  ({len(pairs)} pairs x {N} x {D}, one direction)")
+        over = int((diff > near.cpu().numpy()).sum())
+        print(f"  top2 {kind}: cross-checked matches kernel {int((m_k >= 0).sum())} plain "
+              f"{int((m_t >= 0).sum())}, per-pair difference max {int(diff.max())}, pairs over "
+              f"their near-tie allowance {over}")
+        require(over == 0, f"top2 {kind}: match counts differ")
+        err_all, rel_all = max(err_all, err), max(rel_all, rel)
     return err_all, rel_all, times
 
 
+def top2_turns(parent):
+    """scripts/torch_top2_turns.py on the parent tree and this one, in turns
+    (parent, this, this, parent): its JSON runs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "turns.json")
+        proc = subprocess.run([sys.executable, os.path.join(here, "scripts", "torch_top2_turns.py"),
+                               parent, here, here, parent, "--json", out],
+                              capture_output=True, text=True, timeout=900)
+        print("\n".join("  " + ln for ln in proc.stdout.splitlines()))
+        require(proc.returncode == 0, f"top2 turns failed:\n{proc.stderr[-4000:]}")
+        with open(out) as f:
+            return json.load(f)["runs"]
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description="Smoke check of the PyTorch + CUDA port on one GPU")
+    p.add_argument("--parent", default="",
+                   help="a checkout of the parent commit: time top2 against it in turns")
+    args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -863,6 +952,9 @@ def main() -> int:
     errs["top2"], rels["top2"] = max(errs["top2"], err), max(rels["top2"], rel)
     times["top2"] = real_times["top2_sift"]
     print(f"  phase 5 wall time {time.perf_counter() - t0:.2f} s")
+    if args.parent:
+        print(f"== top2 in turns against {args.parent}")
+        real_times["turns"] = top2_turns(args.parent)
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,9 +6,10 @@ src/cuda_sift/matching.cu): exact nearest neighbours by the descriptor
 product, the Lowe ratio test on squared distances (MVE matching.h:126-142)
 and the mutual cross-check (matching.cc:18-36).
 
-The per-row top-2 of every pair runs through ops.matching_kernels.top2: the
-hand-written CUDA kernel for CUDA tensors (it never stores the N x N
-similarity block), its plain PyTorch version for CPU tensors.
+The per-row top-2 of every pair, in both directions, runs through one call
+of ops.matching_kernels.top2: the hand-written CUDA kernel for CUDA tensors
+(one product per pair, never stored), its plain PyTorch version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -17,31 +18,46 @@ import torch
 
 from orthosfm_torch.ops.matching_kernels import BIG, top2
 
+#: match_pairs_batched's mark on the rows of a pair out of range
+BAD_PAIR = -2
+
 
 def match_pairs_batched(stack, bi, bj, ci, cj, lowe_ratio: float = 0.8, impl: str = "auto"):
     """Two-way Lowe-ratio + mutual-consistency matching for a batch of view
-    pairs of one descriptor stack.
+    pairs of one descriptor stack, from one top2 call (both directions of
+    one product per pair).
 
     stack: (V, N, D) descriptors; pair p matches view bi[p] (its first ci[p]
     rows valid) against view bj[p] (first cj[p] rows valid); bi, bj, ci, cj
     (P,) int32 on the stack's device. Returns (P, N) long: the index into
-    view bj[p] of each row of view bi[p], −1 for unmatched. Semantics of the
-    JAX package's match_pairs_batched on stack[bi], iota < ci, stack[bj],
+    view bj[p] of each row of view bi[p], −1 for unmatched, BAD_PAIR on
+    every row of a pair whose views or counts lie out of range (checked
+    where the result is pulled: see check_pulled). Semantics of the JAX
+    package's match_pairs_batched on stack[bi], iota < ci, stack[bj],
     iota < cj."""
     N = stack.shape[1]
     rows = torch.arange(N, device=stack.device)
     r2 = lowe_ratio * lowe_ratio
+    out = top2(stack, bi, bj, ci, cj, impl=impl)
 
-    def oneway(bA, bB, cA, cB):
-        d_best, d_second, idx = top2(stack, bA, bB, cA, cB, impl=impl)
+    def oneway(d_best, d_second, idx, cA):
         ok = (d_best <= r2 * d_second) & (rows[None, :] < cA[:, None]) & (d_best < BIG)
         return torch.where(ok, idx.long(), -1)
 
-    m12 = oneway(bi, bj, ci, cj)  # (P, N)
-    m21 = oneway(bj, bi, cj, ci)  # (P, N)
+    m12 = oneway(*out[:3], ci)  # (P, N)
+    m21 = oneway(*out[3:], cj)  # (P, N)
     back = torch.gather(m21, 1, torch.clamp(m12, 0, max(N - 1, 0)))
     consistent = (m12 >= 0) & (back == rows[None, :])
-    return torch.where(consistent, m12, -1)
+    return torch.where(out[2][:, :1] < 0, BAD_PAIR, torch.where(consistent, m12, -1))
+
+
+def check_pulled(m12):
+    """m12 from match_pairs_batched, pulled to the host (numpy): raises if a
+    pair was out of range, else returns it."""
+    if (m12 == BAD_PAIR).any():
+        raise ValueError("a pair's views lie outside the descriptor stack or its valid counts "
+                         "outside [0, N]")
+    return m12
 
 
 def match_pair(desc1, valid1, desc2, valid2, lowe_ratio: float = 0.8, impl: str = "auto"):

@@ -38,6 +38,15 @@ def _no_timer(name):
     return contextlib.nullcontext()
 
 
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; CUDA without a CUDA device raises at once
+    rather than run on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass device="cpu" to run on the CPU')
+    return device
+
+
 #: RANSAC-F pair chunk: (chunk, iterations, M) Sampson blocks stay ≲ 0.27 GB
 RANSAC_BLOCK_ELEMS = 1 << 26
 
@@ -151,11 +160,13 @@ def _assemble_features(view: View, config: ReconstructionConfig, sift_np, surf_n
 
 
 def extract_all_view_features(views: List[View], config: ReconstructionConfig,
-                              device="cpu", timer=None) -> List[ViewFeatures]:
-    """Batched extraction: views group by (padded shape, halvings) and each
+                              device="cuda", timer=None) -> List[ViewFeatures]:
+    """Batched extraction on `device` (CUDA unless the caller names another;
+    see checked_device): views group by (padded shape, halvings) and each
     group's SIFT and SURF run once over the group's view stack.
     timer: optional factory of a context manager per named stage (chip_smoke.py
     times the stages with one)."""
+    device = checked_device(device)
     stage = timer or _no_timer
     with stage("prepare_gray"):
         prepared = _prepare_grays(views, config, device)
@@ -203,7 +214,8 @@ def _batched_pair_matches(stack, counts, pairs, ratio):
     bj = np.array([p[1] for p in pairs])
     args = [torch.as_tensor(np.asarray(a, np.int32), device=stack.device)
             for a in (bi, bj, counts[bi], counts[bj])]
-    return match_ops.match_pairs_batched(stack, *args, lowe_ratio=float(ratio)).cpu().numpy()
+    return match_ops.check_pulled(
+        match_ops.match_pairs_batched(stack, *args, lowe_ratio=float(ratio)).cpu().numpy())
 
 
 def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
@@ -353,9 +365,9 @@ def _verify_fundamental(candidates, features, config, device):
 
 
 def build_tracks(views: List[View], config: ReconstructionConfig, verbose: bool = True,
-                 device="cpu") -> tracks_mod.TrackSet:
+                 device="cuda") -> tracks_mod.TrackSet:
     """Full matching stage: SIFT + SURF → pairwise matching → union-find
-    tracks, on `device`."""
+    tracks, on `device` (CUDA unless the caller names another)."""
     features = extract_all_view_features(views, config, device)
     if verbose:
         for v, f in zip(views, features):
@@ -366,10 +378,12 @@ def build_tracks(views: List[View], config: ReconstructionConfig, verbose: bool 
 
 
 def tracks_from_matches(views: List[View], features: List[ViewFeatures], pair_matches,
-                        device="cpu", timer=None) -> tracks_mod.TrackSet:
-    """Union-find + TrackSet assembly from verified pairwise matches: the
-    TrackSet tracks_mod.from_feature_lists gives for the JAX package's
-    feature lists (view id, feature, global id vi·2²⁰ + fi, x, y, color 0)."""
+                        device="cuda", timer=None) -> tracks_mod.TrackSet:
+    """Union-find + TrackSet assembly from verified pairwise matches, on
+    `device` (CUDA unless the caller names another): the TrackSet
+    tracks_mod.from_feature_lists gives for the JAX package's feature lists
+    (view id, feature, global id vi·2²⁰ + fi, x, y, color 0)."""
+    device = checked_device(device)
     stage = timer or _no_timer
     with stage("union_find"):
         track, vi, fi = tracks_build.track_members(pair_matches,

@@ -14,7 +14,6 @@ import time
 from typing import List, Tuple
 
 import numpy as np
-import torch
 
 from orthosfm_torch.config import ReconstructionConfig
 from orthosfm_torch.data.views import View, load_views
@@ -28,9 +27,7 @@ def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cuda
     is set and from the images otherwise. The device is CUDA unless the
     caller names another; without a CUDA device this raises at once rather
     than run on the CPU unasked."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device is available; pass device="cpu" to run on the CPU')
+    device = matching.checked_device(device)
     start_all = time.monotonic()
 
     # --- Initialization: load views (+ masks) ---------------------------------

@@ -12,9 +12,10 @@ and solve the camera system by a Cholesky factorization, the plain versions
 sum in torch's order and solve by LU; both are f32. Relative 1e-4 on sums of ~1e4
 terms, 1e-5 on the solve (measured: ~1e-6), which a solve that mishandles the
 damping fails at both lambdas checked, 1e-5 on unit-norm points. top2: d2
-within 1e-5 absolute (the kernel's FMA chain and cuBLAS's GEMM sum in
-different orders) and the same index except on rows whose best and second
-d2 lie within 1e-5 of each other.
+within 1e-5 absolute in both directions (the kernel's FMA chain and
+cuBLAS's GEMM sum in different orders) and the same index except on rows
+whose best and second d2 lie within 1e-5 of each other; the kernel against
+itself (a swapped pair table, a second run) bit for bit.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ from orthosfm_torch.config import BundleAdjustConfig
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.ops import matching as match_ops
 from orthosfm_torch.ops import matching_kernels as mk
+from orthosfm_torch.pipeline import matching as pipeline_matching
 from orthosfm_torch.solvers import ba
 from orthosfm_torch.solvers import ba_kernels as bk
 from orthosfm_torch.testbench.problems import make_problem
@@ -447,48 +449,178 @@ def _top2_stack(dev, V, N, D, seed=0):
     return d
 
 
+def _agree(got, ref, rows):
+    """Kernel outputs (best, second, idx) against the plain version's: d2 to
+    NEAR_TIE, indices outside near ties."""
+    (kb, ks, ki), (rb, rs, ri) = got, ref
+    assert float((kb - rb).abs().max()) < NEAR_TIE
+    assert float((ks - rs).abs().max()) < NEAR_TIE
+    near = ((rs - rb) <= NEAR_TIE) | ~rows
+    assert bool(torch.all((ki == ri) | near))
+
+
+def _cols(pairs, dev):
+    return [torch.tensor(c, dtype=torch.int32, device=dev) for c in zip(*pairs)]
+
+
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("N", [300, 1000])
+@pytest.mark.parametrize("N", [300, 1000, 8200])
 def test_top2_kernel_matches_plain(dev, D, N):
-    """N is no multiple of the 64-row tile; the pairs repeat views, match a
-    view against itself, end in ragged prefixes and have databases of 0 and 1
-    valid rows."""
+    """Both directions from one launch. N is no multiple of the 128-row
+    tile; the pairs repeat views, match a view against itself, end in ragged
+    prefixes and have databases of 0 and 1 valid rows and one query row. The
+    swapped pair table's forward outputs are the backward ones bit for bit,
+    and two runs are identical."""
     d = _top2_stack(dev, 5, N, D)
     pairs = [(0, 1, N, N), (2, 1, N, N), (1, 1, N, N), (1, 0, N, N), (3, 4, N - 37, N - 101),
              (4, 3, N, 0), (0, 2, N, 1), (2, 3, 1, N)]
-    cols = [torch.tensor(c, dtype=torch.int32, device=dev) for c in zip(*pairs)]
+    cols = _cols(pairs, dev)
     before = mk.top2.launches
-    kb, ks, ki = mk.top2(d, *cols, impl="kernel")
+    out = mk.top2(d, *cols, impl="kernel")
     assert mk.top2.launches == before + 1
-    rb, rs, ri = mk.top2_ref(d, *cols)
-    assert float((kb - rb).abs().max()) < NEAR_TIE
-    assert float((ks - rs).abs().max()) < NEAR_TIE
-    near = (rs - rb) <= NEAR_TIE
-    assert bool(torch.all((ki == ri) | near))
-    # exact ties go to the lower column
-    q = N // 4
+    again = mk.top2(d, *cols, impl="kernel")
+    swapped = mk.top2(d, cols[1], cols[0], cols[3], cols[2], impl="kernel")
+    ref = mk.top2_ref(d, *cols)
+    iota = torch.arange(N, device=dev)[None, :]
+    _agree(out[:3], ref[:3], iota < cols[2][:, None])
+    _agree(out[3:], ref[3:], iota < cols[3][:, None])
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    for a, b in zip(out[3:] + out[:3], swapped):
+        assert torch.equal(a, b)
+    kb, ks, ki, bb, bs, bi = out
+    # exact ties go to the lower index in both directions: view 1 holds its
+    # first half twice, view 2 starts with view 1's first quarter
+    half, q = N // 2, N // 4
     assert bool(torch.all(ki[1, :q] == torch.arange(q, device=dev)))
     assert bool(torch.all(kb[1, :q] == ks[1, :q]))
-    # empty database, one valid row, rows past the query count
-    assert bool(torch.all(kb[5] == 4.0) & torch.all(ks[5] == 4.0) & torch.all(ki[5] == 0))
+    assert bool(torch.all(bi[1, :q] == torch.arange(q, device=dev)))
+    assert bool(torch.all(bi[2, :2 * half] == torch.arange(2 * half, device=dev) % half))
+    assert bool(torch.all(bb[2, :2 * half] == bs[2, :2 * half]))
+    # empty database, one valid row, one query row, rows past the counts
+    for t in (kb[5], ks[5], bb[5], bs[5]):
+        assert bool(torch.all(t == 4.0))
+    assert bool(torch.all(ki[5] == 0) & torch.all(bi[5] == 0))
     assert bool(torch.all(ks[6] == 4.0) & torch.all(ki[6] == 0) & torch.all(kb[6] < 4.0))
+    assert bool(torch.all(bb[6, 1:] == 4.0) & torch.all(bi[6, 1:] == 0) & (bb[6, 0] < 4.0))
     assert bool(torch.all(kb[7, 1:] == 4.0) & torch.all(ki[7, 1:] == 0))
-    assert bool(torch.all(kb[4, N - 37:] == 4.0))
-    assert bool(torch.all(ki[4, :N - 37] < N - 101))
+    assert bool(torch.all(bs[7] == 4.0) & torch.all(bi[7] == 0) & torch.all(bb[7] < 4.0))
+    assert bool(torch.all(kb[4, N - 37:] == 4.0) & torch.all(ki[4, N - 37:] == 0))
+    assert bool(torch.all(bb[4, N - 101:] == 4.0) & torch.all(bi[4, N - 101:] == 0))
+    assert bool(torch.all(ki[4, :N - 37] < N - 101) & torch.all(bi[4, :N - 101] < N - 37))
 
 
-def test_match_pairs_batched_kernel_matches_plain(dev):
-    d = _top2_stack(dev, 4, 700, 128, seed=1)
-    d[3, 200:400] = d[0, :200]
-    cols = [torch.tensor(c, dtype=torch.int32, device=dev)
-            for c in zip((0, 3, 700, 700), (1, 2, 650, 700), (2, 2, 700, 700))]
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("N", [300, 1000, 8200])
+def test_match_pairs_batched_kernel_matches_plain(dev, D, N):
+    """One launch a call; the cross-checked matches equal the plain path's
+    except on rows with a near tie in either direction."""
+    d = _top2_stack(dev, 4, N, D, seed=1)
+    m0 = N // 4
+    d[3, m0:2 * m0] = d[0, :m0]
+    cols = _cols([(0, 3, N, N), (1, 2, N - 50, N), (2, 2, N, N)], dev)
+    before = mk.top2.launches
     m_k = match_ops.match_pairs_batched(d, *cols, impl="kernel")
+    assert mk.top2.launches == before + 1
     m_t = match_ops.match_pairs_batched(d, *cols, impl="torch")
-    assert int((m_k[0, :200] == torch.arange(200, 400, device=dev)).sum()) == 200
-    rb, rs, _ = mk.top2_ref(d, *cols)
-    rb2, rs2, _ = mk.top2_ref(d, cols[1], cols[0], cols[3], cols[2])
-    near = ((rs - rb) <= NEAR_TIE) | ((rs2 - rb2) <= NEAR_TIE).any(dim=1, keepdim=True)
+    assert int((m_k[0, :m0] == torch.arange(m0, 2 * m0, device=dev)).sum()) == m0
+    rb, rs, _, bb, bs, _ = mk.top2_ref(d, *cols)
+    near = ((rs - rb) <= NEAR_TIE) | ((bs - bb) <= NEAR_TIE).any(dim=1, keepdim=True)
     assert bool(torch.all((m_k == m_t) | near))
+
+
+def test_top2_segment_of_more_tiles_than_threads(dev):
+    """16 pairs of 33000 rows: the launch plan gives each CTA a segment of
+    258 database tiles, more than its 256 threads, so that some threads take
+    two tickets; and the scratch splits the pairs over two launches. Query
+    sides of 0 to 300 rows keep the products small; the databases end in
+    the last tile, in tile 255 (a segment of 256 tiles) and short of it.
+    Both directions agree with the plain version, and two runs are
+    identical."""
+    N, P = 33000, 16
+    seg, chunk = mk.launch_plan(P, N)
+    assert seg > 255 and chunk < P
+    d = _top2_stack(dev, 3, N, 64, seed=2)
+    ci = [200, 128, 1, 300, 0, 129, 257, 5] * 2
+    cj = [N, N - 37, 32700, 32769, N, 33000 - 128, 1000, N] * 2
+    pairs = [(k % 3, (k + 1) % 3, ci[k], cj[k]) for k in range(P)]
+    cols = _cols(pairs, dev)
+    before = mk.top2.launches
+    out = mk.top2(d, *cols, impl="kernel")
+    assert mk.top2.launches == before + -(-P // chunk)
+    again = mk.top2(d, *cols, impl="kernel")
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    iota = torch.arange(N, device=dev)[None, :]
+    for s in range(0, P, 4):  # the plain version's (4, N, N) blocks a few at a time
+        sub = [c[s:s + 4] for c in cols]
+        ref = mk.top2_ref(d, *sub)
+        _agree([t[s:s + 4] for t in out[:3]], ref[:3], iota < sub[2][:, None])
+        _agree([t[s:s + 4] for t in out[3:]], ref[3:], iota < sub[3][:, None])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_top2_pairs_split_over_launches(dev, monkeypatch, D):
+    """When the partials would pass SCRATCH_BYTES the wrapper launches once
+    for each slice of pairs: the outputs equal the one-launch outputs bit for
+    bit and agree with the plain version."""
+    N = 1000
+    d = _top2_stack(dev, 5, N, D)
+    pairs = [(0, 1, N, N), (2, 1, N, N), (1, 1, N, N), (1, 0, N, N), (3, 4, N - 37, N - 101),
+             (4, 3, N, 0), (0, 2, N, 1), (2, 3, 1, N)]
+    cols = _cols(pairs, dev)
+    one = mk.top2(d, *cols, impl="kernel")
+    seg, chunk = mk.launch_plan(len(pairs), N)
+    assert chunk == len(pairs)
+    nt = -(-N // mk.TILE)
+    monkeypatch.setattr(mk, "SCRATCH_BYTES", 3 * 12 * N * (-(-nt // seg) + nt))
+    assert mk.launch_plan(len(pairs), N) == (seg, 3)
+    before = mk.top2.launches
+    split = mk.top2(d, *cols, impl="kernel")
+    assert mk.top2.launches == before + 3
+    for a, b in zip(one, split):
+        assert torch.equal(a, b)
+    ref = mk.top2_ref(d, *cols)
+    iota = torch.arange(N, device=dev)[None, :]
+    _agree(split[:3], ref[:3], iota < cols[2][:, None])
+    _agree(split[3:], ref[3:], iota < cols[3][:, None])
+
+
+def test_top2_kernel_takes_the_two_descriptor_widths(dev):
+    """The kernel is built for D = 64 and 128; another width on the card
+    raises (the plain version, impl="torch", takes any)."""
+    d = _top2_stack(dev, 3, 300, 96)
+    cols = _cols([(0, 1, 300, 300)], dev)
+    with pytest.raises(ValueError, match="widths"):
+        mk.top2(d, *cols, impl="kernel")
+    assert mk.top2(d, *cols, impl="torch")[0].shape == (1, 300)
+
+
+def test_top2_pair_out_of_range_is_marked_without_a_host_sync(dev):
+    """A pair out of range is not read: (NaN, NaN, -1) on its rows both ways,
+    match_pairs_batched marks them, and the pull raises. Neither call syncs
+    the host (torch's sync debug mode would raise)."""
+    d = _top2_stack(dev, 3, 300, 64)
+    cols = _cols([(0, 1, 300, 300), (0, 3, 300, 300), (0, 1, 301, 300), (-1, 1, 300, 2)], dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = mk.top2(d, *cols, impl="kernel")
+        m = match_ops.match_pairs_batched(d, *cols, impl="kernel")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = mk.top2_ref(d, *cols)
+    rows = torch.ones((1, 300), dtype=torch.bool, device=dev)
+    _agree([t[:1] for t in out[:3]], [t[:1] for t in ref[:3]], rows)
+    _agree([t[:1] for t in out[3:]], [t[:1] for t in ref[3:]], rows)
+    for t in out:
+        bad = t[1:]
+        assert bool(torch.isnan(bad).all() if t.is_floating_point() else torch.all(bad == -1))
+    assert bool(torch.all(m[1:] == match_ops.BAD_PAIR)) and bool(torch.all(m[0] >= -1))
+    with pytest.raises(ValueError, match="out"):
+        match_ops.check_pulled(m.cpu().numpy())
+    with pytest.raises(ValueError, match="out"):
+        pipeline_matching._batched_pair_matches(d, np.array([301, 300, 300]), [(0, 1)], 0.8)
 
 
 def test_top2_kernel_that_fails_to_build_raises(dev, monkeypatch, tmp_path):

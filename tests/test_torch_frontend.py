@@ -199,7 +199,7 @@ def test_match_pairs_batched_matches_jax(D):
     cols = [torch.as_tensor(c.astype(np.int32)) for c in (bi, bj, ci, cj)]
     got = match_ops.match_pairs_batched(torch.as_tensor(d), *cols, lowe_ratio=0.8).numpy()
     # rows where either direction has a near tie may differ
-    best, second, _ = mk.top2_ref(torch.as_tensor(d), *cols)
+    best, second = mk.top2_ref(torch.as_tensor(d), *cols)[:2]
     near = ((second - best) <= NEAR_TIE).numpy() & (iota[None] < ci[:, None])
     assert np.array_equal(got[~near], ref[~near])
     # view 4's rows 100..149 repeat view 3's first 50: mutual matches
@@ -210,10 +210,15 @@ def test_match_pairs_batched_matches_jax(D):
 def test_top2_plain_version_semantics():
     """Exact duplicates tie (best = second) at the lower column, an empty
     database gives (4, 4, 0), one valid row gives second = 4, rows past ci
-    give (4, 4, 0)."""
+    give (4, 4, 0); the backward outputs likewise, per database row."""
     d = _descriptor_stack(64)
     cols = [torch.as_tensor(np.array(c, np.int32)) for c in zip(*PAIRS)]
-    best, second, idx = (x.numpy() for x in mk.top2_ref(torch.as_tensor(d), *cols))
+    out = [x.numpy() for x in mk.top2_ref(torch.as_tensor(d), *cols)]
+    best, second, idx = out[:3]
+    b_best, b_second, b_idx = out[3:]
+    assert np.all(b_best[4] == 4.0) and np.all(b_idx[4] == 0)
+    assert np.all(b_second[6] == 4.0) and np.all(b_idx[6] == 0) and np.all(b_best[6] < 4.0)
+    assert np.all(b_best[5, 1:] == 4.0) and np.all(b_idx[5, 1:] == 0) and b_best[5, 0] < 4.0
     assert np.all(idx[1, :40] == np.arange(40)) and np.all(best[1, :40] == second[1, :40])
     assert np.all(best[1, :40] < 1e-6)
     assert np.all(best[4] == 4.0) and np.all(second[4] == 4.0) and np.all(idx[4] == 0)
@@ -382,11 +387,11 @@ def test_build_tracks_matches_jax(scene, jax_features, monkeypatch):
     for (_, _, a_ref, _), (_, _, a_got, _) in zip(ref, got):
         assert abs(len(a_got) - len(a_ref)) <= 0.05 * len(a_ref)
     t_ref = jpipe.tracks_from_matches(jviews, jfeats, ref)
-    t_got = pipe.tracks_from_matches(pviews, feats, got)
+    t_got = pipe.tracks_from_matches(pviews, feats, got, device="cpu")
     n_ref, n_got = int(np.asarray(t_ref.alive).sum()), int(t_got.alive.sum())
     assert abs(n_got - n_ref) <= 0.05 * n_ref
     # the same pair matches give the same TrackSet
-    t_same = pipe.tracks_from_matches(pviews, jfeats, ref)
+    t_same = pipe.tracks_from_matches(pviews, jfeats, ref, device="cpu")
     for name in ("obs", "obs_mask", "local_ids", "global_ids", "alive"):
         np.testing.assert_array_equal(getattr(t_same, name).numpy(),
                                       np.asarray(getattr(t_ref, name)), err_msg=name)
