@@ -5,8 +5,9 @@
 
 Phases:
   1. the card's name and power limit, and the build of the native sources
-     of orthosfm_torch/csrc/ (the BA kernels, the top-2 matching kernel and
-     the union-find), one compiler each, all started together;
+     of orthosfm_torch/csrc/ (the BA kernels, the top-2 matching kernel, the
+     union-find and the tracks.txt reader), one compiler each, all started
+     together;
   2. each kernel against its plain PyTorch version on the card: the BA
      kernels (schur_assemble, camera_solve, and point_update_cost with the
      accept rule of lm_accept in its last CTA, held against
@@ -18,9 +19,13 @@ Phases:
      at all three beside its plain version, its bound and, for camera_solve,
      torch.linalg.solve_ex alone on the same prepared system, and
      point_update_cost also without its tail (the difference is the time
-     the accept rule adds, lm_accept's row); top2 (both directions from
-     one launch) on random unit descriptors, 8 pairs x 8192 rows x 128 and
-     x 64, with duplicated rows (exact ties), repeated views and databases
+     the accept rule adds, lm_accept's row); at 1100 views x 300 tracks,
+     where K1 and K2 read their per-view tables from global memory (past
+     shared memory), K1 and K2 checked the same way and all three timed
+     (K3 there runs its cluster from a global scratch); top2 (both
+     directions from one launch) on random unit descriptors, 8 pairs x
+     8192 rows x 128 and x 64, with duplicated rows (exact ties), repeated
+     views and databases
      of 0 and 1 valid rows, against its plain version, a second run and
      the swapped pair table (bit for bit), timed beside its plain version,
      with the host's time a call;
@@ -43,7 +48,22 @@ Phases:
      error < 1 deg. Then top2 against its plain version on the real SIFT and
      SURF stacks of this run, both directions, with the cross-checked match
      counts per pair, timed beside the plain version and torch.bmm of the
-     gathered stacks (the product alone).
+     gathered stacks (the product alone);
+  6. the testbench on the card: testbench.run.main with --generate
+     --solvers all --repetitions 1 at width 320, the whole dataset_matrix
+     (10 rendered datasets, 21 (dataset, solver) cells, in process), every
+     cell's mean angular error < 1 deg, printed beside the JAX package's
+     docs/results.csv, with the launch counts of K1, K3, K2 and top2 over
+     the run (the slice's main path: the counts in the kernels line); then
+     the noise sweep at its full size (Cube, Sphere, Suzanne; 16 views, 2048
+     tracks; solvers 0 and 3) at 0, 1 and 10 px (< 0.01, < 0.25, < 3 deg, no
+     failed entry), beside docs/synthetic_results_r5.csv; then
+     bench_pipeline.run_benchmark(16, 512) and its JSON line;
+  7. RANSAC-H: reconstruct with pair_verification="homography" at the
+     reference's 10000 hypotheses on the JAX package's test scene (5 views of
+     224^2, seed 3, a 100 degree ring): every view placed, max error < 3 deg;
+     then find_homography_batched_keys timed on phase 5's real candidate
+     pairs (pairs, M, chunks, inlier counts).
 
 With --parent DIR (a checkout of the parent commit), top2 is also timed in
 turns against DIR's by scripts/torch_top2_turns.py.
@@ -55,6 +75,7 @@ Without a CUDA device the script exits non-zero before doing anything.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -132,6 +153,20 @@ FRONT_WIDTH = 2048
 FRONT_SEED = 7
 FRONT_RING_DEG = 200.0
 FRONT_LIMIT_DEG = 1.0
+# Phase 2 past shared memory: K1's per-view tables and sums leave it past
+# ~600 views, K2's past ~990
+BA_SHAPE_MANY = (1100, 300)
+# Phase 4 past shared memory: ba.run end to end, both routes, 10 iterations
+BA_RUN_SHAPES_MANY = ((700, 2000), (1100, 2000))
+BA_RUN_ITERATIONS_MANY = 10
+# Phase 6: the testbench's matrix at its default width, and the noise sweep
+TESTBENCH_WIDTH = 320
+TESTBENCH_LIMIT_DEG = 1.0
+SWEEP_LIMITS_DEG = {0.0: 0.01, 1.0: 0.25, 10.0: 3.0}
+BENCH_VIEWS, BENCH_WIDTH = 16, 512
+# Phase 7: the JAX package's homography test scene
+# (tests/test_full_pipeline.py:107)
+HOMOGRAPHY_LIMIT_DEG = 3.0
 
 
 def cuda_ms(fn, n=20):
@@ -404,6 +439,31 @@ def near_fit_witness(device):
     return out
 
 
+def check_many_views(device, errs, rels):
+    """K1 and K2 at BA_SHAPE_MANY, past shared memory, against their plain
+    versions (K2 on the plain step of each lambda), and the three kernels
+    timed there."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    num_views, n_tracks = BA_SHAPE_MANY
+    label = f"{num_views}x{n_tracks}"
+    inputs = stage_inputs("quat", device, num_views, n_tracks)
+    pT, obsT, maskT, rot, camp, free = inputs
+    args = ("quat", *lm_inputs(inputs), bk.new_state(1e-3, device), 1.0, True)
+    S, dU, rhs = bk.schur_assemble(*args)
+    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
+    e = max(rel_err(S, S_r), rel_err(rhs, rhs_r), rel_err(dU, dU_r))
+    print(f"  schur_assemble   {label} quat  opt=True  rel err {e:.3e}")
+    require(e < TOL_SCHUR_REL, f"schur_assemble {label}: {e}")
+    rels["schur_assemble"] = max(rels["schur_assemble"], e)
+    errs["schur_assemble"] = max(errs["schur_assemble"], max_err(S, S_r), max_err(rhs, rhs_r),
+                                 max_err(dU, dU_r))
+    for lam in SOLVE_LAMBDAS:
+        step = camera_step(bk.camera_solve_ref, "quat", S_r, dU_r, rhs_r, free, lam, rot, camp)
+        check_point_update_cost("quat", inputs, True, lam, step, errs, rels, label)
+    return time_ba_kernels(inputs)
+
+
 def time_ba_kernels(inputs):
     """K1, K3 and K2 with its accept tail at one shape (quat, points
     optimized, lambda 1e-3): kernel, plain and, for K3,
@@ -479,6 +539,13 @@ def check_kernels(device):
             lib = "" if t["library_ms"] is None else f"   solve_ex {t['library_ms']:.4f} ms"
             print(f"  {name:18s} {label:8s} kernel {t['ms']:.4f} ms   plain {t['plain_ms']:.4f} "
                   f"ms{lib}   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    # past shared memory: K1 and K2 read global tables (K3, timed here, is
+    # held to the f64 solve at this size by tests/test_torch_cuda.py)
+    label = "x".join(map(str, BA_SHAPE_MANY))
+    shapes[label] = check_many_views(device, errs, rels)
+    for name, t in shapes[label].items():
+        print(f"  {name:18s} {label:8s} kernel {t['ms']:.4f} ms   plain {t['plain_ms']:.4f} ms"
+              f"   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
     shapes["near_fit"] = near_fit_witness(device)
     return errs, rels, dict(shapes[f"{N_VIEWS}x{N_TRACKS}"]), shapes
 
@@ -530,7 +597,7 @@ def run_slice(device, project):
             require(mean_ang < limit, f"solver {solver} sigma {sigma}: {mean_ang} >= {limit}")
 
 
-def ba_rate(device, num_views, n_tracks):
+def ba_rate(device, num_views, n_tracks, iterations=30):
     """Phase 4: BA iterations/s of both paths, in turns, and the host's
     enqueue time per iteration (ba.run's return before the final sync, over
     its iterations)."""
@@ -544,8 +611,8 @@ def ba_rate(device, num_views, n_tracks):
     rates = {"kernel": [], "torch": []}
     enqueue = {"kernel": [], "torch": []}
     for impl in ("kernel", "torch", "torch", "kernel"):
-        cfg = BundleAdjustConfig(max_iterations=30, function_tolerance=0.0, min_lambda=1e-12,
-                                 impl=impl)
+        cfg = BundleAdjustConfig(max_iterations=iterations, function_tolerance=0.0,
+                                 min_lambda=1e-12, impl=impl)
         ba.run(cams, points, obs, mask, True, cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -554,7 +621,7 @@ def ba_rate(device, num_views, n_tracks):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         iters = int(r.iterations)
-        require(iters == 30, f"{impl}: {iters} iterations")
+        require(iters == iterations, f"{impl}: {iters} iterations")
         require(float(r.cost) < float(r.initial_cost) * 1e-2, f"{impl} BA did not converge")
         rates[impl].append(iters / dt)
         enqueue[impl].append(t_enq * 1e3 / cfg.max_iterations)
@@ -860,6 +927,181 @@ def top2_turns(parent):
             return json.load(f)["runs"]
 
 
+def read_results_csv(path):
+    """{(metric, dataset, config): value} of a results.csv in the reference's
+    Metric;Dataset;configs... schema (empty cells left out)."""
+    with open(path) as f:
+        rows = [ln.rstrip("\n").split(";") for ln in f if ln.strip()]
+    configs = rows[0][2:]
+    return {(r[0], r[1], c): float(v) for r in rows[1:] for c, v in zip(configs, r[2:]) if v}
+
+
+def read_sweep_csv(path):
+    """{(dataset, solver, noise_px): mean angular error} of a sweep CSV."""
+    with open(path) as f:
+        rows = [ln.strip().split(",") for ln in f if ln.strip()][1:]
+    return {(r[0], r[1], float(r[2])): float(r[3]) for r in rows}
+
+
+def run_testbench(device, root):
+    """Phase 6, the slice's main path: the testbench CLI over the whole
+    dataset matrix on the card, with the launch counts of every kernel over
+    it; then the noise sweep and the pipeline bench."""
+    import torch
+
+    from orthosfm_torch.ops import matching_kernels as mk
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.testbench import bench_pipeline, synthetic_tests
+    from orthosfm_torch.testbench import run as tb_run
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proj, data = os.path.join(root, "proj"), os.path.join(root, "data")
+    log = io.StringIO()
+    bk.reset_launch_counts()
+    mk.top2.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = tb_run.main([proj, data, "--generate", "--solvers", "all", "--repetitions", "1",
+                          "--width", str(TESTBENCH_WIDTH)])
+    torch.cuda.synchronize()
+    t_matrix = time.perf_counter() - t0
+    launches = {**bk.launch_counts(), "top2": mk.top2.launches}
+    lines = log.getvalue().splitlines()
+    for ln in lines:
+        if ln.startswith("Run failed"):
+            print("  " + ln)
+    require(rc == 0, f"testbench.run.main returned {rc}")
+    got = read_results_csv(os.path.join(proj, "results.csv"))
+    ref = read_results_csv(os.path.join(here, "docs", "results.csv"))
+    cells = [(row[0], tb_run.SOLVER_NAMES[s]) for row in tb_run.dataset_matrix(TESTBENCH_WIDTH)
+             for s in row[7]]
+    print(f"  testbench matrix: {len(cells)} cells in {t_matrix:.2f} s, launches {launches}")
+    print(f"  {'dataset':20s} {'solver':24s} {'mean err deg':>12s} {'JAX docs':>9s} "
+          f"{'std deg':>9s} {'runtime s':>9s} {'pose s':>8s}")
+    table = {}
+    for ds, cfg in cells:
+        key = ("Mean Angular Error [deg]", ds, cfg)
+        err = got.get(key, float("nan"))
+        table[f"{ds}/{cfg}"] = {
+            "mean_angular_error_deg": err, "jax_docs_deg": ref.get(key),
+            "std_angular_error_deg": got.get(("Std Angular Error [deg]", ds, cfg)),
+            "mean_position_error": got.get(("Mean Position Error", ds, cfg)),
+            "runtime_s": got.get(("Mean Runtime [s]", ds, cfg)),
+            "pose_runtime_s": got.get(("Mean Pose Runtime [s]", ds, cfg))}
+        t = table[f"{ds}/{cfg}"]
+        print(f"  {ds:20s} {cfg:24s} {err:12.6f} {ref.get(key, float('nan')):9.6f} "
+              f"{t['std_angular_error_deg'] or float('nan'):9.6f} "
+              f"{t['runtime_s'] or float('nan'):9.3f} {t['pose_runtime_s'] or float('nan'):8.3f}")
+    # where a run's time goes: the phases of every run's time_measurements.txt
+    from orthosfm_torch.io import timing
+
+    phases = {"init": 0.0, "track_building": 0.0, "pose_estimation": 0.0, "total": 0.0}
+    for run_dir in sorted(os.listdir(proj)):
+        path = os.path.join(proj, run_dir, "time_measurements.txt")
+        if os.path.isfile(path):
+            m = timing.load_runtimes(path)
+            for key, v in zip(phases, (m.init_time, m.track_building_time,
+                                       m.pose_estimation_time, m.total_time)):
+                phases[key] += v
+    print("  the matrix's runs, summed over their time_measurements.txt: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    missing = [c for c in cells if ("Mean Angular Error [deg]", *c) not in got]
+    if missing:
+        print("\n".join("  | " + ln for ln in lines[-40:]))
+    require(not missing, f"testbench: cells missing from results.csv: {missing}")
+    worst = max(t["mean_angular_error_deg"] for t in table.values())
+    require(worst < TESTBENCH_LIMIT_DEG, f"testbench: a cell's mean angular error is {worst}")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the testbench's path")
+
+    t0 = time.perf_counter()
+    sweep = synthetic_tests.run_noise_sweep(noise_levels=tuple(SWEEP_LIMITS_DEG), verbose=False,
+                                            device=device)
+    t_sweep = time.perf_counter() - t0
+    ref_sweep = read_sweep_csv(os.path.join(here, "docs", "synthetic_results_r5.csv"))
+    print(f"  noise sweep: {len(sweep)} entries in {t_sweep:.2f} s")
+    for e in sweep:
+        jax_deg = ref_sweep.get((e.dataset, e.solver, e.noise_px), float("nan"))
+        print(f"  {e.dataset:8s} {e.solver:20s} sigma {e.noise_px:5.1f} px: "
+              f"{e.mean_angular_error_deg:.6g} deg (limit {SWEEP_LIMITS_DEG[e.noise_px]}; JAX "
+              f"docs {jax_deg:.6g}), std {e.std_angular_error_deg:.6g}, failed {e.failed}")
+        require(not e.failed and e.mean_angular_error_deg < SWEEP_LIMITS_DEG[e.noise_px],
+                f"noise sweep {e}")
+
+    t0 = time.perf_counter()
+    bench = bench_pipeline.run_benchmark(BENCH_VIEWS, BENCH_WIDTH, device=device)
+    print(f"  bench_pipeline ({time.perf_counter() - t0:.2f} s with its warm-up run):")
+    print("  " + json.dumps(bench))
+    require(bench["views_placed"] == BENCH_VIEWS, f"bench_pipeline placed {bench['views_placed']}")
+    return launches, {"matrix_s": t_matrix, "run_phases_s": phases, "cells": table,
+                      "sweep_s": t_sweep,
+                      "sweep": [dataclasses.asdict(e) for e in sweep], "bench_pipeline": bench}
+
+
+def run_homography(device, features):
+    """Phase 7: reconstruct with the homography engine at 10000 hypotheses,
+    then RANSAC-H timed on phase 5's real candidate pairs."""
+    import torch
+
+    from orthosfm_torch.config import ReconstructionConfig, SolverType
+    from orthosfm_torch.io import project as project_io
+    from orthosfm_torch.pipeline import matching as matching_mod
+    from orthosfm_torch.pipeline.reconstruct import reconstruct
+    from orthosfm_torch.testbench import metrics, render
+
+    with tempfile.TemporaryDirectory() as tmp:
+        images, proj = os.path.join(tmp, "images"), os.path.join(tmp, "project")
+        gt = render.make_image_dataset(images, num_views=5, width=224, height=224, seed=3,
+                                       ring_degrees=100, device=device)
+        project_io.create_project(proj)
+        base = ReconstructionConfig(project_folder=proj, image_folder=images,
+                                    solver=SolverType.ORTHO_QUATERNION)
+        cfg = dataclasses.replace(base, matching=dataclasses.replace(
+            base.matching, pair_verification="homography"))
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res, _ = reconstruct(cfg, verbose=True, device=device)
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t0
+    ang, _ = metrics.pose_errors(res.cameras, gt)
+    pairs = [ln.strip() for ln in log.getvalue().splitlines() if ln.startswith("Pair (")]
+    print(f"  reconstruct (homography, {cfg.matching.homography_iterations} hypotheses, 5 x "
+          f"224^2): {t_rec:.2f} s, views placed {int(res.present.sum())}/5, angular error mean "
+          f"{float(np.mean(ang)):.4f} max {float(np.max(ang)):.4f} deg (limit "
+          f"{HOMOGRAPHY_LIMIT_DEG}); pairs: {pairs}")
+    require(bool(res.present.all()), "homography engine: a view was not placed")
+    require(float(np.max(ang)) < HOMOGRAPHY_LIMIT_DEG, f"homography engine: {np.max(ang)}")
+
+    # the pipeline's RANSAC-H stage on phase 5's real candidates (16 views
+    # of 2048^2): host copies in, the chunked device work, the pull back
+    front = ReconstructionConfig()
+    front = dataclasses.replace(front, matching=dataclasses.replace(
+        front.matching, pair_verification="homography"))
+    m = front.matching
+    cands = matching_mod.candidate_pairs(features, front, verbose=False)
+    P = len(cands)
+    M = max(len(c[2]) for c in cands)
+    chunk = max(1, matching_mod.RANSAC_H_BLOCK_ELEMS // (m.homography_iterations * M))
+    nums, _ = matching_mod._verify_homography(cands, features, front, device)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        matching_mod._verify_homography(cands, features, front, device)
+        walls.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.mean(walls))
+    block_gb = 4.0 * min(chunk, P) * m.homography_iterations * M / 1e9
+    print(f"  RANSAC-H stage (pipeline.matching._verify_homography) on phase 5's candidates: "
+          f"{P} pairs, M {M}, chunk {chunk} ({-(-P // chunk)} calls, one (chunk, "
+          f"{m.homography_iterations}, M) block {block_gb:.3f} GB), wall {ms:.2f} ms (mean of "
+          f"3: {[round(1e3 * w, 3) for w in walls]}); inliers {nums.tolist()}; pairs over "
+          f"{m.homography_min_inliers}: {int((nums >= m.homography_min_inliers).sum())}")
+    return {"reconstruct_s": t_rec, "max_angular_error_deg": float(np.max(ang)),
+            "mean_angular_error_deg": float(np.mean(ang)),
+            "ransac_h_real_pairs": {"pairs": P, "M": M, "chunk": chunk, "wall_ms": ms,
+                                    "inliers": nums.tolist()}}
+
+
 def main() -> int:
     import argparse
 
@@ -876,6 +1118,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     from orthosfm_torch import kernel_build
+    from orthosfm_torch.io import tracks_io
     from orthosfm_torch.ops import matching_kernels as mk
     from orthosfm_torch.pipeline import tracks_build
     from orthosfm_torch.solvers import ba_kernels as bk
@@ -886,10 +1129,10 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = (bk.SOURCE, mk.SOURCE, tracks_build.SOURCE)
+    sources = (bk.SOURCE, mk.SOURCE, tracks_build.SOURCE, tracks_io.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(kernel_build.build, sources))
-    for lib in (bk.library, mk.library, tracks_build.library):
+    for lib in (bk.library, mk.library, tracks_build.library, tracks_io.library):
         lib()
     print(f"  built {', '.join(os.path.relpath(p) for p, _ in built)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -911,6 +1154,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as project, recorder.recording():
         run_slice(device, project)
     launches = bk.launch_counts()
+    launches_slice = dict(launches)
     slice_ba = recorder.summary()
     print(f"  launches {launches}")
     require(set(launches) == set(BA_KERNELS) - set(FOLDED), f"BA kernels launched: {launches}")
@@ -921,7 +1165,7 @@ def main() -> int:
         require(n > 0, f"{name} was not launched on the main path")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
 
-    print("== phase 4: BA iterations/s (quat, 30 iterations)")
+    print("== phase 4: BA iterations/s (quat)")
     t0 = time.perf_counter()
     rates = {}
     for num_views, n_tracks in BA_SHAPES:
@@ -929,6 +1173,13 @@ def main() -> int:
         r = ba_rate(device, num_views, n_tracks)
         rates[f"{num_views}x{n_tracks}"] = r
         print(f"  kernel path {r['kernel']:.1f} it/s, plain torch path {r['torch']:.1f} it/s")
+    for num_views, n_tracks in BA_RUN_SHAPES_MANY:
+        print(f"  {num_views} views x {n_tracks} tracks, {BA_RUN_ITERATIONS_MANY} iterations "
+              "(past shared memory)")
+        r = ba_rate(device, num_views, n_tracks, BA_RUN_ITERATIONS_MANY)
+        rates[f"{num_views}x{n_tracks}"] = r
+        print(f"  kernel path {r['kernel']:.2f} it/s ({1e3 / r['kernel']:.1f} ms/it), plain "
+              f"torch path {r['torch']:.2f} it/s ({1e3 / r['torch']:.1f} ms/it)")
     print(f"  phase 4 wall time {time.perf_counter() - t0:.2f} s")
 
     print(f"== phase 5: image front end, {FRONT_VIEWS} x {FRONT_WIDTH}^2 sphere views, "
@@ -952,22 +1203,39 @@ def main() -> int:
     errs["top2"], rels["top2"] = max(errs["top2"], err), max(rels["top2"], rel)
     times["top2"] = real_times["top2_sift"]
     print(f"  phase 5 wall time {time.perf_counter() - t0:.2f} s")
+
+    print(f"== phase 6: the testbench on the card (dataset matrix at {TESTBENCH_WIDTH}, noise "
+          "sweep, pipeline bench)")
+    t0 = time.perf_counter()
+    phase_launches = {"phase3": launches_slice, "phase5": {**front_ba, "top2": launches["top2"]}}
+    with tempfile.TemporaryDirectory() as root:
+        phase_launches["phase6"], testbench = run_testbench(device, root)
+    print(f"  phase 6 wall time {time.perf_counter() - t0:.2f} s")
+
+    print("== phase 7: RANSAC-H (pair_verification=\"homography\")")
+    t0 = time.perf_counter()
+    homography = run_homography(device, features)
+    print(f"  phase 7 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # a folded kernel's launches are those of the kernel whose last CTA runs it
+    # launches: the main path's, phase 6 (the testbench); a folded kernel's
+    # launches are those of the kernel whose last CTA runs it
+    main_path = phase_launches["phase6"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
-                "replaces": REPLACES[name], "launches": launches[FOLDED.get(name, name)],
+                "replaces": REPLACES[name], "launches": main_path[FOLDED.get(name, name)],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
                 **{k: times[name][k] for k in keys},
                 **({"folded_into": FOLDED[name]} if name in FOLDED else {})}
                for name in REPLACES]
-    print(json.dumps({"kernels": kernels, "ba_shapes": shapes, "ba_iter_per_s": rates,
+    print(json.dumps({"kernels": kernels, "launches_by_phase": phase_launches,
+                      "ba_shapes": shapes, "ba_iter_per_s": rates,
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
-                      "top2_ms": {**top2_times, **real_times}}))
+                      "top2_ms": {**top2_times, **real_times}, "testbench": testbench,
+                      "homography": homography}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

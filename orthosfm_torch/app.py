@@ -4,10 +4,12 @@
 Usage:
     python -m orthosfm_torch.app PROJECT_FOLDER IMAGE_FOLDER \
         [--calculated-tracks tracks.txt] [--solver N] [--device cuda|cpu]
+        [--platform cpu|gpu|cuda]
 
 Without --calculated-tracks the tracks are built from the images. The
-device is CUDA unless --device names another; without a CUDA device the CLI
-stops rather than run on the CPU unasked.
+device is CUDA unless --device (or the JAX package's --platform, so that
+its command lines run here unchanged) names another; without a CUDA device
+the CLI stops rather than run on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+#: --platform's values and the torch device each names
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +44,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "3=EulerAllDof")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda; pass cpu to run on the CPU)")
+    p.add_argument("--platform", default="", choices=["", *PLATFORMS],
+                   help="the JAX package's flag: cpu runs on the CPU, gpu or cuda on the "
+                        "card; it overrides --device")
     return p
+
+
+def device_of(args) -> str:
+    """The torch device the parsed flags name: --platform, else --device."""
+    return PLATFORMS[args.platform] if args.platform else args.device
 
 
 def main(argv=None) -> int:
@@ -57,7 +70,7 @@ def main(argv=None) -> int:
     if args.calculated_tracks and not os.path.isfile(args.calculated_tracks):
         print("Error: The specified track file does not exist.")
         return 1
-    device = torch.device(args.device)
+    device = torch.device(device_of(args))
     if device.type == "cuda" and not torch.cuda.is_available():
         print("Error: no CUDA device is available; pass --device cpu to run on the CPU.")
         return 1

@@ -107,14 +107,11 @@ __device__ __forceinline__ void cam_tables(int quat, const float* rot, float* R9
       for (int b = 0; b < 3; ++b) dS[a * 9 + k * 3 + b] = d[k][b][a];
 }
 
-__device__ void fill_cams(int quat, const float* rot, const float* camp, const float* free,
-                          int V, Cam* cams) {
-  for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    Cam& c = cams[v];
-    for (int i = 0; i < 8; ++i) c.camp[i] = camp[v * 8 + i];
-    for (int i = 0; i < 6; ++i) c.free[i] = free ? free[v * 6 + i] : 0.f;
-    cam_tables(quat, rot + v * 4, c.R9, c.dS);
-  }
+__device__ __forceinline__ void fill_cam(int quat, const float* rot, const float* camp,
+                                         const float* free, int v, Cam& c) {
+  for (int i = 0; i < 8; ++i) c.camp[i] = camp[v * 8 + i];
+  for (int i = 0; i < 6; ++i) c.free[i] = free ? free[v * 6 + i] : 0.f;
+  cam_tables(quat, rot + v * 4, c.R9, c.dS);
 }
 
 __device__ __forceinline__ float safe_w(float w) {
@@ -253,11 +250,15 @@ __device__ __forceinline__ void point_inv(const float vt[6], float lam, int opt,
 //     padded to ldx), zero-filling the chunk's last k-tile, and sums U's
 //     upper triangle and the rhs per view in registers, then across the
 //     groups of a warp by shuffles, then the eight warps' sums in turn into
-//     one [V][27] buffer in shared memory (a barrier before and after; the
-//     warps' partials pass through their staging area): a fixed order, and
-//     shared memory of 38 KB + 308 bytes a view, so K1 takes up to ~630
-//     views, BA's view ceiling (K2 takes ~990). One partial per chunk. Masked
-//     (track, view) entries are skipped (their X, Y columns are zeros).
+//     one [V][27] buffer (a barrier before and after; the warps' partials
+//     pass through their staging area): a fixed order. The camera tables
+//     (Cam, 200 bytes a view) and that buffer (108) sit in shared memory
+//     beside 38 KB of static shared memory up to ~600 views; past that the
+//     tables come from a global table that schur_cams builds once a launch,
+//     and the sums accumulate in place in the chunk's partial, in the same
+//     order, so the result does not depend on where they sit. One partial
+//     per chunk. Masked (track, view) entries are skipped (their X, Y
+//     columns are zeros).
 //   schur_product: S_p = X Y^T over the upper-triangle 32 x 32 output tiles
 //     only (the product is symmetric), split over K by chunks; 64 threads, a
 //     4 x 4 micro-tile each (two 16-byte shared loads per 16 FMA), k-tiles of
@@ -280,21 +281,37 @@ constexpr int PROD_NT = 64;     // threads of schur_product, a 4 x 4 micro-tile 
 // Index of (a, b), a <= b, in the row-major upper triangle of a 6 x 6 block.
 __device__ __forceinline__ int upper6(int a, int b) { return a * 6 - a * (a - 1) / 2 + (b - a); }
 
+// The camera tables of the current half, one thread a view, for the block
+// pass past shared memory.
+__global__ void schur_cams_kernel(int quat, const float* rot_a, const float* rot_b,
+                                  const float* camp_a, const float* camp_b,
+                                  const float* __restrict__ free, const float* __restrict__ state,
+                                  int V, Cam* __restrict__ cams) {
+  if (state[DONE] != 0.f) return;
+  const bool cur = state[CUR] != 0.f;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v < V) fill_cam(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, v, cams[v]);
+}
+
+// gcams null: the camera tables and the chunk's per-view sums in shared
+// memory; else the tables in gcams (schur_cams) and the sums in vpart.
 __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
     int quat, const float* pT_a, const float* pT_b, const float* __restrict__ obsT,
     const float* __restrict__ maskT, const float* rot_a, const float* rot_b,
     const float* camp_a, const float* camp_b, const float* __restrict__ free,
     const float* __restrict__ state, float huber, int opt, int V, int T, int G, int ldx,
-    float* __restrict__ Xk, float* __restrict__ Yk, int* __restrict__ counts,
-    float* __restrict__ vpart) {
+    const Cam* __restrict__ gcams, float* __restrict__ Xk, float* __restrict__ Yk,
+    int* __restrict__ counts, float* __restrict__ vpart) {
   if (state[DONE] != 0.f) return;
   const bool cur = state[CUR] != 0.f;
   const float* __restrict__ pT = cur ? pT_b : pT_a;
   extern __shared__ float smem[];
   constexpr int NW = BLK_NT / 32;
   constexpr int STAGE = 2 * 3 * 192;  // floats of a warp's staging area
-  Cam* cams = reinterpret_cast<Cam*>(smem);
-  float* usum = reinterpret_cast<float*>(cams + V);  // [V][NU], the chunk's sums
+  Cam* scams = reinterpret_cast<Cam*>(smem);
+  const Cam* cams = gcams ? gcams : scams;
+  // [V][NU], the chunk's sums
+  float* usum = gcams ? vpart + (size_t)blockIdx.x * V * NU : reinterpret_cast<float*>(scams + V);
   __shared__ int slot[TC];
   __shared__ int s_count;
   // per warp: its groups' tracks (slots); its X, Y slices ([2][3][192]),
@@ -309,7 +326,9 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
   const float lam = state[LAM];
 
   __shared__ int seen[TC];
-  fill_cams(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, V, cams);
+  if (!gcams)
+    for (int v = tid; v < V; v += BLK_NT)
+      fill_cam(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, v, scams[v]);
   for (int i = tid; i < V * NU; i += BLK_NT) usum[i] = 0.f;
   if (tid < TC) seen[tid] = 0;
   __syncthreads();
@@ -428,7 +447,8 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
       __syncthreads();
     }
   }
-  for (int i = tid; i < V * NU; i += BLK_NT) vpart[(size_t)c * V * NU + i] = usum[i];
+  if (!gcams)
+    for (int i = tid; i < V * NU; i += BLK_NT) vpart[(size_t)c * V * NU + i] = usum[i];
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -1364,14 +1384,14 @@ SolvePlan solve_plan(int V) {
 //     camera's R9 and camp[0..4] (14 floats) and, for the point pass, the
 //     current one's R9, camp[0..4], the two pixel rows of its Euler
 //     derivatives (zeros for quaternions) and dc * free (38): 208 bytes a
-//     view and 25 KB of static buffers, so K2 takes ~990 views and K1 (308
-//     bytes a view, ~630) sets BA's view ceiling. Tables built once per
-//     launch and staged from global memory were not tried: the CTAs build
-//     theirs at the same time, so a build costs the critical path once (the
-//     math of one camera, after loads issued before the state arrives);
-//     staging would move that math into a launch of its own (~2-3 us, what
-//     folding K4 saved) or into K3, and replace the loads of rot and camp by
-//     loads of the table, with the same latency.
+//     view beside 25 KB of static buffers, which fit up to ~990 views. The
+//     CTAs build theirs at the same time, so a build costs the critical
+//     path once (the math of one camera, after loads issued before the
+//     state arrives); a table built once a launch and staged from global
+//     memory would move that math into a launch of its own (~2-3 us, what
+//     folding K4 saved). Past shared memory that is what K2 does: k2_tables
+//     builds the same tables in a global buffer, which every CTA reads, up
+//     to K3's limit of 1365 views.
 //   - every small array is indexed by constants in unrolled loops, and every
 //     device function is inlined: no spills (-Xptxas -v on sm_90a).
 //   - the accept tail: each CTA writes its partial, fences and takes a ticket
@@ -1453,13 +1473,38 @@ __device__ __forceinline__ void load_obs(const float* __restrict__ obsT,
   }
 }
 
+// K2's per-view tables in global memory, one thread a view: gtab holds the
+// candidate tables [V][TAB_CAND], then, for the point pass, the current
+// ones [V][TAB_CUR], as point_update_cost_kernel builds them in shared
+// memory.
+__global__ void k2_tables_kernel(int quat, const float* rot_a, const float* rot_b,
+                                 const float* camp_a, const float* camp_b,
+                                 const float* __restrict__ free,
+                                 const float* __restrict__ state_in,
+                                 const float* __restrict__ delta, int update_points, int V,
+                                 float* __restrict__ gtab) {
+  const bool init = state_in == nullptr;
+  const bool upd = update_points && !init;
+  if (!init && state_in[DONE] != 0.f) return;
+  const bool cur = !init && state_in[CUR] != 0.f;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  CamIn ci;
+  load_cam(v, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
+  k2_table(quat, ci, init ? cur : !cur, false, gtab + v * TAB_CAND);
+  if (upd) k2_table(quat, ci, cur, true, gtab + (size_t)V * TAB_CAND + v * TAB_CUR);
+}
+
+// gtab null: the per-view tables in shared memory, built by every CTA; else
+// read from gtab (k2_tables).
 __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
     int quat, float* pT_a, float* pT_b, const float* __restrict__ obsT,
     const float* __restrict__ maskT, const float* rot_a, const float* rot_b,
     const float* camp_a, const float* camp_b, const float* __restrict__ free,
     const float* __restrict__ state_in, const float* __restrict__ delta, float huber,
-    int update_points, int V, int T, float* __restrict__ state_out,
-    float* __restrict__ cost_part, unsigned int* __restrict__ ticket, LMRule rule) {
+    int update_points, int V, int T, const float* __restrict__ gtab,
+    float* __restrict__ state_out, float* __restrict__ cost_part,
+    unsigned int* __restrict__ ticket, LMRule rule) {
   extern __shared__ float k2_smem[];
   __shared__ float sums[K2_MAXW][NQ][K2_TRACKS];
   __shared__ float p3s[3][K2_TRACKS];
@@ -1485,7 +1530,8 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
     ph[1][j] = pT_b[j * T + tc];
   }
   CamIn ci;
-  if (tid < V) load_cam(tid, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
+  if (!gtab && tid < V)
+    load_cam(tid, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
   if (st[DONE] != 0.f) {  // converged: pass the state on
     if (blockIdx.x == 0 && tid < STATE_SIZE && state_out) state_out[tid] = state_in[tid];
     return;
@@ -1494,12 +1540,14 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
   float p4[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) p4[j] = cur ? ph[1][j] : ph[0][j];
-  float* tab_c = k2_smem;             // [V][TAB_CAND] candidate cameras
-  float* tab = tab_c + V * TAB_CAND;  // [V][TAB_CUR]  current cameras (point pass)
-  for (int v = tid; v < V; v += blockDim.x) {
-    if (v != tid) load_cam(v, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
-    k2_table(quat, ci, init ? cur : !cur, false, tab_c + v * TAB_CAND);
-    if (upd) k2_table(quat, ci, cur, true, tab + v * TAB_CUR);
+  const float* tab_c = gtab ? gtab : k2_smem;  // [V][TAB_CAND] candidate cameras
+  const float* tab = tab_c + V * TAB_CAND;     // [V][TAB_CUR]  current cameras (point pass)
+  if (!gtab) {
+    for (int v = tid; v < V; v += blockDim.x) {
+      if (v != tid) load_cam(v, rot_a, rot_b, camp_a, camp_b, upd ? delta : nullptr, free, ci);
+      k2_table(quat, ci, init ? cur : !cur, false, k2_smem + v * TAB_CAND);
+      if (upd) k2_table(quat, ci, cur, true, k2_smem + V * TAB_CAND + v * TAB_CUR);
+    }
   }
   __syncthreads();
 
@@ -1654,6 +1702,32 @@ int allow_smem(const void* fn) {
   return err;
 }
 
+// Whether `dynamic` bytes of shared memory fit beside fn's static ones
+// (each kernel's static size read once).
+bool fits_smem(const void* fn, size_t dynamic) {
+  static const void* fns[4];
+  static size_t sizes[4];
+  static int n_fns = 0;
+  int i = 0;
+  while (i < n_fns && fns[i] != fn) ++i;
+  if (i == n_fns) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, fn)) return false;
+    if (n_fns == 4) return attr.sharedSizeBytes + dynamic <= SMEM_MAX;
+    fns[i] = fn;
+    sizes[i] = attr.sharedSizeBytes;
+    ++n_fns;
+  }
+  return sizes[i] + dynamic <= SMEM_MAX;
+}
+
+// Dynamic shared bytes of K1's block pass and of K2 with their tables there.
+size_t k1_dyn_smem(int V) { return sizeof(Cam) * V + sizeof(float) * V * NU; }
+
+size_t k2_dyn_smem(int V, bool upd) {
+  return sizeof(float) * V * (TAB_CAND + (upd ? TAB_CUR : 0));
+}
+
 // The camera solve's arguments, as each of its launches passes them on.
 struct SolveArgs {
   int quat;
@@ -1713,25 +1787,41 @@ int osfm_camera_solve_scratch_floats(int V) {
   return V <= WARP_SOLVE_V ? 0 : (int)solve_plan(V).scratch;
 }
 
+// Floats of the global camera tables K1's block pass needs for V cameras (0
+// when its tables and sums fit in shared memory).
+int osfm_schur_table_floats(int V) {
+  return fits_smem((const void*)schur_blocks_kernel, k1_dyn_smem(V))
+             ? 0 : (int)(sizeof(Cam) / sizeof(float)) * V;
+}
+
 // The points and cameras come as two halves each (a, b), the current one
-// named by state[CUR].
+// named by state[CUR]. gcams: osfm_schur_table_floats(V) floats, or null
+// when that is 0.
 int osfm_schur_assemble(int quat, const float* pT_a, const float* pT_b, const float* obsT,
                         const float* maskT, const float* rot_a, const float* rot_b,
                         const float* camp_a, const float* camp_b, const float* free,
                         const float* state, float huber, int opt, int V, int T, int ldx,
-                        int n_chunks, int n_split, int cps, float* Xk, float* Yk, int* counts,
-                        float* vpart, float* Ppart, float* S, float* dU, float* rhs,
+                        int n_chunks, int n_split, int cps, float* gcams, float* Xk, float* Yk,
+                        int* counts, float* vpart, float* Ppart, float* S, float* dU, float* rhs,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = 6 * V;
   int G = 1;  // lanes per track: the views of a track, up to a warp
   while (G < V && G < 32) G *= 2;
-  const size_t smem = sizeof(Cam) * V + sizeof(float) * V * NU;
-  int err = allow_smem((const void*)schur_blocks_kernel);
+  const bool global = osfm_schur_table_floats(V) > 0;
+  if (global && !gcams) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (global) {
+    schur_cams_kernel<<<(V + 127) / 128, 128, 0, st>>>(quat, rot_a, rot_b, camp_a, camp_b, free,
+                                                      state, V, reinterpret_cast<Cam*>(gcams));
+    err = (int)cudaGetLastError();
+  } else {
+    err = allow_smem((const void*)schur_blocks_kernel);
+  }
   if (err) return err;
-  schur_blocks_kernel<<<n_chunks, BLK_NT, smem, st>>>(quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b,
-                                                      camp_a, camp_b, free, state, huber, opt, V,
-                                                      T, G, ldx, Xk, Yk, counts, vpart);
+  schur_blocks_kernel<<<n_chunks, BLK_NT, global ? 0 : k1_dyn_smem(V), st>>>(
+      quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b, free, state, huber, opt, V, T,
+      G, ldx, global ? reinterpret_cast<const Cam*>(gcams) : nullptr, Xk, Yk, counts, vpart);
   err = (int)cudaGetLastError();
   if (err) return err;
   if (opt) {  // with the points held fixed V^-1 = 0, and S' is blkdiag(U)
@@ -1774,28 +1864,47 @@ int osfm_camera_solve(int quat, const float* S, const float* dU, const float* rh
   return launch_camera_solve<512>(p.smem, st, a);
 }
 
+// Floats of the global tables K2 needs for V cameras with the point pass
+// (0 when its tables fit in shared memory for every call).
+int osfm_k2_table_floats(int V) {
+  return fits_smem((const void*)point_update_cost_kernel, k2_dyn_smem(V, true))
+             ? 0 : V * (TAB_CAND + TAB_CUR);
+}
+
 // K2 with its accept tail over ceil(T / 32) CTAs of `warps` warps. cost_part
 // holds one float per CTA; ticket is a device counter that is 0 before the
 // first launch (each launch leaves it 0). state_in null: the initial cost;
-// state_out null: no tail.
+// state_out null: no tail. gtab: osfm_k2_table_floats(V) floats, or null
+// when that is 0; where this call's tables do not fit in shared memory
+// k2_tables builds them there first.
 int osfm_point_update_cost(int quat, float* pT_a, float* pT_b, const float* obsT,
                            const float* maskT, const float* rot_a, const float* rot_b,
                            const float* camp_a, const float* camp_b, const float* free,
                            const float* state_in, const float* delta, float huber,
-                           int update_points, int V, int T, int warps, float* state_out,
-                           float* cost_part, unsigned int* ticket, float lam0, float func_tol,
-                           float lam_up, float lam_down, float min_lam, float max_lam,
-                           void* stream) {
+                           int update_points, int V, int T, int warps, float* gtab,
+                           float* state_out, float* cost_part, unsigned int* ticket, float lam0,
+                           float func_tol, float lam_up, float lam_down, float min_lam,
+                           float max_lam, void* stream) {
   if (warps < 1 || warps > K2_MAXW) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool upd = update_points && state_in;
-  const size_t smem = sizeof(float) * V * (TAB_CAND + (upd ? TAB_CUR : 0));
-  int err = allow_smem((const void*)point_update_cost_kernel);
+  const size_t smem = k2_dyn_smem(V, upd);
+  const bool global = !fits_smem((const void*)point_update_cost_kernel, smem);
+  if (global && !gtab) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (global) {
+    k2_tables_kernel<<<(V + 127) / 128, 128, 0, st>>>(quat, rot_a, rot_b, camp_a, camp_b, free,
+                                                     state_in, delta, update_points, V, gtab);
+    err = (int)cudaGetLastError();
+  } else {
+    err = allow_smem((const void*)point_update_cost_kernel);
+  }
   if (err) return err;
   const LMRule rule = {lam0, func_tol, lam_up, lam_down, min_lam, max_lam};
-  point_update_cost_kernel<<<(T + K2_TRACKS - 1) / K2_TRACKS, 32 * warps, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b, free, state_in, delta, huber,
-      update_points, V, T, state_out, cost_part, ticket, rule);
+  point_update_cost_kernel<<<(T + K2_TRACKS - 1) / K2_TRACKS, 32 * warps, global ? 0 : smem,
+                             st>>>(quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b,
+                                   free, state_in, delta, huber, update_points, V, T,
+                                   global ? gtab : nullptr, state_out, cost_part, ticket, rule);
   return (int)cudaGetLastError();
 }
 

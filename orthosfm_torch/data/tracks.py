@@ -124,6 +124,47 @@ def from_feature_lists(track_list, view_ids, capacity: int | None = None,
                       device=device)
 
 
+def from_flat_arrays(counts, vid, lid, gid, xy, rgb, view_ids, capacity: int | None = None,
+                     device="cpu") -> TrackSet:
+    """Vectorized TrackSet construction from flat per-feature arrays (what the
+    native tracks.txt reader returns); the same TrackSet as
+    from_feature_lists on the same data.
+
+    counts: (T,) features per track; vid/lid/gid: (F,); xy: (F, 2);
+    rgb: (F, 3)."""
+    view_ids = np.asarray(view_ids, np.int32)
+    n_views = len(view_ids)
+    n = len(counts)
+    cap = capacity or max(n, 1)
+    if n > cap:
+        import warnings
+
+        warnings.warn(f"track capacity {cap} < {n} tracks; dropping {n - cap}")
+        keep_feats = int(np.sum(counts[:cap]))
+        counts = counts[:cap]
+        vid, lid, gid = vid[:keep_feats], lid[:keep_feats], gid[:keep_feats]
+        xy, rgb = xy[:keep_feats], rgb[:keep_feats]
+        n = cap
+
+    order = np.argsort(view_ids, kind="stable")
+    cols = order[np.searchsorted(view_ids[order], vid)]
+    t_idx = np.repeat(np.arange(n), counts)
+
+    obs = np.zeros((cap, n_views, 2), np.float32)
+    obs_mask = np.zeros((cap, n_views), bool)
+    colors = np.zeros((cap, n_views, 3), np.uint8)
+    local_ids = np.full((cap, n_views), -1, np.int32)
+    global_ids = np.full((cap, n_views), -1, np.int32)
+    alive = np.arange(cap) < n
+    obs[t_idx, cols] = xy
+    obs_mask[t_idx, cols] = True
+    colors[t_idx, cols] = rgb
+    local_ids[t_idx, cols] = lid
+    global_ids[t_idx, cols] = gid.astype(np.int32)
+    return from_host(obs, obs_mask, colors, local_ids, global_ids, np.zeros((cap, 4)),
+                     np.zeros((cap,)), alive, view_ids, device=device)
+
+
 def to_feature_lists(tracks: TrackSet):
     """Inverse of from_feature_lists (for file IO). Returns python lists."""
     obs = tracks.obs.cpu().numpy()

@@ -9,11 +9,18 @@ tools (matching_io.cpp:97-141).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import numpy as np
 
+from orthosfm_torch import kernel_build
 from orthosfm_torch.data import tracks as tracks_mod
+
+#: the native reader, a copy of the JAX package's orthosfm_tpu/native/trackio.cpp
+SOURCE = kernel_build.CSRC / "trackio.cpp"
+_I64P = ctypes.POINTER(ctypes.c_int64)
 
 
 def save_tracks(tracks: tracks_mod.TrackSet, path: str) -> None:
@@ -32,10 +39,71 @@ def _fmt(v: float) -> str:
     return f"{v:g}"
 
 
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The native reader, built at first use; its load returns a handle and
+    fill and free return nothing."""
+    lib = kernel_build.load(SOURCE, {
+        "osfm_tracks_load": [ctypes.c_char_p, _I64P, _I64P],
+        "osfm_tracks_fill": [ctypes.c_void_p, _I64P, ctypes.POINTER(ctypes.c_int32),
+                             ctypes.POINTER(ctypes.c_int32), _I64P,
+                             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)],
+        "osfm_tracks_free": [ctypes.c_void_p]})
+    lib.osfm_tracks_load.restype = ctypes.c_void_p
+    lib.osfm_tracks_fill.restype = None
+    lib.osfm_tracks_free.restype = None
+    return lib
+
+
+def parse_tracks_file(path: str):
+    """Flat arrays of a tracks.txt by the native reader: (counts (T,),
+    vid (F,), lid (F,), gid (F,), xy (F, 2), rgb (F, 3)). A file that cannot
+    be opened or fails its strict parse raises ValueError."""
+    lib = library()
+    n_tracks, n_feats = ctypes.c_int64(0), ctypes.c_int64(0)
+    handle = lib.osfm_tracks_load(os.fsencode(path), ctypes.byref(n_tracks),
+                                  ctypes.byref(n_feats))
+    if not handle:
+        raise ValueError(f"{path}: not a readable tracks.txt (count;viewID;localID;globalID;"
+                         "x;y;r;g;b;... per line)")
+    try:
+        T, F = n_tracks.value, n_feats.value
+        counts = np.empty(T, np.int64)
+        vid = np.empty(F, np.int32)
+        lid = np.empty(F, np.int32)
+        gid = np.empty(F, np.int64)
+        xy = np.empty((F, 2), np.float32)
+        rgb = np.empty((F, 3), np.uint8)
+
+        def ptr(a, ctype):
+            return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+        lib.osfm_tracks_fill(handle, ptr(counts, ctypes.c_int64), ptr(vid, ctypes.c_int32),
+                             ptr(lid, ctypes.c_int32), ptr(gid, ctypes.c_int64),
+                             ptr(xy, ctypes.c_float), ptr(rgb, ctypes.c_uint8))
+        return counts, vid, lid, gid, xy, rgb
+    finally:
+        lib.osfm_tracks_free(handle)
+
+
 def load_tracks(path: str, view_ids, capacity: int | None = None,
-                device="cpu") -> tracks_mod.TrackSet:
-    """Parse tracks.txt with the pure-Python reader (the native C++ reader
-    of the JAX package is not ported yet)."""
+                device="cuda") -> tracks_mod.TrackSet:
+    """The TrackSet of a tracks.txt, on `device` (CUDA unless the caller names
+    another; see pipeline.matching.checked_device), parsed by the native
+    reader (csrc/trackio.cpp, built at first use). A build or parse failure
+    raises."""
+    from orthosfm_torch.pipeline.matching import checked_device
+
+    device = checked_device(device)
+    return tracks_mod.from_flat_arrays(*parse_tracks_file(path), view_ids, capacity=capacity,
+                                       device=device)
+
+
+def load_tracks_plain(path: str, view_ids, capacity: int | None = None,
+                      device="cpu") -> tracks_mod.TrackSet:
+    """The native reader's plain version, a Python loop (the JAX package's
+    reader when its native library is absent): the tests hold the reader
+    against it."""
     track_list = []
     with open(path) as f:
         for line in f:

@@ -99,16 +99,16 @@ def ransac_fundamental_batched(p1, p2, valid, samples, threshold: float = 0.0015
     return RansacFResult(inliers=inliers, num_inliers=torch.sum(inliers, dim=-1), fundamental=F)
 
 
-def draw_samples(counts, iterations: int, generator: torch.Generator):
-    """(P, iterations, 8) uniform 8-subsets of each pair's first counts[p]
-    correspondences (counts (P,) long, every count ≥ 8), by Floyd's
-    algorithm: the j-th draw r ∈ [0, n−8+j] is kept unless already taken,
-    in which case n−8+j is taken."""
+def draw_samples(counts, iterations: int, generator: torch.Generator, size: int = 8):
+    """(P, iterations, size) uniform size-subsets of each pair's first
+    counts[p] correspondences (counts (P,) long, every count ≥ size), by
+    Floyd's algorithm: the j-th draw r ∈ [0, n−size+j] is kept unless
+    already taken, in which case n−size+j is taken."""
     P = counts.shape[0]
     device = counts.device
-    chosen = torch.empty((P, iterations, 8), dtype=torch.long, device=device)
-    for j in range(8):
-        hi = (counts - 8 + j)[:, None]  # inclusive upper bound
+    chosen = torch.empty((P, iterations, size), dtype=torch.long, device=device)
+    for j in range(size):
+        hi = (counts - size + j)[:, None]  # inclusive upper bound
         u = torch.rand((P, iterations), generator=generator, device=device)
         r = torch.minimum((u * (hi + 1)).long(), hi)
         dup = torch.any(chosen[..., :j] == r[..., None], dim=-1)

@@ -5,8 +5,9 @@ orthosfm_tpu/pipeline/matching.py.
 The counterpart of the reference's calculateTracksUsingMVE
 (src/matching/matching_mve.cpp:247-473): images go straight through SIFT and
 SURF on the device, pairs are matched in batches through the top-2 kernel
-(ops.matching_kernels), verified by pair-batched RANSAC-F, and tracks come
-from a host union-find. Gates and thresholds follow the reference's bundler
+(ops.matching_kernels), verified by pair-batched RANSAC-F (or RANSAC-H, the
+CudaSift-style engine), and tracks come from a host union-find. Gates and
+thresholds follow the reference's bundler
 configuration (matching_mve.cpp:393-417): low-res pre-gate (500 features,
 ≥ 5 matches) when |f1|·|f2| > 1e6, Lowe ratio 0.8 (SURF 0.7),
 ≥ max(8, 50) consistent matches, RANSAC-F 1000 iterations at 0.0015,
@@ -30,7 +31,7 @@ from orthosfm_torch.config import ReconstructionConfig
 from orthosfm_torch.data import tracks as tracks_mod
 from orthosfm_torch.data.views import View
 from orthosfm_torch.ops import matching as match_ops
-from orthosfm_torch.ops import ransac_f, sift, surf
+from orthosfm_torch.ops import ransac_f, ransac_h, sift, surf
 from orthosfm_torch.pipeline import tracks_build
 
 
@@ -49,6 +50,9 @@ def checked_device(device) -> torch.device:
 
 #: RANSAC-F pair chunk: (chunk, iterations, M) Sampson blocks stay ≲ 0.27 GB
 RANSAC_BLOCK_ELEMS = 1 << 26
+#: RANSAC-H pair chunk: (chunk, iterations, M) transfer-error blocks stay
+#: ≲ 0.5 GB, the JAX package's rule
+RANSAC_H_BLOCK_ELEMS = 1 << 27
 
 
 @dataclasses.dataclass
@@ -222,19 +226,54 @@ def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
                     verbose: bool = True, timer=None):
     """Exhaustive pairwise matching with gates; returns
     [(i, j, idx_i, idx_j), ...] inlier match lists. The top-2 search runs
-    through the CUDA kernel for CUDA descriptors."""
+    through the CUDA kernel for CUDA descriptors. Pairs are verified by
+    RANSAC-F, or by RANSAC-H where config.matching.pair_verification is
+    "homography"."""
     stage = timer or _no_timer
     m = config.matching
-    if m.pair_verification != "fundamental":
-        raise NotImplementedError(
-            f"pair_verification={m.pair_verification!r} is not ported yet; "
-            "use 'fundamental'")
+    candidates = candidate_pairs(features, config, verbose, timer)
+
+    # --- Geometric verification: pair-batched RANSAC-F, or RANSAC-H (the
+    # CudaSift-style engine, reference: matching.cpp:172-199)
+    results = []
+    if candidates:
+        device = features[0].sift_desc.device
+        homography = m.pair_verification == "homography"
+        with stage("ransac_h" if homography else "ransac_f"):
+            verify = _verify_homography if homography else _verify_fundamental
+            inl_counts, inliers = verify(candidates, features, config, device)
+        min_required = (m.homography_min_inliers if homography
+                        else max(m.min_pair_inliers_to_accept, m.min_matching_inliers))
+        for (i, j, idx_i, idx_j), n_inl, inl in zip(candidates, inl_counts, inliers):
+            if n_inl < min_required:
+                if verbose:
+                    print(f"Pair ({i},{j}) rejected, {n_inl} inliers below "
+                          f"threshold {min_required}.")
+                continue
+            inl = inl[:len(idx_i)]
+            results.append((i, j, idx_i[inl], idx_j[inl]))
+            if verbose:
+                print(f"Pair ({i},{j}) matched, {n_inl} inliers.")
+    if verbose:
+        print(f"Found a total of {len(results)} matching image pairs.")
+    return results
+
+
+def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
+                    verbose: bool = True, timer=None):
+    """The pairs that pass the low-res gate and the match-count gate, with
+    their combined SIFT + SURF matches, before geometric verification:
+    [(i, j, idx_i, idx_j), ...]."""
+    stage = timer or _no_timer
+    m = config.matching
+    if m.matcher not in ("cascade_hashing", "exhaustive"):
+        raise ValueError(f"unknown matcher {m.matcher!r} "
+                         "(expected 'cascade_hashing' or 'exhaustive')")
+    # Both engines run the exact matcher (MatchingConfig.matcher)
     n_views = len(features)
     all_pairs = [(i, j) for i in range(n_views) for j in range(i + 1, n_views)
                  if features[i].count and features[j].count]
     if not all_pairs:
-        if verbose:
-            print("Found a total of 0 matching image pairs.")
         return []
     device = features[0].sift_desc.device
 
@@ -311,26 +350,49 @@ def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
             continue
         idx_i = np.flatnonzero(m12 >= 0)
         candidates.append((i, j, idx_i, m12[idx_i]))
+    return candidates
 
-    # --- Geometric verification: pair-batched RANSAC-F
-    results = []
-    if candidates:
-        with stage("ransac_f"):
-            inl_counts, inliers = _verify_fundamental(candidates, features, config, device)
-        min_required = max(m.min_pair_inliers_to_accept, m.min_matching_inliers)
-        for (i, j, idx_i, idx_j), n_inl, inl in zip(candidates, inl_counts, inliers):
-            if n_inl < min_required:
-                if verbose:
-                    print(f"Pair ({i},{j}) rejected, {n_inl} inliers below "
-                          f"threshold {min_required}.")
-                continue
-            inl = inl[:len(idx_i)]
-            results.append((i, j, idx_i[inl], idx_j[inl]))
-            if verbose:
-                print(f"Pair ({i},{j}) matched, {n_inl} inliers.")
-    if verbose:
-        print(f"Found a total of {len(results)} matching image pairs.")
-    return results
+
+def _candidate_arrays(candidates, features, coords):
+    """(p1, p2 (P, M, 2), valid (P, M)) host arrays of the candidates'
+    correspondences in the features' `coords` ("xy" pixels or "norm_xy"),
+    each pair's valid prefix first."""
+    M = max(len(c[2]) for c in candidates)
+    P = len(candidates)
+    p1 = np.zeros((P, M, 2), np.float32)
+    p2 = np.zeros((P, M, 2), np.float32)
+    valid = np.zeros((P, M), bool)
+    for pi, (i, j, idx_i, idx_j) in enumerate(candidates):
+        p1[pi, :len(idx_i)] = getattr(features[i], coords)[idx_i]
+        p2[pi, :len(idx_i)] = getattr(features[j], coords)[idx_j]
+        valid[pi, :len(idx_i)] = True
+    return p1, p2, valid
+
+
+def _verify_homography(candidates, features, config, device):
+    """RANSAC-H over every candidate pair in pixel coordinates, in pair chunks
+    whose (chunk, iterations, M) transfer-error blocks stay ≲ 0.5 GB. The
+    samples are drawn on the device from one generator seeded with
+    config.seed + 7919, over all candidates at once. Returns host
+    (num_inliers (P,), inliers (P, M))."""
+    m = config.matching
+    p1, p2, valid = _candidate_arrays(candidates, features, "xy")
+    P, M = valid.shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(config.seed + 7919)
+    counts = torch.as_tensor([len(c[2]) for c in candidates], device=device)
+    samples = ransac_h.draw_samples(counts, m.homography_iterations, gen)
+    p1, p2, valid = (torch.as_tensor(a, device=device) for a in (p1, p2, valid))
+    chunk = max(1, RANSAC_H_BLOCK_ELEMS // max(m.homography_iterations * M, 1))
+    nums, inls = [], []
+    for s in range(0, P, chunk):
+        sl = slice(s, s + chunk)
+        res = ransac_h.find_homography_batched_keys(
+            p1[sl], p2[sl], valid[sl], samples[sl], threshold_px=m.homography_threshold_px,
+            find_threshold_px=m.homography_find_threshold_px)
+        nums.append(res.num_inliers)
+        inls.append(res.inliers)
+    return torch.cat(nums).cpu().numpy(), torch.cat(inls).cpu().numpy()
 
 
 def _verify_fundamental(candidates, features, config, device):
@@ -339,15 +401,8 @@ def _verify_fundamental(candidates, features, config, device):
     over all candidates at once, so they do not depend on the chunking.
     Returns host (num_inliers (P,), inliers (P, M))."""
     m = config.matching
-    M = max(len(c[2]) for c in candidates)
-    P = len(candidates)
-    p1 = np.zeros((P, M, 2), np.float32)
-    p2 = np.zeros((P, M, 2), np.float32)
-    valid = np.zeros((P, M), bool)
-    for pi, (i, j, idx_i, idx_j) in enumerate(candidates):
-        p1[pi, :len(idx_i)] = features[i].norm_xy[idx_i]
-        p2[pi, :len(idx_i)] = features[j].norm_xy[idx_j]
-        valid[pi, :len(idx_i)] = True
+    p1, p2, valid = _candidate_arrays(candidates, features, "norm_xy")
+    P, M = valid.shape
     gen = torch.Generator(device=device)
     gen.manual_seed(config.seed + 7919)
     counts = torch.as_tensor([len(c[2]) for c in candidates], device=device)

@@ -60,6 +60,11 @@ _PRODUCT_CTAS = 1056  # aim of the product's split over K: eight 64-thread CTAs 
 _K2_TRACKS = 32    # tracks per CTA of K2, one a lane
 _K2_MAXW = 16      # warps per CTA of K2 at most
 _K2_VIEWS_PER_WARP = 4  # views each warp of K2 walks, up to _K2_MAXW warps
+# The most views the kernels serve: K3's cluster holds 64 row blocks of 16
+# rows a CTA, 8 CTAs, so 6V + 1 <= 8 * 64 * 16. K1 and K2 keep their
+# per-view tables in shared memory up to ~600 and ~990 views and in global
+# memory past that, up to this limit.
+MAX_VIEWS = 1365
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,11 +251,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "osfm_schur_assemble": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "osfm_camera_solve": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "osfm_point_update_cost": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
-                               _I, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
+                               _I, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
     "osfm_camera_solve_scratch_floats": [_I],
+    "osfm_schur_table_floats": [_I],
+    "osfm_k2_table_floats": [_I],
 }
 
 
@@ -304,11 +311,19 @@ def _check_kind(kind):
         raise ValueError(f"unknown camera kind {kind!r}")
 
 
+def _check_views(V: int):
+    """Raises before any launch past MAX_VIEWS."""
+    if V > MAX_VIEWS:
+        raise ValueError(f"the CUDA BA kernels serve at most {MAX_VIEWS} views, not {V}; "
+                         'run BA with BundleAdjustConfig(impl="torch") past that')
+
+
 def _check_problem(kind, pT, obsT, maskT, rot, camp, free):
     _check_kind(kind)
     V, T = obsT.shape[0], obsT.shape[2]
     if T < 1 or V < 1:
         raise ValueError("empty bundle-adjustment problem")
+    _check_views(V)
     dev = obsT.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev.type} tensors")
@@ -339,6 +354,12 @@ def schur_plan(V: int, T: int) -> tuple:
     return ldx, n_chunks, math.ceil(n_chunks / cps), cps
 
 
+@functools.lru_cache(maxsize=None)
+def _schur_table_floats(V: int) -> int:
+    """Floats of K1's global camera tables at V views (0 below ~600)."""
+    return library().osfm_schur_table_floats(V)
+
+
 def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta,
                    optimize_points):
     """K1: S', dU, rhs of normal_eq_schur_ref, on the card, from the half of
@@ -360,8 +381,10 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     offsets = [0]
     for size in sizes:
         offsets.append(offsets[-1] + -(-size // 4) * 4)
-    ws = torch.empty((offsets[-1],), dtype=torch.float32, device=dev)
-    Xk, Yk, vpart, Ppart = (ws.data_ptr() + 4 * o for o in offsets[:4])
+    n_tables = _schur_table_floats(V)
+    ws = torch.empty((offsets[-1] + n_tables,), dtype=torch.float32, device=dev)
+    Xk, Yk, vpart, Ppart, gcams = (ws.data_ptr() + 4 * o for o in offsets)
+    gcams = gcams if n_tables else None
     counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     S = torch.empty((n, n), dtype=torch.float32, device=dev)
     dU = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -369,7 +392,7 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     err = library().osfm_schur_assemble(
         int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT), *_halves(rot),
         *_halves(camp), _ptr(free), _ptr(state_in), float(huber_delta), int(opt), V, T, ldx,
-        n_chunks, n_split, cps, Xk, Yk, _ptr(counts), vpart, Ppart, _ptr(S), _ptr(dU),
+        n_chunks, n_split, cps, gcams, Xk, Yk, _ptr(counts), vpart, Ppart, _ptr(S), _ptr(dU),
         _ptr(rhs), _stream())
     _raise_on(err, "schur_assemble")
     schur_assemble.launches += 1
@@ -387,6 +410,7 @@ def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
         return camera_solve_ref(kind, S, dU, rhs, free, state_in, rot, camp)
     _check_kind(kind)
     V = rot.shape[1]
+    _check_views(V)
     n = 6 * V
     dev = S.device
     _check("S", S, (n, n), dev)
@@ -445,9 +469,13 @@ class PointUpdateCost:
         self.parts = torch.empty((math.ceil(T / _K2_TRACKS),), dtype=torch.float32,
                                  device=self.device)
         self.ticket = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        n_tables = library().osfm_k2_table_floats(V)
+        self.tables = (torch.empty((n_tables,), dtype=torch.float32, device=self.device)
+                       if n_tables else None)
         self._args = ((int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT),
                        *_halves(rot), *_halves(camp), _ptr(free)),
-                      (self.huber_delta, int(self.update_points), V, T, warps),
+                      (self.huber_delta, int(self.update_points), V, T, warps,
+                       _ptr(self.tables)),
                       (_ptr(self.parts), _ptr(self.ticket), cfg.lam0, cfg.func_tol, cfg.lam_up,
                        cfg.lam_down, cfg.min_lam, cfg.max_lam))
 

@@ -52,3 +52,9 @@ def pose_errors(est_cams: cam_mod.CameraSet, ref_cams: cam_mod.CameraSet):
     pos = np.linalg.norm(on_est - on_ref, axis=-1)
     return np.abs(ang), np.abs(pos)
 
+
+
+def mean_and_std(values):
+    """Population mean/std pair (reference: src/util/common.cpp:218-239)."""
+    v = np.asarray(values, np.float64)
+    return float(v.mean()), float(v.std())

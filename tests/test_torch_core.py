@@ -245,7 +245,7 @@ def test_tracks_and_cameras_io_match(tmp_path):
     tracks_io.save_tracks(tt, str(tmp_path / "port.txt"))
     jtracks_io.save_tracks(ds.tracks, str(tmp_path / "jax.txt"))
     assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
-    back = tracks_io.load_tracks(str(tmp_path / "port.txt"), np.arange(4))
+    back = tracks_io.load_tracks(str(tmp_path / "port.txt"), np.arange(4), device="cpu")
     ref = jtracks_io.load_tracks(str(tmp_path / "jax.txt"), np.arange(4))
     np.testing.assert_array_equal(n(back.obs), n(ref.obs))
     np.testing.assert_array_equal(n(back.obs_mask), n(ref.obs_mask))

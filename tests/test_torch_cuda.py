@@ -638,3 +638,183 @@ def test_top2_kernel_that_fails_to_build_raises(dev, monkeypatch, tmp_path):
             mk.top2(d, *cols)
     finally:
         mk.library.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# BA past shared memory: K1's camera tables and per-view sums (308 bytes a
+# view) leave shared memory past ~600 views, K2's tables (208 bytes a view)
+# past ~990; the kernels serve up to K3's cluster limit of 1365 views.
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+@pytest.mark.parametrize("shape", [(700, 400), (1100, 300)])
+def test_stages_match_plain_versions_past_shared_memory(dev, kind, shape):
+    """At 700 views K1 reads its global camera tables and sums in place, K2
+    still builds its tables in shared memory; at 1100 both read global
+    tables. K1 and K2 against their plain versions at both lambdas (the
+    tolerances of test_stages_match_plain_versions). K3 (n = 4200, 6600)
+    against the f64 solve of the same prepared system: no further from it
+    than twice the plain f32 LU is, since at this n both carry the f32
+    rounding of a factorization of size n (the plain LU measured 1.2e-5 from
+    the kernel at 1100 views)."""
+    inputs = _stage_inputs(kind, dev, *shape)
+    pT, obsT, maskT, rot, camp, free = inputs
+    assert bk.library().osfm_schur_table_floats(shape[0]) > 0
+    assert (bk.library().osfm_k2_table_floats(shape[0]) > 0) == (shape[0] > 1000)
+    args = (kind, *_lm(inputs), bk.new_state(1e-3, dev), 1.0, True)
+    S, dU, rhs = bk.schur_assemble(*args)
+    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
+    assert max(_rel(S, S_r), _rel(dU, dU_r), _rel(rhs, rhs_r)) < 1e-4
+    for lam in K2_LAMBDAS:
+        sargs = (S_r, dU_r, rhs_r, free, lam, rot, camp)
+        delta, _, _ = _camera_step(kind, bk.camera_solve, *sargs)
+        delta_r, rot_cr, camp_cr = _camera_step(kind, bk.camera_solve_ref, *sargs)
+        delta_64 = ba._solve_camera_system(S_r.double(), dU_r.double(), rhs_r.double(), free,
+                                           torch.tensor(lam, dtype=torch.float64, device=dev))
+        assert _rel(delta.double(), delta_64) <= 2.0 * _rel(delta_r.double(), delta_64) + 1e-6
+        _check_point_update_cost(kind, inputs, True, lam, delta_r, rot_cr, camp_cr)
+
+
+@pytest.mark.parametrize("num_views", [700, 1100])
+def test_stages_are_bit_stable_past_shared_memory(dev, num_views):
+    """The global tables and in-place sums keep the fixed summation order:
+    two launches of K1 and of K2 give the same bits."""
+    inputs = _stage_inputs("quat", dev, num_views, 300)
+    args = ("quat", *_lm(inputs), bk.new_state(1e-3, dev), 1.0, True)
+    for a, b in zip(bk.schur_assemble(*args), bk.schur_assemble(*args)):
+        assert torch.equal(a, b)
+    pT, obsT, maskT, rot, camp, free = inputs
+    S, dU, rhs = bk.normal_eq_schur_ref(*args)
+    delta, rot_c, camp_c = _camera_step("quat", bk.camera_solve_ref, S, dU, rhs, free, 1e-3,
+                                        rot, camp)
+    stage, (p2, _, _) = _fused_stage("quat", inputs, True, rot_c, camp_c, False)
+    runs = []
+    for _ in range(2):
+        s_in = bk.new_state(1e-3, dev)
+        s_in[bk.COST] = 1e30
+        s_out = torch.zeros_like(s_in)
+        runs.append((stage(s_in, s_out, delta).clone(), s_out, p2[1].clone()))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_views", [700, 1100])
+def test_ba_run_past_shared_memory(dev, num_views):
+    """ba.run's default route (the kernels on the card) at 700 and 1100
+    views of 2000 tracks converges like the plain path."""
+    cams, points, obs, mask = make_problem("quat", dev, num_views, 2000)
+    cfg = BundleAdjustConfig(max_iterations=10, function_tolerance=0.0, min_lambda=1e-12)
+    bk.reset_launch_counts()
+    r_k = ba.run(cams, points, obs, mask, True, cfg)
+    counts = bk.launch_counts()
+    r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
+    assert counts == {"schur_assemble": 10, "camera_solve": 10, "point_update_cost": 11}, counts
+    np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
+    assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
+    assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
+
+
+def test_ba_kernels_raise_past_their_view_ceiling(dev):
+    """Past 1365 views every kernel wrapper raises a ValueError that names
+    the limit and impl="torch", before it launches; the plain path runs."""
+    V = 1400
+    cams, points, obs, mask = make_problem("quat", dev, V, 100)
+    cfg = BundleAdjustConfig(max_iterations=2)
+    bk.reset_launch_counts()
+    with pytest.raises(ValueError, match=r'at most 1365 views, not 1400.*impl="torch"'):
+        ba.run(cams, points, obs, mask, True, cfg)
+    inputs = _stage_inputs("quat", dev, V, 100)
+    lm = _lm(inputs)
+    with pytest.raises(ValueError, match="1365"):
+        bk.schur_assemble("quat", *lm, bk.new_state(1e-3, dev), 1.0, True)
+    S = torch.zeros((6 * V, 6 * V), device=dev)
+    z = torch.zeros(6 * V, device=dev)
+    with pytest.raises(ValueError, match="1365"):
+        bk.camera_solve("quat", S, z, z, inputs[5], bk.new_state(1e-3, dev), lm[3], lm[4])
+    assert sum(bk.launch_counts().values()) == 0
+    r = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
+    assert torch.isfinite(r.cost)
+
+
+# ---------------------------------------------------------------------------
+# The slice's entry points on the card
+
+
+def test_load_tracks_runs_on_the_card_by_default(tmp_path, dev):
+    from orthosfm_torch.data import synthetic
+    from orthosfm_torch.io import tracks_io
+
+    ds = synthetic.generate_dataset(synthetic.sphere_cloud(100), num_views=4, seed=0)
+    path = str(tmp_path / "tracks.txt")
+    tracks_io.save_tracks(ds.tracks, path)
+    tracks = tracks_io.load_tracks(path, np.arange(4))
+    assert tracks.obs.is_cuda
+    plain = tracks_io.load_tracks_plain(path, np.arange(4))
+    assert torch.equal(tracks.obs.cpu(), plain.obs)
+
+
+def test_ransac_h_on_the_card_matches_its_cpu_run(dev):
+    """The same injected samples: inlier masks equal, and the two H map every
+    valid point within 0.5 px of each other. The refinement's 8×8 normal
+    equations of pixel coordinates up to 1000 are ill-conditioned in f32, so
+    cuSOLVER's and the CPU's solves part in H's entries by up to ~2e-3 of
+    max |H| (measured), a fraction of a pixel where the points lie."""
+    from orthosfm_torch.ops import ransac_h
+
+    rng = np.random.default_rng(0)
+    P, M, iters = 6, 300, 2000
+    H0 = np.array([[1.02, 0.05, 12.0], [-0.03, 0.98, -7.0], [1e-5, -2e-5, 1.0]])
+    a = rng.uniform(0, 1000, (P, M, 2))
+    q = np.concatenate([a, np.ones((P, M, 1))], -1) @ H0.T
+    b = q[..., :2] / q[..., 2:3] + rng.normal(0, 2.0, (P, M, 2))
+    b[:, : M // 4] += rng.uniform(-200, 200, (P, M // 4, 2))
+    valid = np.arange(M)[None, :] < np.array([M, M - 20, M - 50, 100, 60, 40])[:, None]
+    counts = torch.as_tensor(valid.sum(1))
+    samples = ransac_h.draw_samples(counts, iters, torch.Generator().manual_seed(0))
+    args = [torch.as_tensor(x) for x in (a.astype(np.float32), b.astype(np.float32), valid)]
+    cpu = ransac_h.find_homography_batched_keys(*args, samples)
+    gpu = ransac_h.find_homography_batched_keys(*(x.to(dev) for x in args), samples.to(dev))
+    assert torch.equal(gpu.inliers.cpu(), cpu.inliers)
+    x1 = torch.cat([args[0], torch.ones((P, M, 1))], dim=-1)
+    q_c = x1 @ cpu.homography.transpose(1, 2)
+    q_g = x1 @ gpu.homography.cpu().transpose(1, 2)
+    moved = torch.linalg.vector_norm(q_g[..., :2] / q_g[..., 2:] - q_c[..., :2] / q_c[..., 2:],
+                                     dim=-1)
+    assert float(moved[args[2]].max()) < 0.5
+
+
+def test_noise_sweep_on_the_card(dev):
+    """Sphere at the sweep's full size (16 views, 2048 tracks), solvers 0 and
+    3, σ ∈ {0, 1} px: under 0.01° and 0.25° (chip_smoke.py phase 6 runs the
+    three datasets at 0, 1 and 10 px)."""
+    from orthosfm_torch.config import SolverType
+    from orthosfm_torch.testbench import synthetic_tests
+
+    res = synthetic_tests.run_noise_sweep(
+        datasets=("Sphere",), solvers=(SolverType(0), SolverType(3)), noise_levels=(0.0, 1.0),
+        verbose=False)
+    assert len(res) == 4 and not any(r.failed for r in res)
+    for r in res:
+        assert r.mean_angular_error_deg < (0.01 if r.noise_px == 0.0 else 0.25), r
+
+
+def test_full_pipeline_dataset_on_the_card(tmp_path, dev):
+    """dataset_matrix's SphereCircle (12 views of 320², rendered on the card)
+    through the in-process harness, solvers 0 and 3: under 1°."""
+    from orthosfm_torch.testbench import full_pipeline, render, run
+
+    name, scene, ring, views, width, theta, roll, solvers = run.dataset_matrix(320)[0][:8]
+    ds = tmp_path / "data" / name
+    gt = render.make_image_dataset(str(ds / "images"), num_views=views, width=width,
+                                   height=width, seed=sum(name.encode()) % 1000,
+                                   ring_degrees=ring, theta_range=theta, roll_range=roll,
+                                   scene=scene, device=dev)
+    full_pipeline.write_references(str(ds / "references.txt"), gt,
+                                   [f"view_{i:02d}.png" for i in range(views)])
+    configs = [full_pipeline.RunConfiguration(run.SOLVER_NAMES[s], s) for s in solvers]
+    res = full_pipeline.run_full_pipeline_tests(str(tmp_path / "proj"), str(tmp_path / "data"),
+                                                [name], configs, repetitions=1,
+                                                in_process=True, verbose=False)
+    assert [r.config for r in res] == ["Quaternion", "EulerAllDoF"]
+    for r in res:
+        assert r.mean_angular_error < 1.0, r

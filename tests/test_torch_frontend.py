@@ -65,7 +65,8 @@ NEAR_TIE = 1e-5
 def scene():
     """3 sphere views at 160², 20° apart: (numpy RGB images, JAX views,
     port views)."""
-    _, images, _ = render.make_scene_views(3, SIZE, SIZE, seed=3, ring_degrees=60.0)
+    _, images, _ = render.make_scene_views(3, SIZE, SIZE, seed=3, ring_degrees=60.0,
+                                          device="cpu")
     rgb = [im.numpy() for im in images]
     jviews = [JView(i, f"view_{i:02d}.png", SIZE, SIZE, pixels=p) for i, p in enumerate(rgb)]
     pviews = [View(i, f"view_{i:02d}.png", SIZE, SIZE, pixels=p) for i, p in enumerate(rgb)]
@@ -402,7 +403,7 @@ def test_cli_reconstructs_from_images(tmp_path):
     (tests/test_full_pipeline.py:17-39), on the port alone, from PNGs."""
     images, proj = tmp_path / "images", tmp_path / "project"
     gt = render.make_image_dataset(str(images), num_views=5, width=224, height=224, seed=3,
-                                   ring_degrees=100)
+                                   ring_degrees=100, device="cpu")
     assert app.main([str(proj), str(images), "--device", "cpu"]) == 0
     for name in ("cameras.txt", "sparse_cloud.ply", "tracks.txt", "time_measurements.txt"):
         assert (proj / name).is_file(), name
