@@ -63,7 +63,25 @@ Phases:
      reference's 10000 hypotheses on the JAX package's test scene (5 views of
      224^2, seed 3, a 100 degree ring): every view placed, max error < 3 deg;
      then find_homography_batched_keys timed on phase 5's real candidate
-     pairs (pairs, M, chunks, inlier counts).
+     pairs (pairs, M, chunks, inlier counts);
+  8. the multi-device path (orthosfm_torch/parallel/) on a process group of
+     one rank over NCCL, the slice's main path: the sharded BA (K1 on the
+     shard, one all_reduce of S, dU and rhs, K3, K2 in split mode, the
+     all_reduce of the cost, K4 lm_accept) on make_problem() and on
+     2000 views x 2000 tracks (K3 by its grid route), the sharded TK and
+     match_all_pairs(mesh=) on phase 5's features, each bit for bit against
+     one device, with the launch counts of every kernel over this phase
+     (the counts in the kernels line); then two ranks on the one card over
+     gloo (the sharded BA against one device), where gloo takes CUDA
+     tensors, and the CLI's --devices past the cards present, which must
+     raise.
+
+Phase 2 also runs K3's grid route at 700, 1100 and 2000 views (n = 4200,
+6600, 12000) beside torch.linalg.solve_ex, held to an f64 solve (no further
+from it than twice the plain f32 LU is), with its bound, and the cluster
+against the grid route at the crossover (128 views); phase 4 also runs
+ba.run both ways at 700, 1100 and 2000 views x 2000 tracks, 10 iterations,
+with each stage's time there.
 
 With --parent DIR (a checkout of the parent commit), top2 is also timed in
 turns against DIR's by scripts/torch_top2_turns.py.
@@ -97,6 +115,7 @@ MATCH_SOURCE = "orthosfm_torch/csrc/match_kernels.cu"
 REPLACES = {
     "schur_assemble": "orthosfm_tpu/solvers/ba_pallas.py:394",
     "camera_solve": "orthosfm_tpu/solvers/ba_fused.py:545",
+    "camera_solve_grid": "orthosfm_tpu/solvers/ba_fused.py:545",
     "point_update_cost": "orthosfm_tpu/solvers/ba_pallas.py:447",
     "lm_accept": "orthosfm_tpu/solvers/ba_fused.py:545",
     "top2": "orthosfm_tpu/ops/matching_pallas.py:87",
@@ -104,8 +123,17 @@ REPLACES = {
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
-# lm_accept is no kernel of its own: its rule runs in the last CTA of K2
-FOLDED = {"lm_accept": "point_update_cost"}
+# The unsharded BA (phases 3 to 7) launches K1, K3 and K2; K4 lm_accept's
+# rule runs there in K2's last CTA, and as a launch of its own only in the
+# sharded BA (phase 8), which the kernels line's launches count.
+UNSHARDED_BA = ("schur_assemble", "camera_solve", "point_update_cost")
+# K3's grid route (camera_solve_grid in the kernels line): phase 2 at these
+# views of K3_TRACKS tracks, timed at K3_GRID_TIMED; the crossover with the
+# cluster (GRID_MIN_V in the CUDA source)
+K3_GRID_VIEWS = (700, 1100, 2000)
+K3_GRID_TIMED = 1100
+K3_CROSSOVER_VIEWS = 128
+K3_TRACKS = 300
 # Kernel vs plain version on the same inputs. Sums over 8192 tracks run in
 # another order on the card (per-CTA partials) than in the CPU-style plain
 # path, and a Cholesky factorization replaces an LU solve: f32 rounding of
@@ -157,8 +185,12 @@ FRONT_LIMIT_DEG = 1.0
 # ~600 views, K2's past ~990
 BA_SHAPE_MANY = (1100, 300)
 # Phase 4 past shared memory: ba.run end to end, both routes, 10 iterations
-BA_RUN_SHAPES_MANY = ((700, 2000), (1100, 2000))
+BA_RUN_SHAPES_MANY = ((700, 2000), (1100, 2000), (2000, 2000))
 BA_RUN_ITERATIONS_MANY = 10
+# Phase 8: the sharded BA's problems (views, tracks, iterations), its TK
+# group and the two gloo ranks' problem
+SHARDED_BA_SHAPES = ((N_VIEWS, N_TRACKS, 30), (2000, 2000, 10))
+GLOO_SHAPE = (N_VIEWS, N_TRACKS, 30)
 # Phase 6: the testbench's matrix at its default width, and the noise sweep
 TESTBENCH_WIDTH = 320
 TESTBENCH_LIMIT_DEG = 1.0
@@ -234,8 +266,8 @@ def ba_work(maskT, opt):
     t): the Schur term is the symmetric half of a rank-3 update of the
     (6 m_t)-square block per track, 3 (6m)(6m+1)/2 FMA; the per-observation
     block math is counted as K1_OBS_FMA and K2_OBS_FMA. Each input is read
-    once, each output written once; the tail alone (lm_accept) reads K2's
-    per-CTA partials and a state slot and writes the other."""
+    once, each output written once; K4 lm_accept reads the summed cost and
+    a state slot and writes the other."""
     V, T = maskT.shape
     n = 6 * V
     m = (maskT != 0).sum(dim=0).double()
@@ -246,8 +278,9 @@ def ba_work(maskT, opt):
     k3 = (2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 4 * (6 + 4 + 8) * V)
     # the step, the candidate cameras, the new points, the state in and out
     k2 = (2 * K2_OBS_FMA * n_obs, inputs + 4 * 6 * V + 48 * V + 16 * T + 2 * 32)
-    tail = (0.0, 4 * math.ceil(T / 32) + 2 * 32)
-    return {"schur_assemble": k1, "camera_solve": k3, "point_update_cost": k2, "lm_accept": tail}
+    # K4 alone: the summed cost and a state slot in, the other slot out
+    k4 = (0.0, 4 + 2 * 32)
+    return {"schur_assemble": k1, "camera_solve": k3, "point_update_cost": k2, "lm_accept": k4}
 
 
 def stage_inputs(kind, device, num_views, n_tracks):
@@ -312,16 +345,16 @@ def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
     return steps
 
 
-def k2_stage(kind, inputs, opt, rot_c, camp_c, plain):
-    """K2 with its accept tail (or its plain version) on LM buffers whose
-    half 0 holds the current cameras and points and half 1 the candidate
-    cameras."""
+def k2_stage(kind, inputs, opt, rot_c, camp_c, plain, split=False):
+    """K2 with its accept tail (or its plain version; or in split mode) on
+    LM buffers whose half 0 holds the current cameras and points and half 1
+    the candidate cameras."""
     from orthosfm_torch.solvers import ba_kernels as bk
 
     p2, obsT, maskT, r2, c2, free = lm_inputs(inputs)
     r2[1], c2[1] = rot_c, camp_c
     return bk.PointUpdateCost(kind, p2, obsT, maskT, r2, c2, free, 1.0, opt,
-                              bk.LMConfig(*LM_CFG_ARGS), plain=plain), (p2, r2, c2)
+                              bk.LMConfig(*LM_CFG_ARGS), plain=plain, split=split), (p2, r2, c2)
 
 
 def check_point_update_cost(kind, inputs, opt, lam, step, errs, rels, label):
@@ -346,6 +379,12 @@ def check_point_update_cost(kind, inputs, opt, lam, step, errs, rels, label):
             s_out = torch.zeros_like(s_in)
             outs.append((s_out, stage(s_in, s_out, delta), bufs))
         (s_k, parts_k, (p_k, r_k, c_k)), (s_p, parts_p, (p_p, r_p, c_p)) = outs
+        # K2 in split mode, then K4 lm_accept on its cost: the folded tail's bits
+        split, (p_s, r_s, c_s) = k2_stage(kind, inputs, opt, rot_c, camp_c, False, split=True)
+        s_s = torch.zeros_like(s_in)
+        bk.lm_accept(split(s_in, None, delta), s_in, s_s, bk.LMConfig(*LM_CFG_ARGS))
+        require(torch.equal(s_s, s_k) and torch.equal(p_s, p_k),
+                f"K2 split + lm_accept {label} {kind} opt={opt}: not the folded tail's bits")
         e_p = max_err(p_k[1], p_p[1]) if opt else max_err(p_k, p_p)
         e_c = rel_err(s_k[bk.COST], s_p[bk.COST]) if accepted else rel_err(parts_k.sum(),
                                                                            parts_p.sum())
@@ -494,7 +533,7 @@ def time_ba_kernels(inputs):
     acc_args = (parts, s_in, s_out, rot.clone(), camp.clone(), pT.clone(), rot_c, camp_c,
                 pT.clone(), bk.LMConfig(*LM_CFG_ARGS))
     work = ba_work(maskT, True)
-    n = 30 if maskT.shape[0] <= N_VIEWS else 10
+    n = 30 if maskT.shape[0] <= N_VIEWS else 10 if maskT.shape[0] <= 64 else 5
     out = {}
     for name, kern, plain_fn, lib in (
             ("schur_assemble", lambda: bk.schur_assemble(*args),
@@ -508,18 +547,93 @@ def time_ba_kernels(inputs):
                      "library_ms": cuda_ms(lib, n) if lib else None,
                      "bound_ms": b_ms, "bound_by": b_by}
     no_tail = cuda_ms(lambda: kernel(s_in, None, delta), n)
+    split, _ = k2_stage("quat", inputs, True, rot_c, camp_c, False, split=True)
+    cost = split(s_in, None, delta)
+    cfg = bk.LMConfig(*LM_CFG_ARGS)
     b_ms, b_by = bound(*work["lm_accept"])
-    out["lm_accept"] = {"ms": out["point_update_cost"]["ms"] - no_tail,
+    # K4's own launch (the sharded LM's accept) and the rule folded into
+    # K2's last CTA (K2's time less K2's without the tail)
+    out["lm_accept"] = {"ms": cuda_ms(lambda: bk.lm_accept(cost, s_in, s_out, cfg), n),
+                        "tail_ms": out["point_update_cost"]["ms"] - no_tail,
                         "point_update_cost_without_tail_ms": no_tail,
                         "plain_ms": cuda_ms(lambda: bk.lm_accept_ref(*acc_args), n),
                         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
+def k3_system(device, num_views):
+    """The plain reduced camera system of the standard problem at lambda
+    1e-3 (num_views x K3_TRACKS), its LM buffers and its f64 solve."""
+    import torch
+
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    inputs = stage_inputs("quat", device, num_views, K3_TRACKS)
+    lm = lm_inputs(inputs)
+    state = bk.new_state(1e-3, device)
+    S, dU, rhs = bk.normal_eq_schur_ref("quat", *lm, state, 1.0, True)
+    free = inputs[5]
+    d64 = ba._solve_camera_system(S.double(), dU.double(), rhs.double(), free,
+                                  torch.tensor(1e-3, dtype=torch.float64, device=device))
+    return (S, dU, rhs, free, state, lm[3], lm[4]), inputs, d64
+
+
+def check_k3_routes(device, errs, rels):
+    """K3's grid route at K3_GRID_VIEWS and the cluster against it at the
+    crossover: each held to the f64 solve (no further from it than twice
+    the plain f32 LU is, plus 1e-6) and timed beside the plain version,
+    torch.linalg.solve_ex on the same prepared system and the bound
+    (n^3 / 6 + n^2 FMA). Returns {views: {route: times}}."""
+    import torch
+
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    out = {}
+    for num_views in (K3_CROSSOVER_VIEWS, *K3_GRID_VIEWS):
+        sargs, inputs, d64 = k3_system(device, num_views)
+        S, dU, rhs, free, state, r2, c2 = sargs
+        rot, camp = inputs[3], inputs[4]
+        n = 6 * num_views
+
+        def rel64(d):
+            return float((d.double() - d64).abs().max() / d64.abs().max())
+
+        delta_r, rot_cr, camp_cr = camera_step(bk.camera_solve_ref, "quat", S, dU, rhs, free, 1e-3,
+                                               rot, camp)
+        S_s, b, _ = ba.prepare_camera_system(S, dU, rhs, free, state[bk.LAM])
+        n_time = 10 if num_views <= K3_GRID_TIMED else 5
+        shared = {"solve_ex_ms": cuda_ms(lambda: torch.linalg.solve_ex(S_s, b), n_time),
+                  "plain_rel_err_f64": rel64(delta_r)}
+        if num_views == K3_GRID_TIMED:
+            shared["plain_ms"] = cuda_ms(lambda: bk.camera_solve_ref("quat", *sargs), n_time)
+        b_ms, b_by = bound(2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 72 * num_views)
+        out[num_views] = {"bound_ms": b_ms, "bound_by": b_by, **shared}
+        for route in (("cluster", "grid") if num_views == K3_CROSSOVER_VIEWS else ("grid",)):
+            solve = lambda *a, r=route: bk.camera_solve(*a, route=r)  # noqa: E731
+            delta, rot_c, camp_c = camera_step(solve, "quat", S, dU, rhs, free, 1e-3, rot, camp)
+            e64 = rel64(delta)
+            ms = cuda_ms(lambda: solve("quat", *sargs), n_time)
+            out[num_views][route] = {"ms": ms, "rel_err_f64": e64,
+                                     "rel_err_plain": rel_err(delta, delta_r)}
+            print(f"  camera_solve {route:7s} {num_views}x{K3_TRACKS} (n = {n}): {ms:.4f} ms, "
+                  f"solve_ex {shared['solve_ex_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"rel err to f64 {e64:.3e} (plain LU {shared['plain_rel_err_f64']:.3e})")
+            require(e64 <= 2.0 * shared["plain_rel_err_f64"] + 1e-6,
+                    f"camera_solve {route} at {num_views} views: {e64} from the f64 solve")
+            if route == "grid":
+                errs["camera_solve_grid"] = max(errs["camera_solve_grid"], max_err(delta, delta_r),
+                                                max_err(rot_c, rot_cr), max_err(camp_c, camp_cr))
+                rels["camera_solve_grid"] = max(rels["camera_solve_grid"],
+                                                rel_err(delta, delta_r))
+    return out
+
+
 def check_kernels(device):
     """Phase 2: every kernel against its plain version on the card."""
-    errs = {name: 0.0 for name in BA_KERNELS}   # max abs error over all cases
-    rels = {name: 0.0 for name in BA_KERNELS}   # max relative error over all cases
+    errs = {name: 0.0 for name in (*BA_KERNELS, "camera_solve_grid")}  # max abs error, all cases
+    rels = {name: 0.0 for name in errs}         # max relative error over all cases
     # the main path's three shapes: the local BA (3 views, n = 18, K3 in one
     # warp), the global BA and make_problem() (16 views, n = 96), and many
     # views (64, n = 384, where K3's matrix leaves shared memory); both
@@ -547,7 +661,13 @@ def check_kernels(device):
         print(f"  {name:18s} {label:8s} kernel {t['ms']:.4f} ms   plain {t['plain_ms']:.4f} ms"
               f"   bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
     shapes["near_fit"] = near_fit_witness(device)
-    return errs, rels, dict(shapes[f"{N_VIEWS}x{N_TRACKS}"]), shapes
+    shapes["k3_routes"] = check_k3_routes(device, errs, rels)
+    times = dict(shapes[f"{N_VIEWS}x{N_TRACKS}"])
+    grid = shapes["k3_routes"][K3_GRID_TIMED]
+    times["camera_solve_grid"] = {"ms": grid["grid"]["ms"], "plain_ms": grid["plain_ms"],
+                                  "library_ms": grid["solve_ex_ms"], "bound_ms": grid["bound_ms"],
+                                  "bound_by": grid["bound_by"]}
+    return errs, rels, times, shapes
 
 
 def run_slice(device, project):
@@ -1011,8 +1131,8 @@ def run_testbench(device, root):
     require(not missing, f"testbench: cells missing from results.csv: {missing}")
     worst = max(t["mean_angular_error_deg"] for t in table.values())
     require(worst < TESTBENCH_LIMIT_DEG, f"testbench: a cell's mean angular error is {worst}")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the testbench's path")
+    for name in (*UNSHARDED_BA, "top2"):
+        require(launches[name] > 0, f"{name} was not launched on the testbench's path")
 
     t0 = time.perf_counter()
     sweep = synthetic_tests.run_noise_sweep(noise_levels=tuple(SWEEP_LIMITS_DEG), verbose=False,
@@ -1102,6 +1222,234 @@ def run_homography(device, features):
                                     "inliers": nums.tolist()}}
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def tk_group(device):
+    """A TK problem of phase 3's scene: the first 3 views of the 16-view
+    blob (7800 tracks), and its draws' seed."""
+    import torch
+
+    from orthosfm_torch.data import synthetic
+
+    ds = synthetic.generate_dataset(synthetic.blob_cloud(7800), num_views=N_VIEWS, seed=0,
+                                    width=int(WIDTH), height=int(WIDTH), device=device)
+    cols = torch.arange(3, device=device)
+    obs = ds.tracks.obs[:, cols].contiguous()
+    valid = ds.tracks.alive & torch.all(ds.tracks.obs_mask[:, cols], dim=1)
+    return obs, valid, 0
+
+
+def run_sharded(device, features, cfg):
+    """Phase 8, the slice's main path: the sharded BA, TK and matching on a
+    process group of one rank over NCCL, each bit for bit against one
+    device (whose runs come first and do not count), with the launch counts
+    of every kernel over the sharded runs; then two ranks on this card over
+    gloo and --devices past the cards present."""
+    import torch
+    import torch.distributed as dist
+
+    from orthosfm_torch.config import BundleAdjustConfig, RansacConfig
+    from orthosfm_torch.ops import matching_kernels as mk
+    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod, tk_sharded
+    from orthosfm_torch.pipeline import matching as pipe
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.solvers import tomasi_kanade as tk
+    from orthosfm_torch.testbench.problems import make_problem
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    problems = []
+    for num_views, n_tracks, iterations in SHARDED_BA_SHAPES:
+        args = make_problem("quat", device, num_views, n_tracks, WIDTH)
+        bcfg = BundleAdjustConfig(max_iterations=iterations, function_tolerance=0.0,
+                                  min_lambda=1e-12)
+        ref, t_ref = timed(lambda: ba.run(*args, True, bcfg))
+        problems.append((f"{num_views}x{n_tracks}", args, bcfg, ref, t_ref))
+    obs, valid, seed = tk_group(device)
+    rcfg = RansacConfig()
+    tk_ref = tk.robust_factorization(obs, valid, WIDTH, WIDTH, rcfg,
+                                     generator=torch.Generator(device).manual_seed(seed))
+    m_ref = pipe.match_all_pairs(features, cfg, verbose=False)
+
+    mesh = mesh_mod.init_distributed(f"tcp://localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        mesh.all_reduce(torch.zeros(1, device=device))  # NCCL's communicator, set up once
+        torch.cuda.synchronize()
+        bk.reset_launch_counts()
+        mk.top2.launches = 0
+        sharded = []
+        for label, args, bcfg, ref, t_ref in problems:
+            padded, _ = ba_sharded.pad_tracks(list(args[1:]), mesh.size)
+            shards = ba_sharded.shard_track_arrays(mesh, padded)
+            run = ba_sharded.make_sharded_ba(mesh, True, bcfg)
+            res, t_sh = timed(lambda: run(args[0], *shards))
+            sharded.append((label, res, t_sh))
+        tk_res = tk_sharded.make_sharded_tk(mesh, rcfg)(
+            obs, valid, WIDTH, WIDTH, generator=torch.Generator(device).manual_seed(seed))
+        m_sh = pipe.match_all_pairs(features, cfg, verbose=False, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {**bk.launch_counts(), "top2": mk.top2.launches}
+        routes = bk.route_launches()
+    finally:
+        dist.destroy_process_group()
+    launches["camera_solve_grid"] = routes["grid"]
+    print(f"  launches {launches}, camera_solve by route {routes}")
+    out = {"launches": launches, "camera_solve_routes": routes, "ba": {}}
+    for (label, _, bcfg, ref, t_ref), (_, res, t_sh) in zip(problems, sharded):
+        same = (torch.equal(res.cams.rot, ref.cams.rot) and torch.equal(res.points, ref.points)
+                and float(res.cost) == float(ref.cost))
+        print(f"  sharded BA {label}, {bcfg.max_iterations} iterations: {t_sh * 1e3:.2f} ms "
+              f"({t_sh * 1e3 / bcfg.max_iterations:.2f} ms/it) against ba.run's "
+              f"{t_ref * 1e3:.2f} ms; cost {float(res.cost):.6e}, bit for bit: {same}")
+        require(same, f"sharded BA {label} at world size 1 is not ba.run's bits")
+        out["ba"][label] = {"sharded_ms_per_it": t_sh * 1e3 / bcfg.max_iterations,
+                            "ba_run_ms_per_it": t_ref * 1e3 / bcfg.max_iterations,
+                            "cost": float(res.cost), "initial_cost": float(res.initial_cost)}
+    same_tk = (bool(tk_res.found) == bool(tk_ref.found)
+               and int(tk_res.num_inliers) == int(tk_ref.num_inliers)
+               and torch.equal(tk_res.model1, tk_ref.model1)
+               and torch.equal(tk_res.model2, tk_ref.model2))
+    same_m = [(i, j) for i, j, _, _ in m_sh] == [(i, j) for i, j, _, _ in m_ref] and all(
+        np.array_equal(a, c) and np.array_equal(b, d)
+        for (_, _, a, b), (_, _, c, d) in zip(m_sh, m_ref))
+    print(f"  sharded TK ({int(tk_res.num_inliers)} inliers) bit for bit: {same_tk}; sharded "
+          f"matching ({len(m_sh)} pairs) identical: {same_m}")
+    require(same_tk and same_m, "sharded TK or matching differs from one device")
+    for name in (*BA_KERNELS, "camera_solve_grid", "top2"):
+        require(launches[name] > 0, f"{name} was not launched on the sharded path")
+    out["gloo"] = gloo_ranks(problems[0])
+    out["devices_past_cards"] = devices_past_cards()
+    return out
+
+
+def gloo_ranks(problem):
+    """Two ranks on this card over gloo, each a process of its own running
+    this script with --gloo-rank: the sharded BA of `problem` (the
+    make_problem() shape), against one device's ba.run (the same optimum:
+    the two ranks sum in another order), where gloo takes CUDA tensors for
+    all_reduce and all_gather; else what it said."""
+    import torch
+
+    from orthosfm_torch.core import quaternions as quat
+
+    label, _, bcfg, ref, _ = problem
+    port = free_port()
+    with tempfile.TemporaryDirectory() as work:
+        procs, logs = [], []
+        for rank in range(2):
+            logs.append(open(os.path.join(work, f"rank{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(rank), "--port",
+                 str(port), "--out", work], stdout=logs[-1], stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(300 - (time.perf_counter() - t0), 1))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        texts = [open(os.path.join(work, f"rank{r}.log")).read() for r in range(2)]
+        for rank, p in enumerate(procs):
+            require(p.returncode == 0, f"gloo rank {rank} failed:\n{texts[rank][-3000:]}")
+        results = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(2)]
+    if not results[0]["gloo_cuda"]:
+        print(f"  two gloo ranks on one card: gloo does not take CUDA tensors here: "
+              f"{results[0]['error']}")
+        return results[0]
+    rots = [torch.tensor(r["rot"], device=ref.cams.rot.device) for r in results]
+    dots = (quat.normalize(rots[0]) * quat.normalize(ref.cams.rot)).sum(-1).abs()
+    err = float((dots - 1).abs().max())
+    agree = results[0]["rot"] == results[1]["rot"]
+    print(f"  two gloo ranks on one card, sharded BA {label}: {results[0]['ms_per_it']:.2f} ms/it, "
+          f"cost {results[0]['cost']:.6e} (one device {float(ref.cost):.6e}), quaternions "
+          f"within {err:.2e} of one device's, ranks agree: {agree}")
+    require(agree, "the gloo ranks disagree")
+    require(err < 1e-4 and results[0]["cost"] < results[0]["initial_cost"] * 1e-2,
+            "the gloo ranks' BA is not one device's")
+    return {**results[0], "quat_dot_err": err}
+
+
+def gloo_rank(rank, port, out):
+    """One of gloo_ranks' two processes: rank `rank` on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    from orthosfm_torch.config import BundleAdjustConfig
+    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod
+    from orthosfm_torch.testbench.problems import make_problem
+
+    device = torch.device("cuda:0")
+    mesh = mesh_mod.init_distributed(f"tcp://localhost:{port}", 2, rank, "gloo", device=device)
+    try:
+        try:
+            x = mesh.all_reduce(torch.ones(4, device=device))
+            g = mesh.all_gather(torch.full((2,), float(rank), device=device))
+            torch.cuda.synchronize()
+            ok = x.tolist() == [2.0] * 4 and g.tolist() == [0.0, 0.0, 1.0, 1.0]
+            result = {"gloo_cuda": ok, "error": "" if ok else f"wrong sums {x} {g}"}
+        except (RuntimeError, ValueError) as e:
+            result = {"gloo_cuda": False, "error": repr(e)}
+        if result["gloo_cuda"]:
+            num_views, n_tracks, iterations = GLOO_SHAPE
+            cams, points, obs, mask = make_problem("quat", device, num_views, n_tracks, WIDTH)
+            bcfg = BundleAdjustConfig(max_iterations=iterations, function_tolerance=0.0,
+                                      min_lambda=1e-12)
+            padded, _ = ba_sharded.pad_tracks([points, obs, mask], mesh.size)
+            shards = ba_sharded.shard_track_arrays(mesh, padded)
+            run = ba_sharded.make_sharded_ba(mesh, True, bcfg)
+            run(cams, *shards)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(cams, *shards)
+            torch.cuda.synchronize()
+            result.update(ms_per_it=(time.perf_counter() - t0) * 1e3 / iterations,
+                          cost=float(res.cost), initial_cost=float(res.initial_cost),
+                          rot=res.cams.rot.tolist())
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def devices_past_cards():
+    """The CLI's --devices past the cards present raises before it writes
+    anything."""
+    import torch
+
+    from orthosfm_torch import app
+
+    n = torch.cuda.device_count() + 1
+    with tempfile.TemporaryDirectory() as d:
+        images, proj = os.path.join(d, "images"), os.path.join(d, "proj")
+        os.makedirs(images)
+        try:
+            app.main([proj, images, "--devices", str(n)])
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        wrote = os.path.exists(proj)
+    print(f"  --devices {n} on {n - 1} card(s): raised {raised!r}")
+    require(raised and not wrote, f"--devices {n} did not raise before writing")
+    return raised
+
+
 def main() -> int:
     import argparse
 
@@ -1110,10 +1458,15 @@ def main() -> int:
     p = argparse.ArgumentParser(description="Smoke check of the PyTorch + CUDA port on one GPU")
     p.add_argument("--parent", default="",
                    help="a checkout of the parent commit: time top2 against it in turns")
+    p.add_argument("--gloo-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--out", default="", help=argparse.SUPPRESS)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.gloo_rank is not None:  # one of phase 8's two gloo ranks
+        return gloo_rank(args.gloo_rank, args.port, args.out)
     device = torch.device("cuda:0")
     t_all = time.perf_counter()
 
@@ -1157,12 +1510,12 @@ def main() -> int:
     launches_slice = dict(launches)
     slice_ba = recorder.summary()
     print(f"  launches {launches}")
-    require(set(launches) == set(BA_KERNELS) - set(FOLDED), f"BA kernels launched: {launches}")
+    require(launches["lm_accept"] == 0, f"K4 launched on the unsharded path: {launches}")
     print(f"  BA: {slice_ba['ba_calls']} calls, {slice_ba['iterations_worked']} of "
           f"{slice_ba['iterations_launched']} iterations did work; host enqueue "
           f"{slice_ba['enqueue_ms_per_it']:.4f} ms per iteration")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the main path")
+    for name in UNSHARDED_BA:
+        require(launches[name] > 0, f"{name} was not launched on the main path")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 4: BA iterations/s (quat)")
@@ -1180,6 +1533,12 @@ def main() -> int:
         rates[f"{num_views}x{n_tracks}"] = r
         print(f"  kernel path {r['kernel']:.2f} it/s ({1e3 / r['kernel']:.1f} ms/it), plain "
               f"torch path {r['torch']:.2f} it/s ({1e3 / r['torch']:.1f} ms/it)")
+        # which stage sets each route's pace there
+        r["stages"] = time_ba_kernels(stage_inputs("quat", device, num_views, n_tracks))
+        for name in UNSHARDED_BA:
+            t = r["stages"][name]
+            lib = "" if t["library_ms"] is None else f", solve_ex {t['library_ms']:.3f} ms"
+            print(f"    {name:18s} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms{lib}")
     print(f"  phase 4 wall time {time.perf_counter() - t0:.2f} s")
 
     print(f"== phase 5: image front end, {FRONT_VIEWS} x {FRONT_WIDTH}^2 sphere views, "
@@ -1198,7 +1557,8 @@ def main() -> int:
           f"{front_iters['iterations_launched']} iterations did work; host enqueue "
           f"{front_iters['enqueue_ms_per_it']:.4f} ms per iteration")
     require(launches["top2"] > 0, "top2 was not launched on the front end's path")
-    require(all(n > 0 for n in front_ba.values()), "a BA kernel was not launched in phase 5")
+    require(all(front_ba[name] > 0 for name in UNSHARDED_BA),
+            "a BA kernel was not launched in phase 5")
     err, rel, real_times = check_top2_real(device, features, cfg)
     errs["top2"], rels["top2"] = max(errs["top2"], err), max(rels["top2"], rel)
     times["top2"] = real_times["top2_sift"]
@@ -1216,26 +1576,36 @@ def main() -> int:
     t0 = time.perf_counter()
     homography = run_homography(device, features)
     print(f"  phase 7 wall time {time.perf_counter() - t0:.2f} s")
+
+    print("== phase 8: the multi-device path (parallel/) on one rank over NCCL, two over gloo")
+    t0 = time.perf_counter()
+    sharded = run_sharded(device, features, cfg)
+    phase_launches["phase8"] = sharded["launches"]
+    print(f"  phase 8 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: the main path's, phase 6 (the testbench); a folded kernel's
-    # launches are those of the kernel whose last CTA runs it
-    main_path = phase_launches["phase6"]
+    # launches: the slice's main path, phase 8 (the sharded BA, TK and
+    # matching); each earlier phase's are in launches_by_phase
+    main_path = phase_launches["phase8"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
-                "replaces": REPLACES[name], "launches": main_path[FOLDED.get(name, name)],
+                "replaces": REPLACES[name], "launches": main_path[name],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
-                **{k: times[name][k] for k in keys},
-                **({"folded_into": FOLDED[name]} if name in FOLDED else {})}
+                **{k: times[name][k] for k in keys}}
                for name in REPLACES]
+    for k in kernels:
+        if k["name"] == "camera_solve":
+            k["routes"] = sharded["camera_solve_routes"]
+        if k["name"] == "lm_accept":
+            k["tail_ms"] = times["lm_accept"]["tail_ms"]
     print(json.dumps({"kernels": kernels, "launches_by_phase": phase_launches,
                       "ba_shapes": shapes, "ba_iter_per_s": rates,
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}, "testbench": testbench,
-                      "homography": homography}))
+                      "homography": homography, "sharded": sharded}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

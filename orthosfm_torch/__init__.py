@@ -30,10 +30,11 @@ __all__ = [
 
 
 def reconstruct(config: ReconstructionConfig, verbose: bool = True,
-                device="cuda"):
+                device="cuda", mesh=None):
     """Top-level reconstruction on ``device`` (CUDA unless the caller names
-    another; raises without CUDA rather than fall back to the CPU). The lazy
-    import keeps `import orthosfm_torch` light."""
+    another; raises without CUDA rather than fall back to the CPU), or over
+    ``mesh`` (parallel.mesh; every rank calls it). The lazy import keeps
+    `import orthosfm_torch` light."""
     from orthosfm_torch.pipeline.reconstruct import reconstruct as _reconstruct
 
-    return _reconstruct(config, verbose=verbose, device=device)
+    return _reconstruct(config, verbose=verbose, device=device, mesh=mesh)

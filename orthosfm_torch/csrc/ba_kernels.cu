@@ -14,11 +14,16 @@
 //                            system and camera retraction (:369-407); a
 //                            Cholesky here: one warp up to 5 views, a
 //                            blocked one-CTA factorization up to 37, the
-//                            same panels on a cluster of 8 CTAs above
+//                            same panels on a cluster of 8 CTAs above, and
+//                            from GRID_MIN_V views a blocked factorization
+//                            over the whole card (the grid route, any n)
 //   K2 point_update_cost  <- ba_pallas.py point_update_cost (+ ba_fused.py pass 2)
 //                            and, in its last CTA, ba_fused.py accept /
 //                            lambda / done (:457-474), the rule of K4
-//                            lm_accept
+//                            lm_accept; in split mode the last CTA only
+//                            sums the cost, and K4 runs as a launch of its
+//                            own on the cost summed over the shards
+//                            (parallel/ba_sharded.py)
 //
 // The arithmetic is f32 SIMT FMA throughout: no tensor cores, so no TF32.
 // The per-observation math (ba_pallas.py _tile_blocks, _point_block_inv,
@@ -336,7 +341,7 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
     const int k = tid % TC, t = t0 + k;
     int any = 0;
     if (t < T)
-      for (int v = tid / TC; v < V; v += BLK_NT / TC) any |= maskT[v * T + t] != 0.f;
+      for (int v = tid / TC; v < V; v += BLK_NT / TC) any |= maskT[(size_t)v * T + t] != 0.f;
     if (any) seen[k] = 1;
   }
   __syncthreads();
@@ -367,14 +372,15 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
     PointPre P;
     float vt[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3] = {0.f, 0.f, 0.f};
     if (live) {
-      const float p4[4] = {pT[t], pT[T + t], pT[2 * T + t], pT[3 * T + t]};
+      const float p4[4] = {pT[t], pT[(size_t)T + t], pT[2 * (size_t)T + t],
+                           pT[3 * (size_t)T + t]};
       point_pre(p4, P);
       for (int v = gl; v < V; v += G) {
-        if (maskT[v * T + t] == 0.f) continue;
+        if (maskT[(size_t)v * T + t] == 0.f) continue;
         float r[2], w, Jc[2][6], Jp[2][3];
         const Cam& cv = cams[v];
-        obs_block(quat, cv.R9, cv.dS, cv.camp, cv.free, P, obsT[(v * 2) * T + t],
-                  obsT[(v * 2 + 1) * T + t], huber, r, w, Jc, Jp);
+        obs_block(quat, cv.R9, cv.dS, cv.camp, cv.free, P, obsT[(size_t)(v * 2) * T + t],
+                  obsT[(size_t)(v * 2 + 1) * T + t], huber, r, w, Jc, Jp);
         add_point_block(w, Jp, r, vt, gp);
       }
     }
@@ -394,11 +400,11 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
       for (int a = 0; a < 6; ++a)
         for (int q = 0; q < 3; ++q) X[a][q] = Y[a][q] = 0.f;
       if (live && v < V) {
-        if (maskT[v * T + t] != 0.f) {
+        if (maskT[(size_t)v * T + t] != 0.f) {
           float r[2], w, Jc[2][6], Jp[2][3];
           const Cam& cv = cams[v];
-          obs_block(quat, cv.R9, cv.dS, cv.camp, cv.free, P, obsT[(v * 2) * T + t],
-                    obsT[(v * 2 + 1) * T + t], huber, r, w, Jc, Jp);
+          obs_block(quat, cv.R9, cv.dS, cv.camp, cv.free, P, obsT[(size_t)(v * 2) * T + t],
+                    obsT[(size_t)(v * 2 + 1) * T + t], huber, r, w, Jc, Jp);
           for (int a = 0; a < 6; ++a) {
             for (int q = 0; q < 3; ++q) Y[a][q] = w * (Jc[0][a] * Jp[0][q] + Jc[1][a] * Jp[1][q]);
             for (int q = 0; q < 3; ++q)
@@ -566,18 +572,20 @@ __global__ void __launch_bounds__(NT) schur_reduce_kernel(
     float* __restrict__ dU, float* __restrict__ rhs) {
   if (state[DONE] != 0.f) return;
   const int n = 6 * V, nt = ldx / PT, n_tiles = nt * (nt + 1) / 2;
-  const int item = (blockIdx.x * NT + threadIdx.x) / RL, sub = threadIdx.x % RL;
-  const bool is_s = item < n * n;
+  const size_t nn = (size_t)n * n;  // 64-bit: n * n passes 2^31 from ~7700 views
+  const size_t item = ((size_t)blockIdx.x * NT + threadIdx.x) / RL;
+  const int sub = threadIdx.x % RL;
+  const bool is_s = item < nn;
   int i = 0, j = 0, e = -1;  // e: the per-view sum this item needs, if any
-  bool live = item < n * n + 2 * n;
+  bool live = item < nn + 2 * (size_t)n;
   if (live && is_s) {
-    i = item / n;
-    j = item % n;
+    i = (int)(item / n);
+    j = (int)(item % n);
     live = i <= j;
     if (i / 6 == j / 6) e = upper6(i % 6, j % 6);
   } else if (live) {
-    i = j = (item - n * n) % n;
-    e = item - n * n < n ? 21 + i % 6 : upper6(i % 6, i % 6);
+    i = j = (int)((item - nn) % n);
+    e = item - nn < (size_t)n ? 21 + i % 6 : upper6(i % 6, i % 6);
   }
   float u = 0.f, p = 0.f;
   if (live && e >= 0)
@@ -595,7 +603,7 @@ __global__ void __launch_bounds__(NT) schur_reduce_kernel(
     S[(size_t)i * n + j] = u - p;
     S[(size_t)j * n + i] = u - p;
   } else {
-    (item - n * n < n ? rhs : dU)[i] = u;
+    (item - nn < (size_t)n ? rhs : dU)[i] = u;
   }
 }
 
@@ -637,6 +645,11 @@ __global__ void __launch_bounds__(NT) schur_reduce_kernel(
 //     700 W). The cluster keeps its rows in shared memory up to 119 views
 //     and in a global scratch from 120 views to its limit of 1365 (64 row
 //     blocks a CTA).
+//   From GRID_MIN_V views: the grid route (below the cluster kernel), the
+//     panels spread over the whole card from a global scratch, for any n.
+//     The cluster's panels each wait on one warp's factorization of a
+//     16-wide block behind two cluster barriers, ~413 of them at n = 6600,
+//     where it took 320 ms against 26 ms for torch.linalg.solve_ex.
 // No pivoting, no clamp: a pivot that is not positive makes the whole step
 // NaN, every camera's (pinned and unobserved ones too, whose NaN K2's cost
 // would not see), so K2's cost is NaN and its last CTA rejects the step and
@@ -819,19 +832,19 @@ __global__ void __launch_bounds__(NT) camera_solve_kernel(
   // float4 (n * n is a multiple of 4, S 16-byte aligned), eight loads a
   // thread in flight.
   const float4* S4 = reinterpret_cast<const float4*>(S);
-  const int n4 = n * n / 4;
-  for (int e0 = tid; e0 < n4; e0 += 8 * NT) {
+  const size_t n4 = (size_t)n * n / 4;
+  for (size_t e0 = tid; e0 < n4; e0 += 8 * NT) {
     float4 v[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const int e = e0 + q * NT;
+      const size_t e = e0 + q * NT;
       v[q] = e < n4 ? S4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const int e = e0 + q * NT;
+      const size_t e = e0 + q * NT;
       if (e >= n4) continue;
-      int r = (4 * e) / n, j = 4 * e - r * n;
+      int r = (int)((4 * e) / n), j = (int)(4 * e - (size_t)r * n);
       const float vv[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -1310,10 +1323,387 @@ __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
                    h.camp_c + 8 * v);
 }
 
-// The camera solve's launch for V > WARP_SOLVE_V views: the one-CTA kernel
-// where its whole matrix fits shared memory (a little kept for static shared
-// memory), else the cluster, its rows and panel in shared memory where they
-// fit, else in the global scratch (G).
+// The grid route, for any n: the same Cholesky of the bordered matrix as a
+// blocked right-looking factorization whose matrix lives in a global
+// scratch, each panel's work spread over the whole card instead of one
+// cluster. Per panel of GB = 64 columns, two launches:
+//   grid_panel: every CTA factors the 64 x 64 diagonal block in shared
+//     memory (in 16-column sub-panels, one warp a sub-panel's triangle, as
+//     the one-CTA kernel does; every CTA the same arithmetic, so the same
+//     bits) and solves its 256 rows below against it, one thread a row
+//     (TRSM); CTA 0 keeps the factor and its inverse diagonal in the
+//     scratch for the back substitution;
+//   grid_update: the rank-64 update of the trailing lower triangle, over
+//     128 x 128 output tiles on or below the diagonal only, 256 threads with
+//     an 8 x 8 register tile each (rows ty + 16i, columns tx + 16j: the
+//     16-byte shared loads of a quarter-warp hit distinct banks), the
+//     panel's rows staged once in shared memory: 64 FMA for every four
+//     16-byte shared loads.
+// The bordered last row (b^T) is a row below every panel, so it ends as
+// y = L^-1 b. The back substitution L^T x = y is one launch a panel from
+// the end (grid_backsub): every CTA solves the panel's 64-wide triangle
+// (one warp) and takes the panel's x out of its chunk of y above it, in
+// panel order (no float atomics: the result is bit-stable). grid_init
+// builds the damped, pinned, Jacobi-scaled system from S first, and
+// grid_finish forms delta and retracts the cameras last. Every launch
+// returns at once on state[DONE]; a pivot that is not positive sets a flag
+// in the scratch and grid_finish makes all of delta NaN, as the other
+// routes do. Launches per solve: 1 + 3 * ceil(n / 64) (313 at n = 6600).
+// Bound: n^3 / 6 FMA for the factorization (1.43 ms at n = 6600 on the
+// card's f32 peak); the trailing update reads and writes each lower
+// element once a panel, 4 n^3 / (3 * 64) bytes in all (1.8 ms at n = 6600
+// at the HBM rate), which the 64-wide panels keep near the FMA time.
+
+constexpr int GB = 64;         // panel width of the grid route
+constexpr int GDS = GB + 1;    // row stride of its diagonal block in shared memory
+constexpr int G_NT = 256;      // threads of its kernels (but grid_finish)
+constexpr int GT = 128;        // edge of the trailing update's output tiles
+constexpr int GLD = GB + 4;    // row stride of the staged panel rows (16-byte aligned)
+constexpr int GI_T = 64;       // edge of grid_init's tiles
+constexpr int GF_NT = 1024;    // threads of grid_finish
+
+// The grid route's scratch (offsets in floats): the failure flag (an int),
+// x, the panels' diagonal factors and inverse diagonals, then the bordered
+// matrix A (N rows of lda floats; only its lower triangle is used).
+struct GridLayout {
+  size_t x, lkk, dinv, a, total;
+  int lda, npan;
+};
+
+__host__ __device__ __forceinline__ GridLayout grid_layout(int V) {
+  const int n = 6 * V;
+  GridLayout g;
+  g.lda = round4(n + 1);
+  g.npan = (n + GB - 1) / GB;
+  g.x = 4;
+  g.lkk = g.x + round4(n);
+  g.dinv = g.lkk + (size_t)g.npan * GB * GB;
+  g.a = g.dinv + (size_t)g.npan * GB;
+  g.total = g.a + (size_t)(n + 1) * g.lda;
+  return g;
+}
+
+// 1 / the Jacobi scale of unknown i of the damped, pinned system.
+__device__ __forceinline__ float jacobi_rd(const float* S, const float* dU, const float* free,
+                                           float lam, int n, int i) {
+  const float f = free[i], damp = lam * fmaxf(dU[i], 1e-8f);
+  return 1.f / sqrtf(fmaxf(fabsf((S[(size_t)i * n + i] + damp) * f * f + (1.f - f)), 1e-12f));
+}
+
+// The lower triangle of the bordered matrix (row n: b^T) from S, in 64 x 64
+// tiles on or below the diagonal (the upper part of a diagonal tile: zeros).
+__global__ void __launch_bounds__(G_NT) grid_init_kernel(
+    const float* __restrict__ S, const float* __restrict__ dU, const float* __restrict__ rhs,
+    const float* __restrict__ free, const float* __restrict__ state, int n,
+    float* __restrict__ scratch) {
+  if (state[DONE] != 0.f) return;
+  const int bi = blockIdx.y, bj = blockIdx.x, tid = threadIdx.x;
+  if (bj > bi) return;
+  const GridLayout g = grid_layout(n / 6);
+  float* A = scratch + g.a;
+  const int N = n + 1;
+  __shared__ float rd_r[GI_T], f_r[GI_T], d_r[GI_T], rd_c[GI_T], f_c[GI_T];
+  const float lam = state[LAM];
+  if (bi == 0 && tid == 0) reinterpret_cast<int*>(scratch)[0] = 0;
+  if (tid < GI_T) {
+    const int i = bi * GI_T + tid;
+    if (i < n) {
+      f_r[tid] = free[i];
+      d_r[tid] = lam * fmaxf(dU[i], 1e-8f);
+      rd_r[tid] = jacobi_rd(S, dU, free, lam, n, i);
+    }
+  } else if (tid < 2 * GI_T) {
+    const int c = tid - GI_T, j = bj * GI_T + c;
+    if (j < n) {
+      f_c[c] = free[j];
+      rd_c[c] = jacobi_rd(S, dU, free, lam, n, j);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < GI_T * GI_T; e += G_NT) {
+    const int r = e / GI_T, c = e % GI_T, i = bi * GI_T + r, j = bj * GI_T + c;
+    if (i >= N || j >= N) continue;
+    float a = 0.f;
+    if (j <= i) {
+      if (i < n) {
+        const float v = S[(size_t)i * n + j];
+        a = ((i == j ? v + d_r[r] : v) * f_r[r] * f_c[c] + (i == j ? 1.f - f_r[r] : 0.f)) *
+            rd_r[r] * rd_c[c];
+      } else if (j < n) {
+        a = rhs[j] * f_c[c] * rd_c[c];
+      }
+    }
+    A[(size_t)i * g.lda + j] = a;
+  }
+}
+
+// Panel p: the diagonal block's Cholesky in shared memory, then this CTA's
+// rows below: l_i = a_i L_pp^-T, one thread a row.
+__global__ void __launch_bounds__(G_NT) grid_panel_kernel(const float* __restrict__ state, int n,
+                                                          int p, float* __restrict__ scratch) {
+  if (state[DONE] != 0.f) return;
+  const GridLayout g = grid_layout(n / 6);
+  float* A = scratch + g.a;
+  const int N = n + 1, k0 = p * GB, kb = min(GB, n - k0), b0 = k0 + kb;
+  __shared__ float D[GB][GDS];
+  __shared__ float dinv[GB];
+  __shared__ int bad;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) bad = 0;
+  for (int e = tid; e < GB * GB; e += G_NT) {  // identity past kb
+    const int r = e / GB, c = e % GB;
+    D[r][c] = (r < kb && c < kb) ? (c <= r ? A[(size_t)(k0 + r) * g.lda + k0 + c] : 0.f)
+                                 : (r == c ? 1.f : 0.f);
+  }
+  __syncthreads();
+  for (int s = 0; s < GB; s += PW) {
+    if (warp == 0) {
+      // lane r holds row s + r of the sub-panel's triangle (identity past PW)
+      float a[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        a[c] = (lane < PW && c <= lane) ? D[s + lane][s + c] : (c == lane ? 1.f : 0.f);
+      bool bd = false;
+      float il_own = 1.f;
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        const float piv = __shfl_sync(FULL, a[c], c);
+        bd |= !(piv > 0.f);
+        const float il = rsqrtf(piv);
+        a[c] = lane == c ? piv * il : (lane > c ? a[c] * il : a[c]);
+        il_own = lane == c ? il : il_own;
+        float lc[PW];
+#pragma unroll
+        for (int c2 = c + 1; c2 < PW; ++c2) lc[c2] = __shfl_sync(FULL, a[c], c2);
+#pragma unroll
+        for (int c2 = c + 1; c2 < PW; ++c2)
+          if (lane >= c2) a[c2] -= a[c] * lc[c2];
+      }
+      if (lane < PW) {
+        dinv[s + lane] = il_own;
+#pragma unroll
+        for (int c = 0; c < PW; ++c)
+          if (c <= lane) D[s + lane][s + c] = a[c];
+      }
+      if (bd && lane == 0) bad = 1;
+    }
+    __syncthreads();
+    for (int i = s + PW + tid; i < GB; i += G_NT) {  // the block's rows below the sub-panel
+      float x[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c) x[c] = D[i][s + c];
+#pragma unroll
+      for (int c = 0; c < PW; ++c) {
+        float v = 0.f;
+#pragma unroll
+        for (int c2 = 0; c2 < c; ++c2) v = fmaf(x[c2], D[s + c][s + c2], v);
+        x[c] = (x[c] - v) * dinv[s + c];
+      }
+#pragma unroll
+      for (int c = 0; c < PW; ++c) D[i][s + c] = x[c];
+    }
+    __syncthreads();
+    const int m = GB - s - PW;  // the block's trailing lower triangle
+    for (int e = tid; e < m * m; e += G_NT) {
+      const int i = s + PW + e / m, j = s + PW + e % m;
+      if (j > i) continue;
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < PW; ++c) v = fmaf(D[i][s + c], D[j][s + c], v);
+      D[i][j] -= v;
+    }
+    __syncthreads();
+  }
+  const int i = b0 + blockIdx.x * G_NT + tid;
+  if (i < N) {
+    float* row = A + (size_t)i * g.lda + k0;
+    float x[GB];
+#pragma unroll
+    for (int c = 0; c < GB; ++c) x[c] = c < kb ? row[c] : 0.f;
+#pragma unroll
+    for (int c = 0; c < GB; ++c) {
+      float v = 0.f;
+#pragma unroll
+      for (int c2 = 0; c2 < c; ++c2) v = fmaf(x[c2], D[c][c2], v);
+      x[c] = (x[c] - v) * dinv[c];
+    }
+#pragma unroll
+    for (int c = 0; c < GB; ++c)
+      if (c < kb) row[c] = x[c];
+  }
+  if (blockIdx.x != 0) return;
+  float* L = scratch + g.lkk + (size_t)p * GB * GB;
+  for (int e = tid; e < GB * GB; e += G_NT) L[e] = D[e / GB][e % GB];
+  if (tid < GB) scratch[g.dinv + (size_t)p * GB + tid] = dinv[tid];
+  if (tid == 0 && bad) reinterpret_cast<int*>(scratch)[0] = 1;
+}
+
+// The rank-64 update of panel p: A[i][j] -= sum_c L[i][k0 + c] L[j][k0 + c]
+// for b0 <= j <= i < N, one 128 x 128 tile (ti, tj), tj <= ti, a CTA.
+__global__ void __launch_bounds__(G_NT, 2) grid_update_kernel(const float* __restrict__ state,
+                                                              int n, int p,
+                                                              float* __restrict__ scratch) {
+  if (state[DONE] != 0.f) return;
+  const GridLayout g = grid_layout(n / 6);
+  float* A = scratch + g.a;
+  const int N = n + 1, k0 = p * GB, kb = min(GB, n - k0), b0 = k0 + kb;
+  const int t = blockIdx.x, tid = threadIdx.x;
+  int ti = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);  // from an approximate root, then exact
+  while (ti * (ti + 1) / 2 > t) --ti;
+  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+  const int tj = t - ti * (ti + 1) / 2;
+  const int r0 = b0 + ti * GT, c0 = b0 + tj * GT;
+  extern __shared__ __align__(16) float gsm[];
+  float* Rs = gsm;             // [GT][GLD]: the panel columns of rows r0 ..
+  float* Cs = gsm + GT * GLD;  // [GT][GLD]: ... and of rows c0 ..
+  for (int q = tid; q < 2 * GT * (GB / 4); q += G_NT) {
+    const int which = q / (GT * (GB / 4)), rem = q % (GT * (GB / 4));
+    const int r = rem / (GB / 4), c = (rem % (GB / 4)) * 4, row = (which ? c0 : r0) + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < N) {
+      const float* src = A + (size_t)row * g.lda + k0 + c;
+      if (c + 3 < kb) {
+        v = *reinterpret_cast<const float4*>(src);
+      } else {
+        v.x = c < kb ? src[0] : 0.f;
+        v.y = c + 1 < kb ? src[1] : 0.f;
+        v.z = c + 2 < kb ? src[2] : 0.f;
+      }
+    }
+    *reinterpret_cast<float4*>((which ? Cs : Rs) + r * GLD + c) = v;
+  }
+  const int tx = tid & 15, ty = tid >> 4;
+  // The panel's sum, then one subtraction: subtracting each product from the
+  // running entry rounds it 64 times a panel, n times in all, and left the
+  // solve ~10x further from an f64 one than the plain LU at n = 6600.
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  __syncthreads();
+#pragma unroll 2
+  for (int c = 0; c < GB; c += 4) {
+    float4 ra[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+      ra[a] = *reinterpret_cast<const float4*>(Rs + (ty + 16 * a) * GLD + c);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const float4 cb = *reinterpret_cast<const float4*>(Cs + (tx + 16 * b) * GLD + c);
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        acc[a][b] = fmaf(ra[a].x, cb.x, acc[a][b]);
+        acc[a][b] = fmaf(ra[a].y, cb.y, acc[a][b]);
+        acc[a][b] = fmaf(ra[a].z, cb.z, acc[a][b]);
+        acc[a][b] = fmaf(ra[a].w, cb.w, acc[a][b]);
+      }
+    }
+  }
+  // The tile's entries, four rows' loads in flight before their stores
+#pragma unroll
+  for (int a0 = 0; a0 < 8; a0 += 4) {
+    float cur[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int i = r0 + ty + 16 * (a0 + a), j = c0 + tx + 16 * b;
+        cur[a][b] = (i < N && j <= i) ? A[(size_t)i * g.lda + j] : 0.f;
+      }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int i = r0 + ty + 16 * (a0 + a), j = c0 + tx + 16 * b;
+        if (i < N && j <= i) A[(size_t)i * g.lda + j] = cur[a][b] - acc[a0 + a][b];
+      }
+  }
+}
+
+// Back substitution of panel p: x_p = L_pp^-T y_p (one warp of every CTA),
+// then y_j -= sum_c L[k0 + c][j] x_c for this CTA's j < k0. y is row n of A.
+__global__ void __launch_bounds__(G_NT) grid_backsub_kernel(const float* __restrict__ state,
+                                                            int n, int p,
+                                                            float* __restrict__ scratch) {
+  if (state[DONE] != 0.f) return;
+  const GridLayout g = grid_layout(n / 6);
+  const float* A = scratch + g.a;
+  float* y = scratch + g.a + (size_t)n * g.lda;
+  const float* L = scratch + g.lkk + (size_t)p * GB * GB;
+  const int k0 = p * GB, kb = min(GB, n - k0), tid = threadIdx.x, lane = tid & 31;
+  __shared__ float Ls[GB][GDS];
+  __shared__ float xs[GB], dv[GB];
+  for (int e = tid; e < GB * GB; e += G_NT) Ls[e / GB][e % GB] = L[e];
+  if (tid < GB) {
+    xs[tid] = tid < kb ? y[k0 + tid] : 0.f;
+    dv[tid] = scratch[g.dinv + (size_t)p * GB + tid];
+  }
+  __syncthreads();
+  if (tid < 32) {
+    for (int c = kb - 1; c >= 0; --c) {
+      const float xc = xs[c] * dv[c];
+      __syncwarp();
+      if (lane < c) xs[lane] -= Ls[c][lane] * xc;
+      if (lane + 32 < c) xs[lane + 32] -= Ls[c][lane + 32] * xc;
+      if (lane == 0) xs[c] = xc;
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && tid < kb) scratch[g.x + k0 + tid] = xs[tid];
+  const int j = blockIdx.x * G_NT + tid;
+  if (j >= k0) return;
+  float v = 0.f;
+  for (int c = 0; c < kb; ++c) v = fmaf(A[(size_t)(k0 + c) * g.lda + j], xs[c], v);
+  y[j] -= v;
+}
+
+// delta from x (NaN throughout if a pivot was not positive or a free
+// unknown came out non-finite) and the candidate cameras, one CTA.
+__global__ void __launch_bounds__(GF_NT) grid_finish_kernel(
+    int quat, const float* __restrict__ S, const float* __restrict__ dU,
+    const float* __restrict__ free, const float* __restrict__ state, float* rot_a, float* rot_b,
+    float* camp_a, float* camp_b, int V, const float* __restrict__ scratch,
+    float* __restrict__ delta) {
+  if (state[DONE] != 0.f) return;
+  const int n = 6 * V, tid = threadIdx.x;
+  const GridLayout g = grid_layout(V);
+  const float* x = scratch + g.x;
+  const float lam = state[LAM];
+  __shared__ int failed;
+  if (tid == 0) failed = reinterpret_cast<const int*>(scratch)[0];
+  __syncthreads();
+  for (int i = tid; i < n; i += GF_NT)
+    if (free[i] != 0.f && !isfinite(x[i])) failed = 1;
+  __syncthreads();
+  const bool fail = failed != 0;
+  for (int i = tid; i < n; i += GF_NT)
+    delta[i] = fail ? __int_as_float(0x7fc00000)
+                    : (free[i] != 0.f ? x[i] * jacobi_rd(S, dU, free, lam, n, i) * free[i] : 0.f);
+  __syncthreads();
+  const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
+  for (int v = tid; v < V; v += GF_NT)
+    retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
+                   h.camp_c + 8 * v);
+}
+
+// The camera solve's routes. Its automatic choice: one warp up to
+// WARP_SOLVE_V views; the grid route from GRID_MIN_V; between them the
+// one-CTA kernel where its whole matrix fits shared memory (a little kept
+// for static shared memory), else the cluster, its rows and panel in shared
+// memory where they fit, else in the global scratch (G). The cluster serves
+// up to CL_MAX_V views (64 row blocks a CTA), the grid route any number.
+enum Route { R_AUTO = -1, R_WARP = 0, R_CTA = 1, R_CLUSTER = 2, R_GRID = 3 };
+constexpr int CL_MAX_V = 1365;
+// GRID_MIN_V: where the grid route overtakes the cluster. Cluster / grid ms
+// a solve (scripts/torch_k3_routes.py, both routes in one run on an H100
+// 80GB HBM3 at 700 W): 64 views 0.1743 / 0.3251, 96 0.3485 / 0.5215,
+// 128 0.7434 / 0.7232, 160 1.1904 / 0.9266, 256 3.6075 / 1.5437,
+// 512 26.9336 / 3.4889, 700 76.9249 / 5.7035, 1100 323.3833 / 13.2348
+// (torch.linalg.solve_ex 25.8677 there).
+constexpr int GRID_MIN_V = 128;
+
 struct SolvePlan {
   bool cluster, global;
   int nt;             // threads of the one-CTA kernel
@@ -1406,7 +1796,12 @@ SolvePlan solve_plan(int V) {
 // With state_in null it computes the initial cost (ba_fused.py cost_of): the
 // current cameras as candidates, the points as they are, and writes the
 // first state. With state_out null it stops at the partials (to time the
-// tail). No float atomics: results are bit-stable from run to run.
+// tail). In split mode (cost_out set, state_out null) the last CTA writes
+// the summed cost to cost_out, in the same order, and applies no rule: the
+// sharded LM sums that cost over the shards and runs K4 lm_accept, one
+// thread, on the sum (lm_rule: the same rule as the tail, so at one shard
+// the two give the same bits). No float atomics: results are bit-stable
+// from run to run.
 
 constexpr int K2_TRACKS = 32;  // tracks per CTA, one a lane
 constexpr int K2_MAXW = 16;    // warps per CTA at most
@@ -1418,6 +1813,34 @@ constexpr int TAB_CUR = 38;    // current table: R9, camp[0..4], dS rows (18), d
 struct LMRule {
   float lam0, func_tol, lam_up, lam_down, min_lam, max_lam;
 };
+
+// The accept / lambda / done rule (ba_fused.py :457-474, ba.py:501-513) on
+// the scalar state st and the candidate's cost s: the new state into out;
+// init: the first state of the initial cost s.
+__device__ __forceinline__ void lm_rule(const float* st, float s, bool init, const LMRule& rule,
+                                        float out[STATE_SIZE]) {
+#pragma unroll
+  for (int i = 0; i < STATE_SIZE; ++i) out[i] = 0.f;
+  if (init) {
+    out[LAM] = rule.lam0;
+    out[COST] = s;
+    out[INIT_COST] = s;
+    return;
+  }
+  const float cost = st[COST];
+  const bool acc = s < cost;
+  const float rel = (cost - s) / fmaxf(cost, 1e-20f);
+  bool done = acc && rel < rule.func_tol;
+  const float nl = acc ? fmaxf(st[LAM] * rule.lam_down, rule.min_lam)
+                       : fminf(st[LAM] * rule.lam_up, rule.max_lam);
+  done = done || (!acc && nl >= rule.max_lam);
+  out[LAM] = nl;
+  out[COST] = acc ? s : cost;
+  out[ITERS] = st[ITERS] + 1.f;
+  out[DONE] = done ? 1.f : 0.f;
+  out[INIT_COST] = st[INIT_COST];
+  out[CUR] = acc != (st[CUR] != 0.f) ? 1.f : 0.f;
+}
 
 // One view's cameras as K2 loads them, both halves, before the state says
 // which is current, and its step dc * free (zeros without a step).
@@ -1467,9 +1890,9 @@ __device__ __forceinline__ void load_obs(const float* __restrict__ obsT,
                                          int t, float& m, float& ox, float& oy) {
   m = ox = oy = 0.f;
   if (v < V) {
-    m = maskT[v * T + t];
-    ox = obsT[(v * 2) * T + t];
-    oy = obsT[(v * 2 + 1) * T + t];
+    m = maskT[(size_t)v * T + t];
+    ox = obsT[(size_t)(v * 2) * T + t];
+    oy = obsT[(size_t)(v * 2 + 1) * T + t];
   }
 }
 
@@ -1504,7 +1927,7 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
     const float* __restrict__ state_in, const float* __restrict__ delta, float huber,
     int update_points, int V, int T, const float* __restrict__ gtab,
     float* __restrict__ state_out, float* __restrict__ cost_part,
-    unsigned int* __restrict__ ticket, LMRule rule) {
+    unsigned int* __restrict__ ticket, float* __restrict__ cost_out, LMRule rule) {
   extern __shared__ float k2_smem[];
   __shared__ float sums[K2_MAXW][NQ][K2_TRACKS];
   __shared__ float p3s[3][K2_TRACKS];
@@ -1526,8 +1949,8 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
   float ph[2][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    ph[0][j] = pT_a[j * T + tc];
-    ph[1][j] = pT_b[j * T + tc];
+    ph[0][j] = pT_a[(size_t)j * T + tc];
+    ph[1][j] = pT_b[(size_t)j * T + tc];
   }
   CamIn ci;
   if (!gtab && tid < V)
@@ -1604,7 +2027,7 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
       float* p_out = cur ? pT_a : pT_b;  // the other half
       if (live) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) p_out[j * T + t] = pn[j];
+        for (int j = 0; j < 4; ++j) p_out[(size_t)j * T + t] = pn[j];
       }
       const float sw = safe_w(pn[3]);
 #pragma unroll
@@ -1644,7 +2067,7 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
   for (int w2 = 1; w2 < nw; ++w2) rho += sums[w2][0][lane];
   for (int off = 16; off > 0; off >>= 1) rho += __shfl_xor_sync(FULL, rho, off);
   if (lane == 0) cost_part[blockIdx.x] = 0.5f * rho;
-  if (!state_out) return;
+  if (!state_out && !cost_out) return;
 
   // The accept tail, in the CTA that takes the last ticket.
   unsigned int last = 0;
@@ -1660,26 +2083,31 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
   if (lane != 0) return;
   *ticket = 0u;
-  float out[STATE_SIZE] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (init) {
-    out[LAM] = rule.lam0;
-    out[COST] = s;
-    out[INIT_COST] = s;
-  } else {
-    const float cost = st[COST];
-    const bool acc = s < cost;
-    const float rel = (cost - s) / fmaxf(cost, 1e-20f);
-    bool done = acc && rel < rule.func_tol;
-    const float nl = acc ? fmaxf(st[LAM] * rule.lam_down, rule.min_lam)
-                         : fminf(st[LAM] * rule.lam_up, rule.max_lam);
-    done = done || (!acc && nl >= rule.max_lam);
-    out[LAM] = nl;
-    out[COST] = acc ? s : cost;
-    out[ITERS] = st[ITERS] + 1.f;
-    out[DONE] = done ? 1.f : 0.f;
-    out[INIT_COST] = st[INIT_COST];
-    out[CUR] = acc != cur ? 1.f : 0.f;
+  if (cost_out) *cost_out = s;
+  if (!state_out) return;
+  float out[STATE_SIZE];
+  lm_rule(st, s, init, rule, out);
+#pragma unroll
+  for (int i = 0; i < STATE_SIZE; ++i) state_out[i] = out[i];
+}
+
+// K4 lm_accept as a launch of its own (the sharded LM's accept): the rule
+// of K2's tail on the cost summed over the shards. state_in null: the
+// first state. A converged state passes on unchanged, as in K2.
+__global__ void lm_accept_kernel(const float* __restrict__ state_in,
+                                 const float* __restrict__ cost, float* __restrict__ state_out,
+                                 LMRule rule) {
+  if (threadIdx.x != 0) return;
+  const bool init = state_in == nullptr;
+  float st[STATE_SIZE], out[STATE_SIZE];
+#pragma unroll
+  for (int i = 0; i < STATE_SIZE; ++i) st[i] = init ? 0.f : state_in[i];
+  if (st[DONE] != 0.f) {
+#pragma unroll
+    for (int i = 0; i < STATE_SIZE; ++i) state_out[i] = st[i];
+    return;
   }
+  lm_rule(st, cost[0], init, rule, out);
 #pragma unroll
   for (int i = 0; i < STATE_SIZE; ++i) state_out[i] = out[i];
 }
@@ -1770,6 +2198,52 @@ int launch_cluster_solve(const SolvePlan& p, cudaStream_t st, const SolveArgs& a
   return (int)cudaGetLastError();
 }
 
+// The grid route: grid_init, two launches a panel, one a panel back, and
+// grid_finish, all on one stream.
+int launch_grid_solve(cudaStream_t st, const SolveArgs& a, float* scratch) {
+  const int n = 6 * a.V, N = n + 1;
+  const GridLayout g = grid_layout(a.V);
+  int err = allow_smem((const void*)grid_update_kernel);
+  if (err) return err;
+  const int it = (N + GI_T - 1) / GI_T;
+  grid_init_kernel<<<dim3(it, it), G_NT, 0, st>>>(a.S, a.dU, a.rhs, a.free, a.state, n, scratch);
+  if ((err = (int)cudaGetLastError())) return err;
+  const size_t usm = sizeof(float) * 2 * GT * GLD;
+  for (int p = 0; p < g.npan; ++p) {
+    const int b0 = p * GB + GB < n ? p * GB + GB : n;
+    grid_panel_kernel<<<(N - b0 + G_NT - 1) / G_NT, G_NT, 0, st>>>(a.state, n, p, scratch);
+    if ((err = (int)cudaGetLastError())) return err;
+    if (b0 == n) continue;  // the last panel leaves only A[n][n], which nothing reads
+    const int nt = (N - b0 + GT - 1) / GT;
+    grid_update_kernel<<<nt * (nt + 1) / 2, G_NT, usm, st>>>(a.state, n, p, scratch);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  for (int p = g.npan - 1; p >= 0; --p) {
+    const int ctas = p ? (p * GB + G_NT - 1) / G_NT : 1;  // j < p * GB, and the triangle
+    grid_backsub_kernel<<<ctas, G_NT, 0, st>>>(a.state, n, p, scratch);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  grid_finish_kernel<<<1, GF_NT, 0, st>>>(a.quat, a.S, a.dU, a.free, a.state, a.rot_a, a.rot_b,
+                                          a.camp_a, a.camp_b, a.V, scratch, a.delta);
+  return (int)cudaGetLastError();
+}
+
+// The route `route` takes for V views (R_AUTO: the automatic choice), or -1
+// where that route cannot serve V views.
+int solve_route(int V, int route) {
+  if (route == R_AUTO)
+    route = V <= WARP_SOLVE_V ? R_WARP
+            : V >= GRID_MIN_V ? R_GRID
+            : solve_plan(V).cluster ? R_CLUSTER : R_CTA;
+  switch (route) {
+    case R_WARP: return V >= 1 && V <= WARP_SOLVE_V ? route : -1;
+    case R_CTA: return V > WARP_SOLVE_V && !solve_plan(V).cluster ? route : -1;
+    case R_CLUSTER: return V > WARP_SOLVE_V && V <= CL_MAX_V && solve_plan(V).cluster ? route : -1;
+    case R_GRID: return V >= 1 ? route : -1;
+    default: return -1;
+  }
+}
+
 template <int V>
 int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
   camera_solve_warp_kernel<V><<<1, 32, 0, st>>>(a.quat, a.S, a.dU, a.rhs, a.free, a.state,
@@ -1781,10 +2255,17 @@ int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
 
 extern "C" {
 
-// Floats of the global scratch buffer the camera solve needs for V cameras
-// (0 when its rows and panel fit in shared memory).
-int osfm_camera_solve_scratch_floats(int V) {
-  return V <= WARP_SOLVE_V ? 0 : (int)solve_plan(V).scratch;
+// The route the camera solve takes for V cameras (R_AUTO: its automatic
+// choice): 0 warp, 1 one CTA, 2 cluster, 3 grid; -1 where the route asked
+// for cannot serve V cameras.
+int osfm_camera_solve_route(int V, int route) { return solve_route(V, route); }
+
+// Floats of the global scratch buffer the camera solve's route needs for V
+// cameras (0 when its matrix fits in shared memory).
+long long osfm_camera_solve_scratch_floats(int V, int route) {
+  route = solve_route(V, route);
+  if (route == R_GRID) return (long long)grid_layout(V).total;
+  return route == R_CLUSTER ? (long long)solve_plan(V).scratch : 0;
 }
 
 // Floats of the global camera tables K1's block pass needs for V cameras (0
@@ -1831,7 +2312,7 @@ int osfm_schur_assemble(int quat, const float* pT_a, const float* pT_b, const fl
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  const int blocks = ((n * n + 2 * n) * RL + NT - 1) / NT;
+  const size_t blocks = (((size_t)n * n + 2 * (size_t)n) * RL + NT - 1) / NT;
   schur_reduce_kernel<<<blocks, NT, 0, st>>>(state, V, ldx, opt ? n_split : 0, n_chunks, Ppart,
                                              vpart, S, dU, rhs);
   return (int)cudaGetLastError();
@@ -1839,25 +2320,30 @@ int osfm_schur_assemble(int quat, const float* pT_a, const float* pT_b, const fl
 
 // Reads the cameras of the half state[CUR] names and writes the candidate
 // into the other (with state[CUR] = 0: reads rot_a, camp_a, writes rot_b,
-// camp_b).
+// camp_b), by `route` (R_AUTO: the automatic choice); gscratch holds
+// osfm_camera_solve_scratch_floats(V, route) floats.
 int osfm_camera_solve(int quat, const float* S, const float* dU, const float* rhs,
                       const float* free, const float* state, float* rot_a, float* rot_b,
-                      float* camp_a, float* camp_b, int V, float* gscratch, float* delta,
-                      void* stream) {
+                      float* camp_a, float* camp_b, int V, int route, float* gscratch,
+                      float* delta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const SolveArgs a = {quat, S, dU, rhs, free, state, rot_a, rot_b, camp_a, camp_b, V, delta};
-  switch (V) {
-    case 1: return launch_warp_solve<1>(st, a);
-    case 2: return launch_warp_solve<2>(st, a);
-    case 3: return launch_warp_solve<3>(st, a);
-    case 4: return launch_warp_solve<4>(st, a);
-    case 5: return launch_warp_solve<5>(st, a);
-    default: break;
+  route = solve_route(V, route);
+  if (route < 0) return (int)cudaErrorInvalidValue;
+  if (route == R_WARP) {
+    switch (V) {
+      case 1: return launch_warp_solve<1>(st, a);
+      case 2: return launch_warp_solve<2>(st, a);
+      case 3: return launch_warp_solve<3>(st, a);
+      case 4: return launch_warp_solve<4>(st, a);
+      default: return launch_warp_solve<5>(st, a);
+    }
   }
+  if (osfm_camera_solve_scratch_floats(V, route) > 0 && !gscratch)
+    return (int)cudaErrorInvalidValue;
+  if (route == R_GRID) return launch_grid_solve(st, a, gscratch);
   const SolvePlan p = solve_plan(V);
-  if (p.global && !gscratch) return (int)cudaErrorInvalidValue;
-  if (own_blocks(0, (6 * V + RB) / RB) * 4 > CL_RT) return (int)cudaErrorInvalidValue;
-  if (p.cluster)
+  if (route == R_CLUSTER)
     return p.global ? launch_cluster_solve<true>(p, st, a, gscratch)
                     : launch_cluster_solve<false>(p, st, a, nullptr);
   if (p.nt == 256) return launch_camera_solve<256>(p.smem, st, a);
@@ -1874,18 +2360,19 @@ int osfm_k2_table_floats(int V) {
 // K2 with its accept tail over ceil(T / 32) CTAs of `warps` warps. cost_part
 // holds one float per CTA; ticket is a device counter that is 0 before the
 // first launch (each launch leaves it 0). state_in null: the initial cost;
-// state_out null: no tail. gtab: osfm_k2_table_floats(V) floats, or null
-// when that is 0; where this call's tables do not fit in shared memory
-// k2_tables builds them there first.
+// state_out null: no rule; cost_out (split mode): the summed cost. gtab:
+// osfm_k2_table_floats(V) floats, or null when that is 0; where this call's
+// tables do not fit in shared memory k2_tables builds them there first.
 int osfm_point_update_cost(int quat, float* pT_a, float* pT_b, const float* obsT,
                            const float* maskT, const float* rot_a, const float* rot_b,
                            const float* camp_a, const float* camp_b, const float* free,
                            const float* state_in, const float* delta, float huber,
                            int update_points, int V, int T, int warps, float* gtab,
-                           float* state_out, float* cost_part, unsigned int* ticket, float lam0,
-                           float func_tol, float lam_up, float lam_down, float min_lam,
-                           float max_lam, void* stream) {
+                           float* state_out, float* cost_part, unsigned int* ticket,
+                           float* cost_out, float lam0, float func_tol, float lam_up,
+                           float lam_down, float min_lam, float max_lam, void* stream) {
   if (warps < 1 || warps > K2_MAXW) return (int)cudaErrorInvalidValue;
+  if (cost_out && state_out) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool upd = update_points && state_in;
   const size_t smem = k2_dyn_smem(V, upd);
@@ -1904,7 +2391,20 @@ int osfm_point_update_cost(int quat, float* pT_a, float* pT_b, const float* obsT
   point_update_cost_kernel<<<(T + K2_TRACKS - 1) / K2_TRACKS, 32 * warps, global ? 0 : smem,
                              st>>>(quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b,
                                    free, state_in, delta, huber, update_points, V, T,
-                                   global ? gtab : nullptr, state_out, cost_part, ticket, rule);
+                                   global ? gtab : nullptr, state_out, cost_part, ticket,
+                                   cost_out, rule);
+  return (int)cudaGetLastError();
+}
+
+// K4 lm_accept: one thread applies the rule to the cost at cost[0] (the
+// cost summed over the shards) and state_in (null: the first state), into
+// state_out.
+int osfm_lm_accept(const float* state_in, const float* cost, float* state_out, float lam0,
+                   float func_tol, float lam_up, float lam_down, float min_lam, float max_lam,
+                   void* stream) {
+  const LMRule rule = {lam0, func_tol, lam_up, lam_down, min_lam, max_lam};
+  lm_accept_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(state_in, cost, state_out,
+                                                                    rule);
   return (int)cudaGetLastError();
 }
 

@@ -123,9 +123,14 @@ def generate_gt_cameras(num_views: int = 16, width: int = 2048, height: int = 20
 
 def generate_dataset(cloud="Cube", num_views: int = 16, width: int = 2048,
                      height: int = 2048, seed: int = 0, capacity: int | None = None,
-                     scene_scale: float = 3.0, device="cpu") -> SyntheticDataset:
+                     scene_scale: float = 3.0, device="cuda") -> SyntheticDataset:
     """Project every cloud point through every GT camera into perfect
-    full-length tracks (reference: dataset_generation.cpp:41-93)."""
+    full-length tracks (reference: dataset_generation.cpp:41-93), on
+    `device`: CUDA unless the caller names another (without a card this
+    raises rather than run on the CPU unasked)."""
+    from orthosfm_torch.pipeline.matching import checked_device
+
+    device = checked_device(device)
     name = cloud if isinstance(cloud, str) else "custom"
     pts = CLOUDS[cloud]() if isinstance(cloud, str) else np.asarray(cloud)
     pts = pts / scene_scale

@@ -10,8 +10,10 @@ normalization → final global BA.
 The global camera set covers ALL views from the start (absent cameras are
 flagged fixed and carry no observations); only the host-side `present` mask
 grows. Group control flow stays in Python; every numeric stage runs on the
-device of the track tensors. Single device: the JAX package's MeshRunners
-(sharded solvers) has no counterpart yet.
+device of the track tensors. With a mesh of more than one rank
+(parallel.mesh), MeshRunners sends every bundle adjustment through
+parallel.ba_sharded and every Tomasi-Kanade initialization through
+parallel.tk_sharded; the rest runs replicated on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +38,46 @@ from orthosfm_torch.solvers import tomasi_kanade as tk
 class TooFewTracksError(RuntimeError):
     """Raised when a group has <10 full-size tracks
     (reference: tomasi_kanade.cpp:202-205)."""
+
+
+class MeshRunners:
+    """The solvers run_pose_estimation calls, over a mesh (port of the JAX
+    package's MeshRunners). With a mesh of more than one rank every bundle
+    adjustment shards its tracks (parallel.ba_sharded: K1 per shard, the
+    camera system and cost summed over the ranks) and every Tomasi-Kanade
+    initialization its hypotheses (parallel.tk_sharded); with no mesh, or
+    one of a single rank, the unsharded solvers run. Sharded solvers are
+    cached per (optimize_points, config)."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.n_devices = mesh.size if mesh is not None else 1
+        self.active = self.n_devices > 1
+        self._ba_cache = {}
+        self._tk_cache = {}
+
+    def ba_run(self, cams, points4, obs, mask, optimize_points, config):
+        if not self.active:
+            return ba.run(cams, points4, obs, mask, optimize_points=optimize_points,
+                          config=config)
+        from orthosfm_torch.parallel import ba_sharded
+
+        key = (bool(optimize_points), config)
+        if key not in self._ba_cache:
+            self._ba_cache[key] = ba_sharded.make_sharded_ba(
+                self.mesh, optimize_points=optimize_points, config=config)
+        padded, T = ba_sharded.pad_tracks([points4, obs, mask], self.n_devices)
+        res = self._ba_cache[key](cams, *ba_sharded.shard_track_arrays(self.mesh, padded))
+        return res._replace(points=res.points[:T])
+
+    def tk_run(self, obs, valid, widths, heights, cfg, generator):
+        if not self.active:
+            return tk.robust_factorization(obs, valid, widths, heights, cfg, generator=generator)
+        from orthosfm_torch.parallel import tk_sharded
+
+        if cfg not in self._tk_cache:
+            self._tk_cache[cfg] = tk_sharded.make_sharded_tk(self.mesh, cfg=cfg)
+        return self._tk_cache[cfg](obs, valid, widths, heights, generator)
 
 
 @dataclasses.dataclass
@@ -110,7 +152,8 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
                       config: ReconstructionConfig,
                       fallback_tracks: Optional[tracks_mod.TrackSet] = None,
                       verbose: bool = False, n_valid: Optional[int] = None,
-                      n_valid_fb: Optional[int] = None) -> cam_mod.CameraSet:
+                      n_valid_fb: Optional[int] = None,
+                      runners: Optional[MeshRunners] = None) -> cam_mod.CameraSet:
     """calculateInitialAlignment analog (reference:
     OrthoQuaternionRecoAlgorithm.cpp:23-50 / Orthographic...cpp:36-63).
 
@@ -148,8 +191,8 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
 
     w = torch.as_tensor(np.asarray(widths, np.float32), device=tracks.device)
     h = torch.as_tensor(np.asarray(heights, np.float32), device=tracks.device)
-    res = tk.robust_factorization(obs.contiguous(), valid, w, h, config.ransac,
-                                  generator=generator)
+    runners = runners or MeshRunners()
+    res = runners.tk_run(obs.contiguous(), valid, w, h, config.ransac, generator)
     if global_cams is None:
         model = res.model1
     else:
@@ -158,19 +201,18 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
     return _make_group_cameras(model, ids, widths, heights, solver)
 
 
-def _local_ba(local_cams, tracks, cols, config):
+def _local_ba(local_cams, tracks, cols, config, runners):
     """Local bundle adjustment with retriangulation; only cameras persist
     (reference: reconstruct.cpp:219 + bundle_adjustment.cpp:74-83)."""
     local = tracks.replace(alive=tracks_mod.shared_mask(tracks, cols))
     local = triangulate.triangulate_tracks(local_cams, local, cols)
     ct = tracks_mod.col_index(tracks, cols)
     mask = local.obs_mask[:, ct] & local.alive[:, None] & local.has_point[:, None]
-    res = ba.run(local_cams, local.points, local.obs[:, ct], mask,
-                 optimize_points=True, config=config.ba)
+    res = runners.ba_run(local_cams, local.points, local.obs[:, ct], mask, True, config.ba)
     return res.cams, res
 
 
-def _global_ba(global_cams, present, tracks, config, view_ids_np):
+def _global_ba(global_cams, present, tracks, config, view_ids_np, runners):
     """Global bundle adjustment over all present cameras; optimizes and writes
     back point positions (reference: reconstruct.cpp:261, 281)."""
     dev = tracks.device
@@ -183,8 +225,7 @@ def _global_ba(global_cams, present, tracks, config, view_ids_np):
     all_cols = tracks_mod.col_index(tracks, _cols_for(tracks, view_ids_np))
     mask = (tracks.obs_mask[:, all_cols] & present_cols[None, all_cols]
             & tracks.alive[:, None] & tracks.has_point[:, None])
-    res = ba.run(cams, tracks.points, tracks.obs[:, all_cols], mask,
-                 optimize_points=True, config=config.ba)
+    res = runners.ba_run(cams, tracks.points, tracks.obs[:, all_cols], mask, True, config.ba)
     new_cams = res.cams.replace(fixed=global_cams.fixed)
     # Rescale optimized (unit-norm) points back to w=1 form for export/filters
     pts = res.points
@@ -212,11 +253,18 @@ def _triangulate_global(global_cams, present, tracks, view_ids_np):
 
 
 def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
-                        config: ReconstructionConfig,
-                        verbose: bool = True) -> PoseEstimationResult:
+                        config: ReconstructionConfig, verbose: bool = True,
+                        mesh=None) -> PoseEstimationResult:
     """Full incremental alignment (reference: reconstruct.cpp:174-295), on the
     device of ``tracks``. RANSAC draws come from one torch.Generator on that
-    device, seeded with config.seed."""
+    device, seeded with config.seed.
+
+    ``mesh``: optional parallel.mesh.Mesh, the tracks on its rank's device,
+    every rank calling with the same inputs. With more than one rank every
+    bundle adjustment shards the tracks over the ranks and every TK
+    initialization its hypotheses (MeshRunners); the results are every
+    rank's."""
+    runners = MeshRunners(mesh)
     solver = config.solver
     dev = tracks.device
     view_ids = tracks_mod.host_view_ids(tracks.view_ids)
@@ -265,7 +313,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
                                        generator, None if first_group else global_cams,
                                        pair, config, fallback_tracks=pristine_tracks,
                                        verbose=verbose, n_valid=n_valid,
-                                       n_valid_fb=n_valid_fb)
+                                       n_valid_fb=n_valid_fb, runners=runners)
 
         # Reprojection outlier filter on the LOCAL track copy (reconstruct.cpp:212)
         local_tracks = outliers.filter_tracks_reprojection_error(
@@ -276,7 +324,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
             fixed[0] = True
             local_cams = local_cams.replace(fixed=fixed)
 
-        local_cams, ba_res = _local_ba(local_cams, local_tracks, cols, config)
+        local_cams, ba_res = _local_ba(local_cams, local_tracks, cols, config, runners)
         if verbose:
             print(f"  local BA: cost {float(ba_res.initial_cost):.1f} -> "
                   f"{float(ba_res.cost):.1f} in {int(ba_res.iterations)} iters")
@@ -310,7 +358,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
 
         if processed % config.global_ba_interval == 0:
             global_cams, tracks, res = _global_ba(global_cams, present, tracks, config,
-                                                  view_ids)
+                                                  view_ids, runners)
             if verbose:
                 print(f"  global BA: cost {float(res.initial_cost):.1f} -> "
                       f"{float(res.cost):.1f} in {int(res.iterations)} iters")
@@ -327,7 +375,8 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
             print(cam_mod.format_cameras(global_cams, mask=present))
 
     # Final global BA + normalize (reconstruct.cpp:281-282)
-    global_cams, tracks, res = _global_ba(global_cams, present, tracks, config, view_ids)
+    global_cams, tracks, res = _global_ba(global_cams, present, tracks, config, view_ids,
+                                          runners)
     if verbose:
         print(f"final BA: cost {float(res.initial_cost):.1f} -> {float(res.cost):.1f} "
               f"in {int(res.iterations)} iters")

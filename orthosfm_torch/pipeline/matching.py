@@ -16,6 +16,11 @@ configuration (matching_mve.cpp:393-417): low-res pre-gate (500 features,
 Held host state stays numpy, as in the JAX package: coordinates, scales and
 the gates. Descriptors and gray images stay on the device. Every host array
 that crosses to the device is cast to f32 or int32 there.
+
+With a mesh (parallel.mesh) the pair axis of every batched pair program,
+the matcher and RANSAC-F/H, is split over the ranks
+(parallel.matching_sharded); the RANSAC samples are drawn for all pairs
+first, so every rank gets the matches of a run on one device.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from orthosfm_torch.data import tracks as tracks_mod
 from orthosfm_torch.data.views import View
 from orthosfm_torch.ops import matching as match_ops
 from orthosfm_torch.ops import ransac_f, ransac_h, sift, surf
+from orthosfm_torch.parallel import matching_sharded
 from orthosfm_torch.pipeline import tracks_build
 
 
@@ -206,10 +212,10 @@ def _stack_descriptors(descs, cap: int):
     return stack, counts
 
 
-def _batched_pair_matches(stack, counts, pairs, ratio):
+def _batched_pair_matches(stack, counts, pairs, ratio, mesh=None):
     """match_pairs_batched over `pairs` of the (V, N, D) device stack.
     counts: (V,) host valid counts. Returns (P, N) numpy int64 matches (one
-    pull)."""
+    pull). With a mesh each rank matches its share of the pairs."""
     P = len(pairs)
     N = stack.shape[1]
     if P == 0:
@@ -218,20 +224,23 @@ def _batched_pair_matches(stack, counts, pairs, ratio):
     bj = np.array([p[1] for p in pairs])
     args = [torch.as_tensor(np.asarray(a, np.int32), device=stack.device)
             for a in (bi, bj, counts[bi], counts[bj])]
-    return match_ops.check_pulled(
-        match_ops.match_pairs_batched(stack, *args, lowe_ratio=float(ratio)).cpu().numpy())
+    m12 = matching_sharded.run_over_pairs(
+        mesh, lambda *pair_args: match_ops.match_pairs_batched(stack, *pair_args,
+                                                               lowe_ratio=float(ratio)), *args)
+    return match_ops.check_pulled(m12.cpu().numpy())
 
 
 def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
-                    verbose: bool = True, timer=None):
+                    verbose: bool = True, timer=None, mesh=None):
     """Exhaustive pairwise matching with gates; returns
     [(i, j, idx_i, idx_j), ...] inlier match lists. The top-2 search runs
     through the CUDA kernel for CUDA descriptors. Pairs are verified by
     RANSAC-F, or by RANSAC-H where config.matching.pair_verification is
-    "homography"."""
+    "homography". With a mesh the matcher and the verification split their
+    pairs over the ranks, and every rank returns the lists of one device."""
     stage = timer or _no_timer
     m = config.matching
-    candidates = candidate_pairs(features, config, verbose, timer)
+    candidates = candidate_pairs(features, config, verbose, timer, mesh=mesh)
 
     # --- Geometric verification: pair-batched RANSAC-F, or RANSAC-H (the
     # CudaSift-style engine, reference: matching.cpp:172-199)
@@ -241,7 +250,7 @@ def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
         homography = m.pair_verification == "homography"
         with stage("ransac_h" if homography else "ransac_f"):
             verify = _verify_homography if homography else _verify_fundamental
-            inl_counts, inliers = verify(candidates, features, config, device)
+            inl_counts, inliers = verify(candidates, features, config, device, mesh=mesh)
         min_required = (m.homography_min_inliers if homography
                         else max(m.min_pair_inliers_to_accept, m.min_matching_inliers))
         for (i, j, idx_i, idx_j), n_inl, inl in zip(candidates, inl_counts, inliers):
@@ -260,7 +269,7 @@ def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
 
 
 def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
-                    verbose: bool = True, timer=None):
+                    verbose: bool = True, timer=None, mesh=None):
     """The pairs that pass the low-res gate and the match-count gate, with
     their combined SIFT + SURF matches, before geometric verification:
     [(i, j, idx_i, idx_j), ...]."""
@@ -304,7 +313,7 @@ def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
                                               device=device)]
                          for scale, desc in per_view]
             low_stack, low_counts = _stack_descriptors(low_descs, nlow_cap)
-            m_low = _batched_pair_matches(low_stack, low_counts, gpairs, ratio)
+            m_low = _batched_pair_matches(low_stack, low_counts, gpairs, ratio, mesh)
         for p, row in zip(gpairs, m_low):
             if int((row >= 0).sum()) < m.lowres_match_threshold:
                 passed[p] = False
@@ -317,12 +326,13 @@ def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
     with stage("full_sift"):
         ns_cap = max(1, max(f.n_sift for f in features))
         sift_stack, sift_counts = _stack_descriptors([f.sift_desc for f in features], ns_cap)
-        m_sift = _batched_pair_matches(sift_stack, sift_counts, pairs, m.lowe_ratio)
+        m_sift = _batched_pair_matches(sift_stack, sift_counts, pairs, m.lowe_ratio, mesh)
     with stage("full_surf"):
         nu_max = max(f.surf_desc.shape[0] for f in features)
         if nu_max > 0:
             surf_stack, surf_counts = _stack_descriptors([f.surf_desc for f in features], nu_max)
-            m_surf = _batched_pair_matches(surf_stack, surf_counts, pairs, m.surf_lowe_ratio)
+            m_surf = _batched_pair_matches(surf_stack, surf_counts, pairs, m.surf_lowe_ratio,
+                                           mesh)
         else:
             m_surf = np.zeros((len(pairs), 0), np.int64)
 
@@ -369,12 +379,12 @@ def _candidate_arrays(candidates, features, coords):
     return p1, p2, valid
 
 
-def _verify_homography(candidates, features, config, device):
+def _verify_homography(candidates, features, config, device, mesh=None):
     """RANSAC-H over every candidate pair in pixel coordinates, in pair chunks
-    whose (chunk, iterations, M) transfer-error blocks stay ≲ 0.5 GB. The
-    samples are drawn on the device from one generator seeded with
-    config.seed + 7919, over all candidates at once. Returns host
-    (num_inliers (P,), inliers (P, M))."""
+    whose (chunk, iterations, M) transfer-error blocks stay ≲ 0.5 GB (a
+    rank's share of a chunk, with a mesh). The samples are drawn on the
+    device from one generator seeded with config.seed + 7919, over all
+    candidates at once. Returns host (num_inliers (P,), inliers (P, M))."""
     m = config.matching
     p1, p2, valid = _candidate_arrays(candidates, features, "xy")
     P, M = valid.shape
@@ -383,23 +393,30 @@ def _verify_homography(candidates, features, config, device):
     counts = torch.as_tensor([len(c[2]) for c in candidates], device=device)
     samples = ransac_h.draw_samples(counts, m.homography_iterations, gen)
     p1, p2, valid = (torch.as_tensor(a, device=device) for a in (p1, p2, valid))
-    chunk = max(1, RANSAC_H_BLOCK_ELEMS // max(m.homography_iterations * M, 1))
+    chunk = _ranks(mesh) * max(1, RANSAC_H_BLOCK_ELEMS // max(m.homography_iterations * M, 1))
     nums, inls = [], []
     for s in range(0, P, chunk):
         sl = slice(s, s + chunk)
-        res = ransac_h.find_homography_batched_keys(
-            p1[sl], p2[sl], valid[sl], samples[sl], threshold_px=m.homography_threshold_px,
-            find_threshold_px=m.homography_find_threshold_px)
+        res = matching_sharded.run_over_pairs(
+            mesh, lambda *a: ransac_h.find_homography_batched_keys(
+                *a, threshold_px=m.homography_threshold_px,
+                find_threshold_px=m.homography_find_threshold_px),
+            p1[sl], p2[sl], valid[sl], samples[sl])
         nums.append(res.num_inliers)
         inls.append(res.inliers)
     return torch.cat(nums).cpu().numpy(), torch.cat(inls).cpu().numpy()
 
 
-def _verify_fundamental(candidates, features, config, device):
-    """RANSAC-F over every candidate pair, in pair chunks. The samples are
-    drawn on the device from one generator seeded with config.seed + 7919,
-    over all candidates at once, so they do not depend on the chunking.
-    Returns host (num_inliers (P,), inliers (P, M))."""
+def _ranks(mesh) -> int:
+    return 1 if mesh is None else mesh.size
+
+
+def _verify_fundamental(candidates, features, config, device, mesh=None):
+    """RANSAC-F over every candidate pair, in pair chunks (a rank's share
+    of a chunk, with a mesh). The samples are drawn on the device from one
+    generator seeded with config.seed + 7919, over all candidates at once,
+    so they do not depend on the chunking or the ranks. Returns host
+    (num_inliers (P,), inliers (P, M))."""
     m = config.matching
     p1, p2, valid = _candidate_arrays(candidates, features, "norm_xy")
     P, M = valid.shape
@@ -408,27 +425,31 @@ def _verify_fundamental(candidates, features, config, device):
     counts = torch.as_tensor([len(c[2]) for c in candidates], device=device)
     samples = ransac_f.draw_samples(counts, m.ransac_f_iterations, gen)
     p1, p2, valid = (torch.as_tensor(a, device=device) for a in (p1, p2, valid))
-    chunk = max(1, RANSAC_BLOCK_ELEMS // max(m.ransac_f_iterations * M, 1))
+    chunk = _ranks(mesh) * max(1, RANSAC_BLOCK_ELEMS // max(m.ransac_f_iterations * M, 1))
     nums, inls = [], []
     for s in range(0, P, chunk):
         sl = slice(s, s + chunk)
-        res = ransac_f.ransac_fundamental_batched(p1[sl], p2[sl], valid[sl], samples[sl],
-                                                  threshold=m.ransac_f_threshold)
+        res = matching_sharded.run_over_pairs(
+            mesh, lambda *a: ransac_f.ransac_fundamental_batched(
+                *a, threshold=m.ransac_f_threshold),
+            p1[sl], p2[sl], valid[sl], samples[sl])
         nums.append(res.num_inliers)
         inls.append(res.inliers)
     return torch.cat(nums).cpu().numpy(), torch.cat(inls).cpu().numpy()
 
 
 def build_tracks(views: List[View], config: ReconstructionConfig, verbose: bool = True,
-                 device="cuda") -> tracks_mod.TrackSet:
+                 device="cuda", mesh=None) -> tracks_mod.TrackSet:
     """Full matching stage: SIFT + SURF → pairwise matching → union-find
-    tracks, on `device` (CUDA unless the caller names another)."""
+    tracks, on `device` (CUDA unless the caller names another). With a mesh
+    (its rank's device) the pairwise matching and its verification split
+    their pairs over the ranks."""
     features = extract_all_view_features(views, config, device)
     if verbose:
         for v, f in zip(views, features):
             print(f"[View {v.view_id:04d}] {f.count} features "
                   f"({f.n_sift} SIFT + {f.count - f.n_sift} SURF)")
-    pair_matches = match_all_pairs(features, config, verbose=verbose)
+    pair_matches = match_all_pairs(features, config, verbose=verbose, mesh=mesh)
     return tracks_from_matches(views, features, pair_matches, device=device)
 
 

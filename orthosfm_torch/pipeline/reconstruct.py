@@ -21,12 +21,21 @@ from orthosfm_torch.io import cameras_io, ply, timing, tracks_io
 from orthosfm_torch.pipeline import incremental, matching, track_utils
 
 
-def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cuda"
+def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cuda", mesh=None
                 ) -> Tuple[incremental.PoseEstimationResult, List[View]]:
     """Full reconstruction on ``device``, from ``config.track_file`` when it
     is set and from the images otherwise. The device is CUDA unless the
     caller names another; without a CUDA device this raises at once rather
-    than run on the CPU unasked."""
+    than run on the CPU unasked.
+
+    ``mesh``: optional parallel.mesh.Mesh, every rank calling with the same
+    config: each runs on its rank's device, the pair matching, bundle
+    adjustments and TK initializations split over the ranks, and only rank
+    0 prints and writes the project's files."""
+    if mesh is not None:
+        device = mesh.device
+        verbose = verbose and mesh.rank == 0
+    writes = mesh is None or mesh.rank == 0
     device = matching.checked_device(device)
     start_all = time.monotonic()
 
@@ -43,27 +52,28 @@ def reconstruct(config: ReconstructionConfig, verbose: bool = True, device="cuda
             print(f"Loading tracks from {config.track_file}")
         tracks = tracks_io.load_tracks(config.track_file, view_ids, device=device)
     else:
-        tracks = matching.build_tracks(views, config, verbose=verbose, device=device)
+        tracks = matching.build_tracks(views, config, verbose=verbose, device=device, mesh=mesh)
         tracks = track_utils.filter_tracks_with_masks(tracks, views)
         tracks = track_utils.propagate_colors(tracks, views)
-        if config.project_folder:
+        if config.project_folder and writes:
             tracks_io.save_tracks(tracks, os.path.join(config.project_folder, "tracks.txt"))
     if verbose:
         track_utils.print_track_overview(tracks)
     end_track = time.monotonic()
 
-    if config.export_pairwise_tracks and config.project_folder:
+    if config.export_pairwise_tracks and config.project_folder and writes:
         tracks_io.save_pairwise_tracks(tracks, config.project_folder)
 
     # --- Pose estimation ------------------------------------------------------
     widths = np.asarray([v.width for v in views], np.float32)
     heights = np.asarray([v.height for v in views], np.float32)
     start_pose = time.monotonic()
-    result = incremental.run_pose_estimation(tracks, widths, heights, config, verbose=verbose)
+    result = incremental.run_pose_estimation(tracks, widths, heights, config, verbose=verbose,
+                                             mesh=mesh)
     end_pose = time.monotonic()
 
     # --- Export ---------------------------------------------------------------
-    if config.project_folder:
+    if config.project_folder and writes:
         export_cameras(result, [v.image_name for v in views],
                        os.path.join(config.project_folder, "cameras.txt"))
         ply.save_point_cloud(result.tracks,

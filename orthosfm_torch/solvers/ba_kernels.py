@@ -12,11 +12,20 @@ plain PyTorch version.
   point update + cost   PointUpdateCost      point_update_accept_ref  ba_pallas.point_update_cost,
   + accept              (K2, its last CTA    (point_update_cost_ref   ba_fused.run_lm pass 2 and
                         the accept rule)     then lm_accept_ref)      accept/λ/done
+  accept (sharded LM)   lm_accept (K4)       lm_accept_state_ref      ba.py:444-513 with
+                                                                    cost_reduce_fn (psum)
+
+K3 has four routes (CAMERA_SOLVE_ROUTES): one warp, one CTA, a cluster of 8
+CTAs and the grid route over the whole card; camera_solve_route(V) names the
+one it takes for V views. The sharded LM (parallel/ba_sharded.py) runs K2 in
+split mode (its last CTA sums the shard's cost and applies no rule), sums
+that cost over the shards and runs K4 on the sum.
 
 A wrapper given CPU tensors calls the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
-integer attribute (``schur_assemble.launches``, ``camera_solve.launches``,
-``PointUpdateCost.launches``); ``launch_counts()`` reads them by kernel name.
+integer attribute (``schur_assemble.launches``, ``camera_solve.launches``
+and ``camera_solve.route_launches`` by route, ``PointUpdateCost.launches``,
+``lm_accept.launches``); ``launch_counts()`` reads them by kernel name.
 
 The scalar LM state is a float tensor of STATE_SIZE entries
 [λ, cost, iterations, done, initial cost, current half, 0, 0]; ba.run keeps
@@ -60,11 +69,10 @@ _PRODUCT_CTAS = 1056  # aim of the product's split over K: eight 64-thread CTAs 
 _K2_TRACKS = 32    # tracks per CTA of K2, one a lane
 _K2_MAXW = 16      # warps per CTA of K2 at most
 _K2_VIEWS_PER_WARP = 4  # views each warp of K2 walks, up to _K2_MAXW warps
-# The most views the kernels serve: K3's cluster holds 64 row blocks of 16
-# rows a CTA, 8 CTAs, so 6V + 1 <= 8 * 64 * 16. K1 and K2 keep their
-# per-view tables in shared memory up to ~600 and ~990 views and in global
-# memory past that, up to this limit.
-MAX_VIEWS = 1365
+# K3's routes, in the order of the CUDA source's Route enum. K1 and K2 keep
+# their per-view tables in shared memory up to ~600 and ~990 views and in
+# global memory past that; no kernel has a view limit but the card's memory.
+CAMERA_SOLVE_ROUTES = ("warp", "cta", "cluster", "grid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +121,21 @@ def _put_candidate(buf, x, state):
 # Plain PyTorch versions
 
 
+def schur_views(out, n):
+    """(S (n, n), dU (n,), rhs (n,)) as views of one flat buffer of
+    n·n + 2n floats, S first: the sharded LM all-reduces the three in one
+    collective."""
+    return out[:n * n].view(n, n), out[n * n:n * n + n], out[n * n + n:]
+
+
 def normal_eq_schur_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta,
-                        optimize_points):
+                        optimize_points, out=None):
     """S' (n, n) = blkdiag(U) − W V̂⁻¹ Wᵀ in block-major (view·6 + param)
     order, dU (n,) = diag(U), rhs (n,) = g_c − W V̂⁻¹ g_p, with n = 6V — the
     contract of the JAX package's ba_pallas.normal_eq_schur, at the current
-    halves of the LM buffers pT, rot and camp."""
+    halves of the LM buffers pT, rot and camp. With ``out`` (n·n + 2n
+    floats) the three are written there (schur_views) and returned as its
+    views."""
     pT, rot, camp = (current(x, state_in) for x in (pT, rot, camp))
     lam = state_in[LAM]
     V, T = obsT.shape[0], obsT.shape[2]
@@ -137,7 +154,12 @@ def normal_eq_schur_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_
     S = S.reshape(V * 6, V * 6) - X @ Y.T
     dU = torch.diagonal(U, dim1=1, dim2=2).reshape(V * 6)
     rhs = g_c.reshape(V * 6) - X @ g_p.reshape(3 * T)
-    return S, dU, rhs
+    if out is None:
+        return S, dU, rhs
+    views = schur_views(out, 6 * V)
+    for dst, src in zip(views, (S, dU, rhs)):
+        dst.copy_(src)
+    return views
 
 
 def retract_params(kind, rot, camp, delta):
@@ -209,6 +231,21 @@ def lm_accept_ref(cost_part, state_in, state_out, rot, camp, pT, rot_c, camp_c, 
         pT.copy_(torch.where(acc, p_c, pT))
 
 
+def lm_accept_state_ref(cost, state_in, state_out, cfg: LMConfig):
+    """K4's plain version: lm_accept_ref's rule on the scalar state alone,
+    for the LM buffers, where an accepted step flips state_out[CUR]
+    instead of copying the candidates. cost: the candidate's cost (1,)
+    (summed over the shards); state_in None: the first state."""
+    init = state_in is None
+    dummy = cost.new_zeros(())
+    lm_accept_ref(cost, state_in, state_out, dummy, dummy.clone(), dummy.clone(), dummy, dummy,
+                  None, cfg, init=init)
+    if not init:
+        acc = (state_in[DONE] == 0) & (torch.sum(cost) < state_in[COST])
+        cur = (state_in[CUR] != 0).to(state_in.dtype)
+        state_out[CUR] = torch.where(acc, 1.0 - cur, cur)
+
+
 def point_update_accept_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, state_out, delta,
                             huber_delta, update_points, cfg: LMConfig):
     """K2 with its accept tail, plain: point_update_cost_ref, then
@@ -230,15 +267,8 @@ def point_update_accept_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, st
                                          delta, r_c, c_c, huber_delta, upd)
     if upd:
         _put_candidate(pT, p_new, s)
-    if state_out is None:
-        return parts
-    # lm_accept_ref's copies land in r_cur, c_cur and p_cur, fresh tensors,
-    # and are dropped: the buffers flip instead
-    lm_accept_ref(parts, state_in, state_out, r_cur, c_cur, p_cur, r_c, c_c,
-                  p_new if upd else None, cfg, init=init)
-    if not init:
-        acc = (s[DONE] == 0) & (torch.sum(parts) < s[COST])
-        state_out[CUR] = torch.where(acc, other[CUR], s[CUR])
+    if state_out is not None:
+        lm_accept_state_ref(parts, state_in, state_out, cfg)
     return parts
 
 
@@ -252,10 +282,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "osfm_schur_assemble": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "osfm_camera_solve": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "osfm_camera_solve": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "osfm_point_update_cost": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
-                               _I, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
-    "osfm_camera_solve_scratch_floats": [_I],
+                               _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
+    "osfm_lm_accept": [_P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
+    "osfm_camera_solve_route": [_I, _I],
+    "osfm_camera_solve_scratch_floats": [_I, _I],
     "osfm_schur_table_floats": [_I],
     "osfm_k2_table_floats": [_I],
 }
@@ -264,7 +296,9 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library with every C function's signature declared."""
-    return kernel_build.load(SOURCE, _SIGNATURES)
+    lib = kernel_build.load(SOURCE, _SIGNATURES)
+    lib.osfm_camera_solve_scratch_floats.restype = ctypes.c_longlong  # past 2^31 floats
+    return lib
 
 
 def _ptr(t):
@@ -311,19 +345,11 @@ def _check_kind(kind):
         raise ValueError(f"unknown camera kind {kind!r}")
 
 
-def _check_views(V: int):
-    """Raises before any launch past MAX_VIEWS."""
-    if V > MAX_VIEWS:
-        raise ValueError(f"the CUDA BA kernels serve at most {MAX_VIEWS} views, not {V}; "
-                         'run BA with BundleAdjustConfig(impl="torch") past that')
-
-
 def _check_problem(kind, pT, obsT, maskT, rot, camp, free):
     _check_kind(kind)
     V, T = obsT.shape[0], obsT.shape[2]
     if T < 1 or V < 1:
         raise ValueError("empty bundle-adjustment problem")
-    _check_views(V)
     dev = obsT.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev.type} tensors")
@@ -361,15 +387,19 @@ def _schur_table_floats(V: int) -> int:
 
 
 def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta,
-                   optimize_points):
+                   optimize_points, out=None):
     """K1: S', dU, rhs of normal_eq_schur_ref, on the card, from the half of
-    the LM buffers pT, rot and camp that state_in[CUR] names."""
+    the LM buffers pT, rot and camp that state_in[CUR] names; with ``out``
+    (n·n + 2n floats) into its views (schur_views)."""
     if pT.device.type == "cpu":
         return normal_eq_schur_ref(kind, pT, obsT, maskT, rot, camp, free, state_in,
-                                   huber_delta, optimize_points)
+                                   huber_delta, optimize_points, out)
     V, T, dev = _check_problem(kind, pT, obsT, maskT, rot, camp, free)
     _check("state_in", state_in, (STATE_SIZE,), dev)
     n = 6 * V
+    if out is None:
+        out = torch.empty((n * n + 2 * n,), dtype=torch.float32, device=dev)
+    _check("out", out, (n * n + 2 * n,), dev)
     ldx, n_chunks, n_split, cps = schur_plan(V, T)
     opt = bool(optimize_points)
     nt = ldx // _PT
@@ -386,9 +416,7 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     Xk, Yk, vpart, Ppart, gcams = (ws.data_ptr() + 4 * o for o in offsets)
     gcams = gcams if n_tables else None
     counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
-    S = torch.empty((n, n), dtype=torch.float32, device=dev)
-    dU = torch.empty((n,), dtype=torch.float32, device=dev)
-    rhs = torch.empty((n,), dtype=torch.float32, device=dev)
+    S, dU, rhs = schur_views(out, n)
     err = library().osfm_schur_assemble(
         int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT), *_halves(rot),
         *_halves(camp), _ptr(free), _ptr(state_in), float(huber_delta), int(opt), V, T, ldx,
@@ -399,18 +427,30 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     return S, dU, rhs
 
 
-def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
+def camera_solve_route(V: int, route=None) -> str:
+    """The route K3 takes for V views: `route` (one of
+    CAMERA_SOLVE_ROUTES) where it can serve V views, else raises; None: the
+    automatic choice (the grid route from the crossover measured on the
+    card, GRID_MIN_V in the CUDA source)."""
+    code = -1 if route is None else CAMERA_SOLVE_ROUTES.index(route)
+    got = library().osfm_camera_solve_route(V, code)
+    if got < 0:
+        raise ValueError(f"K3's {route} route cannot serve {V} views")
+    return CAMERA_SOLVE_ROUTES[got]
+
+
+def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp, route=None):
     """K3: camera_solve_ref on the card, by a Cholesky factorization: returns
     delta (V, 6) and writes the candidate cameras into the half of the LM
     buffers rot and camp that state_in[CUR] does not name. Where it meets a
     pivot that is not positive (an indefinite system) every entry of delta
     is NaN, so the LM step is rejected; the plain version's LU solves such a
-    system."""
+    system. ``route`` forces one of CAMERA_SOLVE_ROUTES (None: the automatic
+    choice, camera_solve_route)."""
     if S.device.type == "cpu":
         return camera_solve_ref(kind, S, dU, rhs, free, state_in, rot, camp)
     _check_kind(kind)
     V = rot.shape[1]
-    _check_views(V)
     n = 6 * V
     dev = S.device
     _check("S", S, (n, n), dev)
@@ -423,14 +463,17 @@ def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp):
     if S.data_ptr() % 16:
         raise ValueError("S must be 16-byte aligned (the kernel reads it as float4)")
     lib = library()
-    n_scratch = lib.osfm_camera_solve_scratch_floats(V)
+    name = camera_solve_route(V, route)
+    code = CAMERA_SOLVE_ROUTES.index(name)
+    n_scratch = lib.osfm_camera_solve_scratch_floats(V, code)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     delta = torch.empty((V, 6), dtype=torch.float32, device=dev)
     err = lib.osfm_camera_solve(
         int(kind == "quat"), _ptr(S), _ptr(dU), _ptr(rhs), _ptr(free), _ptr(state_in),
-        *_halves(rot), *_halves(camp), V, _ptr(scratch), _ptr(delta), _stream())
+        *_halves(rot), *_halves(camp), V, code, _ptr(scratch), _ptr(delta), _stream())
     _raise_on(err, "camera_solve")
     camera_solve.launches += 1
+    camera_solve.route_launches[name] += 1
     return delta
 
 
@@ -450,17 +493,21 @@ class PointUpdateCost:
     in its last CTA applies lm_accept's rule, writing state_out, whose CUR
     names the other half on acceptance. With state_in None: the initial
     cost; with state_out None: no accept tail. Returns the cost partials.
-    With CPU tensors, or plain=True (ba.run's impl "torch"), each call runs
+    With split=True (the sharded LM) state_out must be None and each call
+    returns the summed cost (1,) instead, summed by the last CTA in the
+    tail's order; lm_accept then applies the rule to it. With CPU tensors,
+    or plain=True (ba.run's impl "torch"), each call runs
     point_update_accept_ref."""
 
     launches = 0
 
     def __init__(self, kind, pT, obsT, maskT, rot, camp, free, huber_delta, update_points,
-                 cfg: LMConfig, plain: bool = False):
+                 cfg: LMConfig, plain: bool = False, split: bool = False):
         self.kind, self.pT, self.obsT, self.maskT = kind, pT, obsT, maskT
         self.rot, self.camp, self.free, self.cfg = rot, camp, free, cfg
         self.huber_delta, self.update_points = float(huber_delta), bool(update_points)
         self.plain = plain or pT.device.type == "cpu"
+        self.split = bool(split)
         if self.plain:
             return
         V, T, self.device = _check_problem(kind, pT, obsT, maskT, rot, camp, free)
@@ -469,6 +516,7 @@ class PointUpdateCost:
         self.parts = torch.empty((math.ceil(T / _K2_TRACKS),), dtype=torch.float32,
                                  device=self.device)
         self.ticket = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self.cost = torch.zeros((1,), dtype=torch.float32, device=self.device)
         n_tables = library().osfm_k2_table_floats(V)
         self.tables = (torch.empty((n_tables,), dtype=torch.float32, device=self.device)
                        if n_tables else None)
@@ -480,6 +528,8 @@ class PointUpdateCost:
                        cfg.lam_down, cfg.min_lam, cfg.max_lam))
 
     def __call__(self, state_in, state_out, delta=None):
+        if self.split and state_out is not None:
+            raise ValueError("K2 in split mode applies no rule: state_out must be None")
         if self.plain:
             return point_update_accept_ref(self.kind, self.pT, self.obsT, self.maskT, self.rot,
                                            self.camp, self.free, state_in, state_out, delta,
@@ -492,22 +542,54 @@ class PointUpdateCost:
         if self.update_points and state_in is not None and delta is None:
             raise ValueError("the point update needs delta")
         head, mid, tail = self._args
+        parts, ticket, *rule = tail
         err = library().osfm_point_update_cost(*head, _ptr(state_in), _ptr(delta), *mid,
-                                               _ptr(state_out), *tail, _stream())
+                                               _ptr(state_out), parts, ticket,
+                                               _ptr(self.cost) if self.split else None, *rule,
+                                               _stream())
         _raise_on(err, "point_update_cost")
         PointUpdateCost.launches += 1
-        return self.parts
+        return self.cost if self.split else self.parts
+
+
+def lm_accept(cost, state_in, state_out, cfg: LMConfig, plain: bool = False):
+    """K4: the LM accept rule of K2's tail as a launch of its own, on the
+    candidate's cost (1,) (the sharded LM's, summed over the shards),
+    without a host sync: writes state_out, whose CUR names the other half
+    of the LM buffers on acceptance; state_in None: the first state. With a
+    CPU cost, or plain=True, lm_accept_state_ref."""
+    if plain or cost.device.type == "cpu":
+        lm_accept_state_ref(cost, state_in, state_out, cfg)
+        return
+    dev = cost.device
+    _check("cost", cost, (1,), dev)
+    _check("state_out", state_out, (STATE_SIZE,), dev)
+    if state_in is not None:
+        _check("state_in", state_in, (STATE_SIZE,), dev)
+    err = library().osfm_lm_accept(_ptr(state_in), _ptr(cost), _ptr(state_out), cfg.lam0,
+                                   cfg.func_tol, cfg.lam_up, cfg.lam_down, cfg.min_lam,
+                                   cfg.max_lam, _stream())
+    _raise_on(err, "lm_accept")
+    lm_accept.launches += 1
 
 
 def reset_launch_counts():
     schur_assemble.launches = camera_solve.launches = PointUpdateCost.launches = 0
+    lm_accept.launches = 0
+    camera_solve.route_launches = dict.fromkeys(CAMERA_SOLVE_ROUTES, 0)
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset_launch_counts(), by name;
-    K4 lm_accept has none of its own (it runs in K2's last CTA)."""
+    """Launches of each kernel since the last reset_launch_counts(), by name
+    (K4 lm_accept: its own launches, the sharded LM's; unsharded its rule
+    runs in K2's last CTA)."""
     return {"schur_assemble": schur_assemble.launches, "camera_solve": camera_solve.launches,
-            "point_update_cost": PointUpdateCost.launches}
+            "point_update_cost": PointUpdateCost.launches, "lm_accept": lm_accept.launches}
+
+
+def route_launches() -> dict:
+    """camera_solve's launches since the last reset_launch_counts(), by route."""
+    return dict(camera_solve.route_launches)
 
 
 reset_launch_counts()

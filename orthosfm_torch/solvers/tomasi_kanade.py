@@ -233,14 +233,21 @@ def robust_factorization(obs, valid, width, height, cfg: RansacConfig = RansacCo
 
     _, scores, n_con, sol1, sol2 = score_hypothesis(obs, valid, width, height, cfg,
                                                    samp_idx=samp_idx, q0=q0)
+    return select_model(obs, valid, scores, n_con, sol1, sol2, samp_idx.shape[1], q0_fallback)
+
+
+def select_model(obs, valid, scores, n_con, sol1, sol2, sample_size: int,
+                 q0_fallback) -> TKResult:
+    """The best-scoring hypothesis's mirror pair, or, when none reached the
+    consensus threshold (every score −inf), the factorization over all
+    valid tracks (tomasi_kanade.cpp:361-365), chosen on the device with no
+    host sync."""
     best = torch.argmax(scores)
     found = scores[best] > -torch.inf
-
-    # Factorize over all valid tracks (tomasi_kanade.cpp:361-365)
     fb1, fb2 = factorize(obs[None], valid[None], q0_fallback[None])
     model1 = torch.where(found, sol1[best], fb1[0])
     model2 = torch.where(found, sol2[best], fb2[0])
-    num_inliers = torch.where(found, n_con[best] + samp_idx.shape[1], torch.sum(valid))
+    num_inliers = torch.where(found, n_con[best] + sample_size, torch.sum(valid))
     return TKResult(model1=model1, model2=model2, num_inliers=num_inliers, found=found)
 
 

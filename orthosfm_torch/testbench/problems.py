@@ -13,10 +13,14 @@ from orthosfm_torch.data import synthetic
 from orthosfm_torch.ops import triangulate
 
 
-def make_problem(kind="quat", device="cpu", num_views=16, n_points=8192, width=2048.0):
+def make_problem(kind="quat", device="cuda", num_views=16, n_points=8192, width=2048.0):
     """GT ring cameras perturbed by up to 1° per angle (numpy seed 0), camera
-    0 fixed, points triangulated from the perturbed cameras. Returns
-    (cams, points4 (T, 4), obs (T, V, 2), mask (T, V))."""
+    0 fixed, points triangulated from the perturbed cameras, on `device`
+    (CUDA unless the caller names another; without a card this raises).
+    Returns (cams, points4 (T, 4), obs (T, V, 2), mask (T, V))."""
+    from orthosfm_torch.pipeline.matching import checked_device
+
+    device = checked_device(device)
     ds = synthetic.generate_dataset(synthetic.sphere_cloud(n_points), num_views=num_views,
                                     seed=0, width=int(width), height=int(width), device=device)
     rng = np.random.default_rng(0)

@@ -161,7 +161,7 @@ def test_cameras_match(solver):
 def test_synthetic_dataset_matches():
     for cloud in ("Cube", "Sphere", "Blob"):
         np.testing.assert_array_equal(synthetic.CLOUDS[cloud](), jsyn.CLOUDS[cloud]())
-    ds_t = synthetic.generate_dataset("Blob", num_views=16, seed=3)
+    ds_t = synthetic.generate_dataset("Blob", num_views=16, seed=3, device="cpu")
     ds_j = jsyn.generate_dataset("Blob", num_views=16, seed=3)
     # pixels on a 2048 image, f32 on both sides
     np.testing.assert_allclose(n(ds_t.tracks.obs), n(ds_j.tracks.obs), atol=2e-3)
@@ -172,7 +172,7 @@ def test_synthetic_dataset_matches():
 
 
 def test_observation_noise_draws_from_numpy():
-    ds = synthetic.generate_dataset(synthetic.sphere_cloud(200), num_views=4, seed=0)
+    ds = synthetic.generate_dataset(synthetic.sphere_cloud(200), num_views=4, seed=0, device="cpu")
     a = synthetic.add_observation_noise(ds.tracks, 1.0, np.random.default_rng(5))
     b = synthetic.add_observation_noise(ds.tracks, 1.0, np.random.default_rng(5))
     np.testing.assert_array_equal(n(a.obs), n(b.obs))

@@ -184,7 +184,8 @@ def test_ba_run_kernel_path_converges_like_plain(dev, kind):
     r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
     # three wrapper calls an iteration and one for the initial cost; no
     # separate accept kernel
-    assert counts == {"schur_assemble": 15, "camera_solve": 15, "point_update_cost": 16}, counts
+    assert counts == {"schur_assemble": 15, "camera_solve": 15, "point_update_cost": 16,
+                      "lm_accept": 0}, counts
     np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
     assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
     assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
@@ -206,7 +207,7 @@ def test_ba_run_at_many_views(dev, num_views):
     r_k = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="kernel"))
     counts = bk.launch_counts()
     r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("schur_assemble", "camera_solve", "point_update_cost"))
     np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
     assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
     assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
@@ -643,20 +644,19 @@ def test_top2_kernel_that_fails_to_build_raises(dev, monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 # BA past shared memory: K1's camera tables and per-view sums (308 bytes a
 # view) leave shared memory past ~600 views, K2's tables (208 bytes a view)
-# past ~990; the kernels serve up to K3's cluster limit of 1365 views.
+# past ~990; K3 takes its grid route from GRID_MIN_V views, at any size.
 
 
 @pytest.mark.parametrize("kind", ["quat", "euler"])
-@pytest.mark.parametrize("shape", [(700, 400), (1100, 300)])
+@pytest.mark.parametrize("shape", [(700, 400), (1100, 300), (2000, 200)])
 def test_stages_match_plain_versions_past_shared_memory(dev, kind, shape):
     """At 700 views K1 reads its global camera tables and sums in place, K2
-    still builds its tables in shared memory; at 1100 both read global
-    tables. K1 and K2 against their plain versions at both lambdas (the
-    tolerances of test_stages_match_plain_versions). K3 (n = 4200, 6600)
-    against the f64 solve of the same prepared system: no further from it
-    than twice the plain f32 LU is, since at this n both carry the f32
-    rounding of a factorization of size n (the plain LU measured 1.2e-5 from
-    the kernel at 1100 views)."""
+    still builds its tables in shared memory; at 1100 and 2000 both read
+    global tables. K1 and K2 against their plain versions at both lambdas
+    (the tolerances of test_stages_match_plain_versions). K3 (n = 4200,
+    6600, 12000: the grid route) against the f64 solve of the same prepared
+    system: no further from it than twice the plain f32 LU is, since at this
+    n both carry the f32 rounding of a factorization of size n."""
     inputs = _stage_inputs(kind, dev, *shape)
     pT, obsT, maskT, rot, camp, free = inputs
     assert bk.library().osfm_schur_table_floats(shape[0]) > 0
@@ -708,32 +708,142 @@ def test_ba_run_past_shared_memory(dev, num_views):
     r_k = ba.run(cams, points, obs, mask, True, cfg)
     counts = bk.launch_counts()
     r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
-    assert counts == {"schur_assemble": 10, "camera_solve": 10, "point_update_cost": 11}, counts
+    assert counts == {"schur_assemble": 10, "camera_solve": 10, "point_update_cost": 11,
+                      "lm_accept": 0}, counts
     np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
     assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
     assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
 
 
-def test_ba_kernels_raise_past_their_view_ceiling(dev):
-    """Past 1365 views every kernel wrapper raises a ValueError that names
-    the limit and impl="torch", before it launches; the plain path runs."""
-    V = 1400
-    cams, points, obs, mask = make_problem("quat", dev, V, 100)
-    cfg = BundleAdjustConfig(max_iterations=2)
+def test_ba_run_at_2000_views_runs_on_the_grid_route(dev):
+    """Past the cluster's 1365 views ba.run's default route stays on the
+    kernels: K1, K3 by its grid route and K2, converging like the plain
+    path (2000 views x 2000 tracks, 10 iterations)."""
+    cams, points, obs, mask = make_problem("quat", dev, 2000, 2000)
+    cfg = BundleAdjustConfig(max_iterations=10, function_tolerance=0.0, min_lambda=1e-12)
     bk.reset_launch_counts()
-    with pytest.raises(ValueError, match=r'at most 1365 views, not 1400.*impl="torch"'):
-        ba.run(cams, points, obs, mask, True, cfg)
-    inputs = _stage_inputs("quat", dev, V, 100)
-    lm = _lm(inputs)
-    with pytest.raises(ValueError, match="1365"):
-        bk.schur_assemble("quat", *lm, bk.new_state(1e-3, dev), 1.0, True)
-    S = torch.zeros((6 * V, 6 * V), device=dev)
-    z = torch.zeros(6 * V, device=dev)
-    with pytest.raises(ValueError, match="1365"):
-        bk.camera_solve("quat", S, z, z, inputs[5], bk.new_state(1e-3, dev), lm[3], lm[4])
-    assert sum(bk.launch_counts().values()) == 0
-    r = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
-    assert torch.isfinite(r.cost)
+    r_k = ba.run(cams, points, obs, mask, True, cfg)
+    counts, routes = bk.launch_counts(), bk.route_launches()
+    r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
+    assert counts == {"schur_assemble": 10, "camera_solve": 10, "point_update_cost": 11,
+                      "lm_accept": 0}, counts
+    assert routes["grid"] == 10, routes
+    np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
+    assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
+    assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
+
+
+def _solve_inputs(dev, num_views, n_tracks=300):
+    """The plain reduced camera system of the standard problem at lambda
+    1e-3, its LM buffers and its f64 solve."""
+    inputs = _stage_inputs("quat", dev, num_views, n_tracks)
+    pT, obsT, maskT, rot, camp, free = inputs
+    S, dU, rhs = bk.normal_eq_schur_ref("quat", *_lm(inputs), bk.new_state(1e-3, dev), 1.0, True)
+    d64 = ba._solve_camera_system(S.double(), dU.double(), rhs.double(), free,
+                                  torch.tensor(1e-3, dtype=torch.float64, device=dev))
+    return (S, dU, rhs, free, 1e-3, rot, camp), d64
+
+
+@pytest.mark.parametrize("num_views", [700, 1100, 2000])
+def test_camera_solve_grid_route_against_f64(dev, num_views):
+    """K3's grid route no further from the f64 solve than twice the plain
+    f32 LU is (the bound PR 6 held the cluster to), its candidate cameras
+    within 1e-6 of the retraction of the plain step, and two solves bit for
+    bit (no float atomics)."""
+    sargs, d64 = _solve_inputs(dev, num_views)
+    assert bk.camera_solve_route(num_views) == "grid"
+    solve = lambda *a: bk.camera_solve(*a, route="grid")  # noqa: E731
+    delta, rot_c, camp_c = _camera_step("quat", solve, *sargs)
+    delta_r, rot_cr, camp_cr = _camera_step("quat", bk.camera_solve_ref, *sargs)
+    assert _rel(delta.double(), d64) <= 2.0 * _rel(delta_r.double(), d64) + 1e-6
+    again, _, _ = _camera_step("quat", solve, *sargs)
+    assert torch.equal(delta, again)
+    assert torch.isfinite(delta).all()
+
+
+def test_camera_solve_route_crossover(dev):
+    """The automatic route: one warp up to 5 views, one CTA up to 37, the
+    cluster below GRID_MIN_V (128, the crossover measured on the card) and
+    the grid route from there; the cluster refuses past 1365 views, the
+    grid route serves every size. At the crossover the cluster and the grid
+    route solve the same system alike."""
+    route = bk.camera_solve_route
+    assert [route(v) for v in (1, 5, 6, 37, 38, 127, 128, 1365, 5000)] == [
+        "warp", "warp", "cta", "cta", "cluster", "cluster", "grid", "grid", "grid"]
+    assert route(1365, "cluster") == "cluster" and route(3, "grid") == "grid"
+    for v, r in ((1366, "cluster"), (6, "warp"), (64, "cta"), (5, "cta")):
+        with pytest.raises(ValueError, match=f"{r} route cannot serve {v} views"):
+            route(v, r)
+    sargs, d64 = _solve_inputs(dev, 128)
+    steps = {r: _camera_step("quat", lambda *a, r=r: bk.camera_solve(*a, route=r), *sargs)
+             for r in ("cluster", "grid")}
+    delta_r, _, _ = _camera_step("quat", bk.camera_solve_ref, *sargs)
+    for r, (delta, _, _) in steps.items():
+        assert _rel(delta.double(), d64) <= 2.0 * _rel(delta_r.double(), d64) + 1e-6, r
+    assert _rel(steps["grid"][0], steps["cluster"][0]) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 7800), (16, 8192), (64, 4096), (2000, 200)])
+def test_split_mode_then_lm_accept_is_the_folded_tail(dev, shape):
+    """K2 in split mode (the last CTA sums the cost, no rule) then K4
+    lm_accept gives the folded tail's state, points and cameras bit for bit:
+    the initial cost and one LM step, accepted."""
+    inputs = _stage_inputs("quat", dev, *shape)
+    pT, obsT, maskT, rot, camp, free = inputs
+    cfg = bk.LMConfig(1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
+    outs = []
+    for split in (False, True):
+        p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+        st = torch.zeros((2, bk.STATE_SIZE), device=dev)
+        k2 = bk.PointUpdateCost("quat", p2, obsT, maskT, r2, c2, free, 1.0, True, cfg, split=split)
+        bk.reset_launch_counts()
+        if split:
+            bk.lm_accept(k2(None, None), None, st[0], cfg)
+        else:
+            k2(None, st[0])
+        S, dU, rhs = bk.schur_assemble("quat", p2, obsT, maskT, r2, c2, free, st[0], 1.0, True)
+        delta = bk.camera_solve("quat", S, dU, rhs, free, st[0], r2, c2)
+        if split:
+            bk.lm_accept(k2(st[0], None, delta), st[0], st[1], cfg)
+        else:
+            k2(st[0], st[1], delta)
+        assert bk.launch_counts()["lm_accept"] == (2 if split else 0)
+        outs.append((st, p2, r2, c2))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert float(outs[0][0][1, bk.CUR]) == 1.0
+
+
+def test_sharded_ba_of_one_rank_over_nccl_is_ba_run(dev):
+    """parallel.ba_sharded on a process group of one rank over NCCL: K1,
+    the all_reduce of S, dU and rhs, K3, K2 in split mode, the all_reduce of
+    the cost and K4 give ba.run's bits (16 views x 8192 tracks, 15
+    iterations)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod
+
+    with socket.socket() as sock:  # a free localhost port for the group's store
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cams, points, obs, mask = make_problem("quat", dev, 16, 8192)
+    cfg = BundleAdjustConfig(max_iterations=15, function_tolerance=0.0, min_lambda=1e-12)
+    ref = ba.run(cams, points, obs, mask, True, cfg)
+    mesh = mesh_mod.init_distributed(f"tcp://localhost:{port}", 1, 0, "nccl")
+    try:
+        padded, T = ba_sharded.pad_tracks([points, obs, mask], mesh.size)
+        bk.reset_launch_counts()
+        res = ba_sharded.make_sharded_ba(mesh, True, cfg)(
+            cams, *ba_sharded.shard_track_arrays(mesh, padded))
+        counts = bk.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert counts == {"schur_assemble": 15, "camera_solve": 15, "point_update_cost": 16,
+                      "lm_accept": 16}, counts
+    assert torch.equal(res.cams.rot, ref.cams.rot) and torch.equal(res.points, ref.points)
+    assert float(res.cost) == float(ref.cost) and int(res.iterations) == int(ref.iterations)
 
 
 # ---------------------------------------------------------------------------

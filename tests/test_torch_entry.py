@@ -35,7 +35,7 @@ def _project(tmp_path):
     for i in range(N_VIEWS):
         Image.new("RGB", (WIDTH, WIDTH)).save(images / f"view_{i:02d}.png")
     ds = synthetic.generate_dataset(synthetic.blob_cloud(300), num_views=N_VIEWS,
-                                    width=WIDTH, height=WIDTH, seed=0)
+                                    width=WIDTH, height=WIDTH, seed=0, device="cpu")
     track_file = str(tmp_path / "tracks.txt")
     tracks_io.save_tracks(ds.tracks, track_file)
     project = tmp_path / "project"
@@ -218,16 +218,20 @@ def test_cli_platform_flag(tmp_path, monkeypatch):
         app.build_parser().parse_args(argv + ["--platform", "tpu"])
 
 
-def test_ba_kernels_name_their_view_ceiling():
-    """Past K3's cluster limit each kernel wrapper raises before it launches,
-    naming the limit and the plain path."""
-    from orthosfm_torch.solvers import ba_kernels as bk
+def test_dataset_generators_run_on_cuda_unless_asked(monkeypatch):
+    """synthetic.generate_dataset and problems.make_problem default to CUDA:
+    without a card they raise, naming device="cpu", rather than run on the
+    CPU unasked; asked for the CPU they run there."""
+    from orthosfm_torch.testbench.problems import make_problem
 
-    bk._check_views(bk.MAX_VIEWS)
-    with pytest.raises(ValueError, match=r'1365 views, not 1366.*impl="torch"'):
-        bk._check_views(bk.MAX_VIEWS + 1)
-    # 6V + 1 rows in 16-row blocks, 64 blocks a CTA, 8 CTAs
-    assert 6 * bk.MAX_VIEWS + 1 <= 8 * 64 * 16 < 6 * (bk.MAX_VIEWS + 1) + 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        synthetic.generate_dataset(synthetic.sphere_cloud(20), num_views=3)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_problem("quat", num_views=3, n_points=20)
+    ds = synthetic.generate_dataset(synthetic.sphere_cloud(20), num_views=3, device="cpu")
+    cams, points, obs, mask = make_problem("quat", "cpu", num_views=3, n_points=20)
+    assert ds.tracks.obs.device.type == "cpu" and obs.device.type == "cpu"
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
