@@ -15,11 +15,15 @@ Phases:
      rejected) at the shapes of the standard BA problem (16 views x 8192
      sphere tracks, 2048^2, cameras perturbed by up to 1 degree), for
      quaternion and Euler cameras, with points optimized and fixed; each
-     also at 3 views x 7800 tracks (the local BA) and 64 x 4096, and timed
-     at all three beside its plain version, its bound and, for camera_solve,
-     torch.linalg.solve_ex alone on the same prepared system, and
-     point_update_cost also without its tail (the difference is the time
-     the accept rule adds, lm_accept's row); at 1100 views x 300 tracks,
+     also at 3 views x 7800 tracks (the local BA) and 64 x 4096, and at
+     phase 9's shapes, 3 and 64 views x 50 000 tracks (its local and global
+     BAs; K1 splits its sum over the tracks at 64 views), with points
+     optimized and fixed, and timed at all five beside its plain version,
+     its bound and, for camera_solve, torch.linalg.solve_ex alone on the
+     same prepared system, and point_update_cost also without its tail
+     (the difference is the time the accept rule adds, lm_accept's row);
+     the kernels line gives phase 9's two shapes' times as
+     main_path_shapes; at 1100 views x 300 tracks,
      where K1 and K2 read their per-view tables from global memory (past
      shared memory), K1 and K2 checked the same way and all three timed
      (K3 there runs its cluster from a global scratch); top2 (both
@@ -54,7 +58,7 @@ Phases:
      (10 rendered datasets, 21 (dataset, solver) cells, in process), every
      cell's mean angular error < 1 deg, printed beside the JAX package's
      docs/results.csv, with the launch counts of K1, K3, K2 and top2 over
-     the run (the slice's main path: the counts in the kernels line); then
+     the run (the testbench's path); then
      the noise sweep at its full size (Cube, Sphere, Suzanne; 16 views, 2048
      tracks; solvers 0 and 3) at 0, 1 and 10 px (< 0.01, < 0.25, < 3 deg, no
      failed entry), beside docs/synthetic_results_r5.csv; then
@@ -65,16 +69,29 @@ Phases:
      then find_homography_batched_keys timed on phase 5's real candidate
      pairs (pairs, M, chunks, inlier counts);
   8. the multi-device path (orthosfm_torch/parallel/) on a process group of
-     one rank over NCCL, the slice's main path: the sharded BA (K1 on the
+     one rank over NCCL: the sharded BA (K1 on the
      shard, one all_reduce of S, dU and rhs, K3, K2 in split mode, the
      all_reduce of the cost, K4 lm_accept) on make_problem() and on
      2000 views x 2000 tracks (K3 by its grid route), the sharded TK and
      match_all_pairs(mesh=) on phase 5's features, each bit for bit against
      one device, with the launch counts of every kernel over this phase
-     (the counts in the kernels line); then two ranks on the one card over
-     gloo (the sharded BA against one device), where gloo takes CUDA
-     tensors, and the CLI's --devices past the cards present, which must
-     raise.
+     (lm_accept's and K3's grid route's counts in the kernels line), and
+     the JAX package's multi-device dry run (parallel/dryrun.py: 6 views of
+     224^2 from images through the sharded matching and pose estimation);
+     then two ranks on the one card over gloo (the sharded BA against one
+     device), where gloo takes CUDA tensors, and the CLI's --devices past
+     the cards present, which must raise;
+  9. the many-view reconstruction, the main path of the kernels line
+     (testbench/scale_demo.py, the JAX package's scripts/scale_demo.py):
+     64 views x 50 000 blob tracks at 1 px through run_pose_estimation
+     with the kernels (62 local BAs, K3 by its warp route, and 21 global
+     BAs over all 64 cameras, K3 by its cluster route), every view placed
+     with a mean angular error < 0.05 deg and a max < 0.1 deg, with the
+     launches of K1, K3 (by route) and K2, the BAs run and their LM
+     iterations, TK's peak device memory and the share of each stage; then
+     profile_matching at 16 x 2048^2 (the front end's stage table, top2's
+     launches). Its counts are the kernels line's launches of K1, K3, K2
+     and top2 (launches_phase names the phase of each kernel's count).
 
 Phase 2 also runs K3's grid route at 700, 1100 and 2000 views (n = 4200,
 6600, 12000) beside torch.linalg.solve_ex, held to an f64 solve (no further
@@ -96,7 +113,6 @@ import contextlib
 import dataclasses
 import io
 import json
-import math
 import os
 import re
 import subprocess
@@ -123,9 +139,9 @@ REPLACES = {
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
-# The unsharded BA (phases 3 to 7) launches K1, K3 and K2; K4 lm_accept's
-# rule runs there in K2's last CTA, and as a launch of its own only in the
-# sharded BA (phase 8), which the kernels line's launches count.
+# The unsharded BA (phases 3 to 7 and 9) launches K1, K3 and K2; K4
+# lm_accept's rule runs there in K2's last CTA, and as a launch of its own
+# only in the sharded BA (phase 8), whose count the kernels line gives it.
 UNSHARDED_BA = ("schur_assemble", "camera_solve", "point_update_cost")
 # K3's grid route (camera_solve_grid in the kernels line): phase 2 at these
 # views of K3_TRACKS tracks, timed at K3_GRID_TIMED; the crossover with the
@@ -146,28 +162,21 @@ SOLVE_LAMBDAS = (1e-3, 1.0)
 # K2 takes the plain step of each: lambda 1e-3 is the size of step the main
 # path takes (from lambda_0 = 1e-4 downward), lambda 1 a damped one
 BA_SHAPES = ((N_VIEWS, N_TRACKS), (64, 4096))
-# K1, K3 and K2 are timed at the main path's three shapes: the local BA of
-# a 3-view group (n = 18, the slice's 7800 tracks), the global BA
-# (make_problem(), n = 96) and many views (n = 384)
-BA_SHAPES_TIMED = ((3, 7800), (N_VIEWS, N_TRACKS), (64, 4096))
-# Bounds: the card's published peaks (H100 SXM data sheet): f32 outside the
-# tensor cores and HBM3 bandwidth
-F32_FLOPS = 67e12
-HBM_BYTES = 3.35e12
-# FMA per observation besides the Schur term, counted from the plain
-# versions' formulas: K1 projection and Jacobians (~60), the point block and
-# gradient (18), U's upper triangle (42), W = w Jc^T Jp (36), W V^-1 (54) and
-# the rhs (30); K2 the Jacobians (~60), point block (18), W^T dc (24) and the
-# projection and robust cost through the candidate cameras (~18)
-K1_OBS_FMA = 240
-K2_OBS_FMA = 120
-# cuda_ms's sleep: cycles of torch.cuda._sleep per second (above the H100's
-# 1.98 GHz boost clock, so the sleep lasts at least as long as asked)
-SLEEP_CYCLES_PER_S = 2.0e9
+# Phase 9: the JAX package's many-view run (scripts/scale_demo.py, its
+# docs/scale_demo.json: 64/64 views at 0.007 / 0.013 deg), held to these
+# bars; then the front end's stage profile at phase 5's scale
+MANY_VIEWS, MANY_TRACKS, MANY_NOISE_PX = 64, 50000, 1.0
+MANY_LIMIT_MEAN_DEG, MANY_LIMIT_MAX_DEG = 0.05, 0.1
+# K1, K3 and K2 are checked and timed at the main paths' shapes: the local
+# BA of a 3-view group (n = 18) at phase 3's 7800 tracks and at phase 9's
+# 50 000, the global BA (make_problem(), n = 96), and many views (n = 384)
+# at 4096 tracks and at phase 9's 50 000 (the global BA there, where K1
+# splits its sum over the tracks by schur_plan(V, T))
+MAIN_PATH_SHAPES = ((3, MANY_TRACKS), (MANY_VIEWS, MANY_TRACKS))
+BA_SHAPES_TIMED = ((3, 7800), (N_VIEWS, N_TRACKS), (64, 4096), *MAIN_PATH_SHAPES)
 TOL_POINTS_ABS = 1e-5     # retracted unit points, abs
 TOL_COST_REL = 1e-4       # robust cost, relative
 TOL_STATE_REL = 1e-5      # LM scalar state after accept but its cost, relative
-LM_CFG_ARGS = (1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)  # lam0, func_tol, up, down, min, max
 # top2: the kernel sums each dot product in one FMA chain, the plain
 # version by cuBLAS's f32 GEMM in another order; d2 = 2 - 2 sim of unit
 # vectors differs by a few 1e-7. Indices must agree, in both directions,
@@ -175,11 +184,10 @@ LM_CFG_ARGS = (1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)  # lam0, func_tol, up, down, mi
 # each other.
 TOL_TOP2 = 1e-5
 # Phase 5: the JAX package's reference-scale run
-# (testbench/bench_pipeline.py --views 16 --width 2048)
+# (testbench/bench_pipeline.py --views 16 --width 2048: profile_matching's
+# scene, seed 7 on a 200 degree ring)
 FRONT_VIEWS = 16
 FRONT_WIDTH = 2048
-FRONT_SEED = 7
-FRONT_RING_DEG = 200.0
 FRONT_LIMIT_DEG = 1.0
 # Phase 2 past shared memory: K1's per-view tables and sums leave it past
 # ~600 views, K2's past ~990
@@ -201,45 +209,6 @@ BENCH_VIEWS, BENCH_WIDTH = 16, 512
 HOMOGRAPHY_LIMIT_DEG = 3.0
 
 
-def cuda_ms(fn, n=20):
-    """Mean device time of fn() over n launches, by CUDA events. The card
-    first sleeps while the host enqueues all n calls, so the events time the
-    device's work and not the host's pace (the wrappers' Python takes tens
-    of microseconds a call, more than several kernels run)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2.0 * n * host_s + 1e-3, 2.0) * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def host_ms(fn, n=20):
-    """Mean host time of fn() over n calls, none of which waits on the card:
-    the enqueue."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    t = (time.perf_counter() - t0) * 1e3 / n
-    torch.cuda.synchronize()
-    return t
-
-
 def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
@@ -253,71 +222,11 @@ def require(ok, what):
         raise AssertionError(what)
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the least time the card could take for work of
-    `flops` f32 operations over `nbytes` bytes moved."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def ba_work(maskT, opt):
-    """(flops, bytes) of K1, K3 and K2 (with its accept tail) on this
-    problem, counting the observations the mask holds (m_t views of track
-    t): the Schur term is the symmetric half of a rank-3 update of the
-    (6 m_t)-square block per track, 3 (6m)(6m+1)/2 FMA; the per-observation
-    block math is counted as K1_OBS_FMA and K2_OBS_FMA. Each input is read
-    once, each output written once; K4 lm_accept reads the summed cost and
-    a state slot and writes the other."""
-    V, T = maskT.shape
-    n = 6 * V
-    m = (maskT != 0).sum(dim=0).double()
-    n_obs = float(m.sum())
-    schur = float((3 * (6 * m) * (6 * m + 1) / 2).sum()) if opt else 0.0
-    inputs = 16 * T + 12 * V * T + 72 * V  # pT, obsT + maskT, rot + camp + free
-    k1 = (2 * (schur + K1_OBS_FMA * n_obs), inputs + 4 * (n * n + 2 * n))
-    k3 = (2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 4 * (6 + 4 + 8) * V)
-    # the step, the candidate cameras, the new points, the state in and out
-    k2 = (2 * K2_OBS_FMA * n_obs, inputs + 4 * 6 * V + 48 * V + 16 * T + 2 * 32)
-    # K4 alone: the summed cost and a state slot in, the other slot out
-    k4 = (0.0, 4 + 2 * 32)
-    return {"schur_assemble": k1, "camera_solve": k3, "point_update_cost": k2, "lm_accept": k4}
-
-
-def stage_inputs(kind, device, num_views, n_tracks):
-    """The standard problem's (pT, obsT, maskT, rot, camp, free) at a size."""
-    from orthosfm_torch.core import cameras as cam_mod
-    from orthosfm_torch.solvers import ba
-    from orthosfm_torch.testbench.problems import make_problem
-
-    cams, points, obs, mask = make_problem(kind, device, num_views, n_tracks, WIDTH)
-    pT, obsT, maskT = ba.prepare(points, obs, mask)
-    return (pT, obsT, maskT, cams.rot.contiguous(), ba.pack_camp(cams),
-            cam_mod.free_mask(cams).float().contiguous())
-
-
-def lm_inputs(inputs):
-    """The stage inputs with the points and cameras as fresh LM buffers."""
-    from orthosfm_torch.solvers import ba_kernels as bk
-
-    pT, obsT, maskT, rot, camp, free = inputs
-    p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
-    return p2, obsT, maskT, r2, c2, free
-
-
-def camera_step(solve, kind, S, dU, rhs, free, lam, rot, camp):
-    """One camera solve (K3 or its plain version) at lambda `lam` from fresh
-    LM buffers of rot and camp: (delta, candidate rot, candidate camp)."""
-    from orthosfm_torch.solvers import ba_kernels as bk
-
-    r2, c2 = bk.lm_buffers(rot, camp)
-    delta = solve(kind, S, dU, rhs, free, bk.new_state(lam, rot.device), r2, c2)
-    return delta, r2[1], c2[1]
-
-
 def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
     """K1 and K3 against their plain versions on one problem; returns the
     plain step and candidate cameras of each lambda of SOLVE_LAMBDAS."""
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import camera_step, lm_inputs
 
     pT, obsT, maskT, rot, camp, free = inputs
     device = pT.device
@@ -345,18 +254,6 @@ def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
     return steps
 
 
-def k2_stage(kind, inputs, opt, rot_c, camp_c, plain, split=False):
-    """K2 with its accept tail (or its plain version; or in split mode) on
-    LM buffers whose half 0 holds the current cameras and points and half 1
-    the candidate cameras."""
-    from orthosfm_torch.solvers import ba_kernels as bk
-
-    p2, obsT, maskT, r2, c2, free = lm_inputs(inputs)
-    r2[1], c2[1] = rot_c, camp_c
-    return bk.PointUpdateCost(kind, p2, obsT, maskT, r2, c2, free, 1.0, opt,
-                              bk.LMConfig(*LM_CFG_ARGS), plain=plain, split=split), (p2, r2, c2)
-
-
 def check_point_update_cost(kind, inputs, opt, lam, step, errs, rels, label):
     """K2 with its accept tail against point_update_cost_ref then
     lm_accept_ref (point_update_accept_ref), for the plain step of lambda
@@ -365,6 +262,7 @@ def check_point_update_cost(kind, inputs, opt, lam, step, errs, rels, label):
     import torch
 
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import LM_CFG_ARGS, k2_stage
 
     delta, rot_c, camp_c = step
     device = delta.device
@@ -425,6 +323,7 @@ def near_fit_witness(device):
 
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import camera_step, k2_stage, lm_inputs, stage_inputs
 
     n_views, n_tracks, lam = 3, 7800, 1e-3
     pT, obsT, maskT, rot, camp, free = stage_inputs("quat", device, n_views, n_tracks)
@@ -483,6 +382,8 @@ def check_many_views(device, errs, rels):
     versions (K2 on the plain step of each lambda), and the three kernels
     timed there."""
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import (camera_step, lm_inputs, stage_inputs,
+                                                   time_ba_kernels)
 
     num_views, n_tracks = BA_SHAPE_MANY
     label = f"{num_views}x{n_tracks}"
@@ -503,64 +404,6 @@ def check_many_views(device, errs, rels):
     return time_ba_kernels(inputs)
 
 
-def time_ba_kernels(inputs):
-    """K1, K3 and K2 with its accept tail at one shape (quat, points
-    optimized, lambda 1e-3): kernel, plain and, for K3,
-    torch.linalg.solve_ex alone on the same prepared system, with each one's
-    bound from this problem's mask; and the tail alone (lm_accept): K2's
-    time less K2's without the tail, beside lm_accept_ref."""
-    import torch
-
-    from orthosfm_torch.solvers import ba
-    from orthosfm_torch.solvers import ba_kernels as bk
-
-    pT, obsT, maskT, rot, camp, free = inputs
-    state = bk.new_state(1e-3, pT.device)
-    lm = lm_inputs(inputs)
-    args = ("quat", *lm, state, 1.0, True)
-    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
-    # K3 writes the candidate into half 1 of the buffers, which K1 never reads
-    sargs = ("quat", S_r, dU_r, rhs_r, free, state, lm[3], lm[4])
-    S_s, b, _ = ba.prepare_camera_system(S_r, dU_r, rhs_r, free, state[bk.LAM])
-    delta, rot_c, camp_c = camera_step(bk.camera_solve_ref, "quat", S_r, dU_r, rhs_r, free, 1e-3,
-                                       rot, camp)
-    kernel, _ = k2_stage("quat", inputs, True, rot_c, camp_c, False)
-    plain, _ = k2_stage("quat", inputs, True, rot_c, camp_c, True)
-    s_in = bk.new_state(1e-3, pT.device)
-    s_in[bk.COST] = 1e30
-    s_out = torch.zeros_like(s_in)
-    parts = plain(s_in, None, delta)
-    acc_args = (parts, s_in, s_out, rot.clone(), camp.clone(), pT.clone(), rot_c, camp_c,
-                pT.clone(), bk.LMConfig(*LM_CFG_ARGS))
-    work = ba_work(maskT, True)
-    n = 30 if maskT.shape[0] <= N_VIEWS else 10 if maskT.shape[0] <= 64 else 5
-    out = {}
-    for name, kern, plain_fn, lib in (
-            ("schur_assemble", lambda: bk.schur_assemble(*args),
-             lambda: bk.normal_eq_schur_ref(*args), None),
-            ("camera_solve", lambda: bk.camera_solve(*sargs), lambda: bk.camera_solve_ref(*sargs),
-             lambda: torch.linalg.solve_ex(S_s, b)),
-            ("point_update_cost", lambda: kernel(s_in, s_out, delta),
-             lambda: plain(s_in, s_out, delta), None)):
-        b_ms, b_by = bound(*work[name])
-        out[name] = {"ms": cuda_ms(kern, n), "plain_ms": cuda_ms(plain_fn, n),
-                     "library_ms": cuda_ms(lib, n) if lib else None,
-                     "bound_ms": b_ms, "bound_by": b_by}
-    no_tail = cuda_ms(lambda: kernel(s_in, None, delta), n)
-    split, _ = k2_stage("quat", inputs, True, rot_c, camp_c, False, split=True)
-    cost = split(s_in, None, delta)
-    cfg = bk.LMConfig(*LM_CFG_ARGS)
-    b_ms, b_by = bound(*work["lm_accept"])
-    # K4's own launch (the sharded LM's accept) and the rule folded into
-    # K2's last CTA (K2's time less K2's without the tail)
-    out["lm_accept"] = {"ms": cuda_ms(lambda: bk.lm_accept(cost, s_in, s_out, cfg), n),
-                        "tail_ms": out["point_update_cost"]["ms"] - no_tail,
-                        "point_update_cost_without_tail_ms": no_tail,
-                        "plain_ms": cuda_ms(lambda: bk.lm_accept_ref(*acc_args), n),
-                        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    return out
-
-
 def k3_system(device, num_views):
     """The plain reduced camera system of the standard problem at lambda
     1e-3 (num_views x K3_TRACKS), its LM buffers and its f64 solve."""
@@ -568,6 +411,7 @@ def k3_system(device, num_views):
 
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import lm_inputs, stage_inputs
 
     inputs = stage_inputs("quat", device, num_views, K3_TRACKS)
     lm = lm_inputs(inputs)
@@ -589,6 +433,8 @@ def check_k3_routes(device, errs, rels):
 
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import camera_step, cuda_ms
+    from orthosfm_torch.utils.roofline import bound, camera_solve_work
 
     out = {}
     for num_views in (K3_CROSSOVER_VIEWS, *K3_GRID_VIEWS):
@@ -608,7 +454,7 @@ def check_k3_routes(device, errs, rels):
                   "plain_rel_err_f64": rel64(delta_r)}
         if num_views == K3_GRID_TIMED:
             shared["plain_ms"] = cuda_ms(lambda: bk.camera_solve_ref("quat", *sargs), n_time)
-        b_ms, b_by = bound(2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 72 * num_views)
+        b_ms, b_by = bound(*camera_solve_work(num_views))
         out[num_views] = {"bound_ms": b_ms, "bound_by": b_by, **shared}
         for route in (("cluster", "grid") if num_views == K3_CROSSOVER_VIEWS else ("grid",)):
             solve = lambda *a, r=route: bk.camera_solve(*a, route=r)  # noqa: E731
@@ -632,12 +478,15 @@ def check_k3_routes(device, errs, rels):
 
 def check_kernels(device):
     """Phase 2: every kernel against its plain version on the card."""
+    from orthosfm_torch.utils.kernel_bench import stage_inputs, time_ba_kernels
+
     errs = {name: 0.0 for name in (*BA_KERNELS, "camera_solve_grid")}  # max abs error, all cases
     rels = {name: 0.0 for name in errs}         # max relative error over all cases
-    # the main path's three shapes: the local BA (3 views, n = 18, K3 in one
+    # the main paths' shapes: the local BA (3 views, n = 18, K3 in one
     # warp), the global BA and make_problem() (16 views, n = 96), and many
-    # views (64, n = 384, where K3's matrix leaves shared memory); both
-    # camera kinds, points optimized and fixed, at the standard shape
+    # views (64, n = 384, where K3's matrix leaves shared memory), at phase
+    # 3's track counts and at phase 9's; both camera kinds, points optimized
+    # and fixed, at the standard shape
     shapes = {}
     for num_views, n_tracks in BA_SHAPES_TIMED:
         label = f"{num_views}x{n_tracks}"
@@ -753,45 +602,6 @@ def ba_rate(device, num_views, n_tracks, iterations=30):
     return out
 
 
-class BARecorder:
-    """Records every ba.run call of a phase: its BAResult.iterations
-    tensors (read once, at the end), its max_iterations and the host time
-    until it returned (its enqueue time: ba.run does not sync on the card)."""
-
-    def __init__(self):
-        self.iterations, self.max_iterations, self.host_s = [], 0, 0.0
-
-    @contextlib.contextmanager
-    def recording(self):
-        from orthosfm_torch.config import BundleAdjustConfig
-        from orthosfm_torch.solvers import ba
-
-        run = ba.run
-
-        def recorded(*args, **kwargs):
-            t0 = time.perf_counter()
-            res = run(*args, **kwargs)
-            self.host_s += time.perf_counter() - t0
-            cfg = kwargs.get("config", args[5] if len(args) > 5 else BundleAdjustConfig())
-            self.max_iterations += cfg.max_iterations
-            self.iterations.append(res.iterations)
-            return res
-
-        ba.run = recorded
-        try:
-            yield self
-        finally:
-            ba.run = run
-
-    def summary(self):
-        import torch
-
-        worked = int(torch.stack(self.iterations).sum()) if self.iterations else 0
-        return {"ba_calls": len(self.iterations), "iterations_launched": self.max_iterations,
-                "iterations_worked": worked,
-                "enqueue_ms_per_it": self.host_s * 1e3 / max(self.max_iterations, 1)}
-
-
 def top2_pairs(device, counts):
     """(bi, bj, ci, cj) on the card: every pair i < j of len(counts) views."""
     import torch
@@ -801,24 +611,6 @@ def top2_pairs(device, counts):
     bj = np.array([j for i in range(n) for j in range(i + 1, n)])
     return [torch.as_tensor(np.asarray(a, np.int32), device=device)
             for a in (bi, bj, counts[bi], counts[bj])]
-
-
-def random_top2_set(device, D, n=8192):
-    """Phase 2's random unit descriptors, 11 views x n rows x D, and its 8
-    pairs: exact ties (every database row of view 3 twice, view 2's queries
-    equal to duplicated rows, view 1 against itself with repeated rows), a
-    ragged pair, databases of 0 and 1 valid rows and a short query side."""
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(0 if D == 128 else 1)
-    stack = torch.randn((11, n, D), generator=gen, device=device)
-    stack /= torch.linalg.vector_norm(stack, dim=-1, keepdim=True)
-    stack[3, n // 2:] = stack[3, :n // 2]
-    stack[2, :n // 4] = stack[3, :n // 4]
-    stack[1, n - 100:] = stack[1, 100:200]
-    pairs = [(0, 1, n, n), (2, 3, n, n), (4, 5, n - 37, n - 100), (6, 7, n, 0),
-             (8, 9, n, 1), (1, 1, n, n), (10, 2, n // 8, n), (3, 0, n, n // 2 + 1)]
-    return stack, [torch.tensor(c, dtype=torch.int32, device=device) for c in zip(*pairs)]
 
 
 def feature_stacks(features, device):
@@ -844,16 +636,6 @@ def front_end_stacks(device):
     return feature_stacks(features, device)
 
 
-def top2_work(stack, ci, cj):
-    """(flops, bytes) of one product per pair, both directions' outputs: 2 D
-    FMA operations per (query, database) pair of valid rows; each valid
-    descriptor read once, the six (pairs, N) outputs written once."""
-    N, D = stack.shape[1:]
-    ci, cj = ci.double().cpu(), cj.double().cpu()
-    return (2.0 * float((ci * cj).sum()) * D,
-            4.0 * (float((ci + cj).sum()) * D + 6 * ci.shape[0] * N))
-
-
 def check_top2(name, stack, cols, n_time):
     """The two-way top2 kernel against top2_ref on one batch of pairs, in
     both directions (d2 to TOL_TOP2, indices outside near ties); against
@@ -864,6 +646,8 @@ def check_top2(name, stack, cols, n_time):
     import torch
 
     from orthosfm_torch.ops import matching_kernels as mk
+    from orthosfm_torch.utils.kernel_bench import cuda_ms, host_ms
+    from orthosfm_torch.utils.roofline import bound, top2_work
 
     bi, bj, ci, cj = cols
     out = mk.top2(stack, *cols, impl="kernel")
@@ -902,6 +686,8 @@ def check_top2(name, stack, cols, n_time):
 
 def check_top2_random(device):
     """Phase 2, top2: the random sets at D = 128 and 64."""
+    from orthosfm_torch.utils.kernel_bench import random_top2_set
+
     err_all, rel_all, times = 0.0, 0.0, {}
     for D in (128, 64):
         stack, cols = random_top2_set(device, D)
@@ -910,35 +696,13 @@ def check_top2_random(device):
     return err_all, rel_all, times
 
 
-class StageTimer:
-    """Wall time of named stages, each bracketed by torch.cuda.synchronize()."""
-
-    def __init__(self):
-        self.ms = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        import torch
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        yield
-        torch.cuda.synchronize()
-        self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-
-
 def front_end_views(device):
     """Phase 5's scene: (ground-truth cameras, 16 sphere views of 2048^2
     rendered on the card), the views holding host arrays, as images loaded
-    from files do."""
-    from orthosfm_torch.data.views import View
-    from orthosfm_torch.testbench import render
+    from files do (profile_matching's scene)."""
+    from orthosfm_torch.testbench import profile_matching
 
-    gt, images, _ = render.make_scene_views(FRONT_VIEWS, FRONT_WIDTH, FRONT_WIDTH,
-                                            seed=FRONT_SEED, ring_degrees=FRONT_RING_DEG,
-                                            device=device)
-    return gt, [View(i, f"view_{i:02d}.png", FRONT_WIDTH, FRONT_WIDTH, pixels=img.cpu().numpy())
-                for i, img in enumerate(images)]
+    return profile_matching.scene_views(FRONT_VIEWS, FRONT_WIDTH, device=device)
 
 
 def run_front_end(device):
@@ -951,6 +715,8 @@ def run_front_end(device):
     from orthosfm_torch.pipeline import incremental, track_utils
     from orthosfm_torch.pipeline import matching as matching_mod
     from orthosfm_torch.testbench import metrics
+    from orthosfm_torch.utils import profiling
+    from orthosfm_torch.utils.kernel_bench import cuda_ms
 
     t0 = time.perf_counter()
     gt, views = front_end_views(device)
@@ -958,20 +724,20 @@ def run_front_end(device):
     print(f"  rendered {FRONT_VIEWS} views of {FRONT_WIDTH}^2 on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     cfg = ReconstructionConfig(solver=SolverType.ORTHO_QUATERNION)
-    timer = StageTimer()
+    stages = {}
     t_all = time.perf_counter()
-    features = matching_mod.extract_all_view_features(views, cfg, device, timer=timer)
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        pair_matches = matching_mod.match_all_pairs(features, cfg, verbose=True, timer=timer)
-    tracks = matching_mod.tracks_from_matches(views, features, pair_matches, device=device,
-                                              timer=timer)
-    with timer("masks_colors"):
-        tracks = track_utils.propagate_colors(track_utils.filter_tracks_with_masks(tracks, views),
-                                              views)
-    wh = np.full(FRONT_VIEWS, float(FRONT_WIDTH), np.float32)
-    with timer("pose_estimation"):
-        res = incremental.run_pose_estimation(tracks, wh, wh, cfg, verbose=False)
+    with profiling.collect_stages(stages, device):
+        features = matching_mod.extract_all_view_features(views, cfg, device)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            pair_matches = matching_mod.match_all_pairs(features, cfg, verbose=True)
+        tracks = matching_mod.tracks_from_matches(views, features, pair_matches, device=device)
+        with profiling.stage("masks_colors"):
+            tracks = track_utils.propagate_colors(
+                track_utils.filter_tracks_with_masks(tracks, views), views)
+        wh = np.full(FRONT_VIEWS, float(FRONT_WIDTH), np.float32)
+        with profiling.stage("pose_estimation"):
+            res = incremental.run_pose_estimation(tracks, wh, wh, cfg, verbose=False)
     t_all = time.perf_counter() - t_all
 
     # match_all_pairs reports every pair once: rejected by the low-res gate,
@@ -984,7 +750,7 @@ def run_front_end(device):
     n_sift = [f.n_sift for f in features]
     n_surf = [f.count - f.n_sift for f in features]
     n_tracks = int(tracks.alive.sum())
-    print(f"  stage ms: " + ", ".join(f"{k} {v:.1f}" for k, v in timer.ms.items()))
+    print("  stage ms: " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stages.items()))
     print(f"  front end + pose estimation {t_all:.3f} s")
     print(f"  features per view: SIFT {n_sift}, SURF {n_surf}")
     print(f"  pairs {n_pairs}: rejected by the low-res gate {n['low-res']}, by the match count "
@@ -998,7 +764,7 @@ def run_front_end(device):
                     device=device)
     print(f"  rank-2 enforcement (batched 3x3 SVD) of {n_hyp} hypotheses: "
           f"{cuda_ms(lambda: ransac_f.enforce_rank2(F), 3):.2f} ms, in a RANSAC-F stage of "
-          f"{timer.ms['ransac_f']:.1f} ms")
+          f"{stages['match/verify_ransac'] * 1e3:.1f} ms")
     ang, pos = metrics.pose_errors(res.cameras, gt)
     mean_ang = float(np.mean(ang))
     print(f"  views placed {int(res.present.sum())}/{FRONT_VIEWS}; mean angular error "
@@ -1064,7 +830,7 @@ def read_sweep_csv(path):
 
 
 def run_testbench(device, root):
-    """Phase 6, the slice's main path: the testbench CLI over the whole
+    """Phase 6, the testbench's path: the testbench CLI over the whole
     dataset matrix on the card, with the launch counts of every kernel over
     it; then the noise sweep and the pipeline bench."""
     import torch
@@ -1246,7 +1012,7 @@ def tk_group(device):
 
 
 def run_sharded(device, features, cfg):
-    """Phase 8, the slice's main path: the sharded BA, TK and matching on a
+    """Phase 8, the multi-device path: the sharded BA, TK and matching on a
     process group of one rank over NCCL, each bit for bit against one
     device (whose runs come first and do not count), with the launch counts
     of every kernel over the sharded runs; then two ranks on this card over
@@ -1256,7 +1022,7 @@ def run_sharded(device, features, cfg):
 
     from orthosfm_torch.config import BundleAdjustConfig, RansacConfig
     from orthosfm_torch.ops import matching_kernels as mk
-    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod, tk_sharded
+    from orthosfm_torch.parallel import ba_sharded, dryrun, mesh as mesh_mod, tk_sharded
     from orthosfm_torch.pipeline import matching as pipe
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
@@ -1302,11 +1068,15 @@ def run_sharded(device, features, cfg):
         torch.cuda.synchronize()
         launches = {**bk.launch_counts(), "top2": mk.top2.launches}
         routes = bk.route_launches()
+        # the JAX package's multi-device dry run, from images through the
+        # sharded matching and pose estimation, on this rank
+        dry = dryrun.dryrun_multichip(mesh)
     finally:
         dist.destroy_process_group()
     launches["camera_solve_grid"] = routes["grid"]
     print(f"  launches {launches}, camera_solve by route {routes}")
-    out = {"launches": launches, "camera_solve_routes": routes, "ba": {}}
+    out = {"launches": launches, "camera_solve_routes": routes, "ba": {},
+           "dryrun_multichip": {k: v for k, v in dry.items() if k != "rot"}}
     for (label, _, bcfg, ref, t_ref), (_, res, t_sh) in zip(problems, sharded):
         same = (torch.equal(res.cams.rot, ref.cams.rot) and torch.equal(res.points, ref.points)
                 and float(res.cost) == float(ref.cost))
@@ -1450,6 +1220,55 @@ def devices_past_cards():
     return raised
 
 
+def run_many_views(device):
+    """Phase 9, the kernels line's main path: the many-view reconstruction
+    (testbench.scale_demo, one timed run with the BA kernels' launches, then
+    TK's peak memory and a run under the stage barriers) at MANY_VIEWS x
+    MANY_TRACKS with MANY_NOISE_PX of noise, held to the accuracy bars; then
+    profile_matching at FRONT_VIEWS x FRONT_WIDTH^2 with top2's
+    launches. Returns (launches, K3's launches by route, results)."""
+    from orthosfm_torch.ops import matching_kernels as mk
+    from orthosfm_torch.testbench import profile_matching, scale_demo
+
+    t0 = time.perf_counter()
+    many = scale_demo.run_scale_demo(MANY_VIEWS, MANY_TRACKS, noise_px=MANY_NOISE_PX, runs=1,
+                                     device=device)
+    many["phase_s"] = time.perf_counter() - t0
+    launches, routes = dict(many["launches"]), many["camera_solve_routes"]
+    ba_calls = many["ba"]
+    print(f"  {MANY_VIEWS} views x {MANY_TRACKS} tracks, {MANY_NOISE_PX} px: pose estimation "
+          f"{many['wall_s']:.3f} s (under the stage barriers {many['staged_wall_s']:.3f} s); "
+          f"views placed {many['views_placed']}/{MANY_VIEWS}, angular error mean "
+          f"{many['mean_angular_error_deg']:.6f} max {many['max_angular_error_deg']:.6f} deg "
+          f"(limits {MANY_LIMIT_MEAN_DEG} / {MANY_LIMIT_MAX_DEG}; the JAX package "
+          f"{many['jax_package']['mean_angular_error_deg']} / "
+          f"{many['jax_package']['max_angular_error_deg']})")
+    print(f"  launches {launches}, camera_solve by route {routes}; BA: {ba_calls['ba_calls']} "
+          f"calls ({ba_calls['global_ba_calls']} global), {ba_calls['iterations_worked']} of "
+          f"{ba_calls['iterations_launched']} LM iterations did work, host enqueue "
+          f"{ba_calls['enqueue_ms_per_it']:.4f} ms per iteration")
+    print(f"  peak device memory {many['peak_bytes'] / 1e9:.3f} GB; TK on one group "
+          f"({many['tk']['hypotheses']} hypotheses x {many['tk']['tracks']} tracks) "
+          f"{many['tk']['tk_peak_bytes'] / 1e9:.3f} GB above its base")
+    print("  stage shares: " + ", ".join(f"{k} {v:.3f}" for k, v in many["stage_shares"].items()))
+    require(many["views_placed"] == MANY_VIEWS, f"many views: {many['views_placed']} placed")
+    require(many["mean_angular_error_deg"] < MANY_LIMIT_MEAN_DEG
+            and many["max_angular_error_deg"] < MANY_LIMIT_MAX_DEG,
+            f"many views: angular error {many['mean_angular_error_deg']} / "
+            f"{many['max_angular_error_deg']}")
+    for name in UNSHARDED_BA:
+        require(launches[name] > 0, f"{name} was not launched on the many-view path")
+
+    mk.top2.launches = 0
+    prof = profile_matching.profile_matching(FRONT_VIEWS, FRONT_WIDTH, device=device)
+    launches["top2"] = mk.top2.launches
+    print("\n".join("  " + ln for ln in profile_matching.format_table(prof).splitlines()))
+    print(f"  top2 launches {launches['top2']} (the warm-up pass and the profiled one)")
+    require(launches["top2"] > 0 and prof["num_tracks"] > 0,
+            f"profile_matching: top2 {launches['top2']}, tracks {prof['num_tracks']}")
+    return launches, routes, {"scale_demo": many, "matching_profile": prof}
+
+
 def main() -> int:
     import argparse
 
@@ -1475,6 +1294,8 @@ def main() -> int:
     from orthosfm_torch.ops import matching_kernels as mk
     from orthosfm_torch.pipeline import tracks_build
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import stage_inputs, time_ba_kernels
+    from orthosfm_torch.utils.profiling import BARecorder
 
     print("== phase 1: card and build")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1582,30 +1403,50 @@ def main() -> int:
     sharded = run_sharded(device, features, cfg)
     phase_launches["phase8"] = sharded["launches"]
     print(f"  phase 8 wall time {time.perf_counter() - t0:.2f} s")
+    print(f"== phase 9: the many-view reconstruction ({MANY_VIEWS} views x {MANY_TRACKS} "
+          f"tracks, {MANY_NOISE_PX} px) and the front end's stage profile")
+    t0 = time.perf_counter()
+    many_launches, many_routes, many_views = run_many_views(device)
+    phase_launches["phase9"] = {**many_launches, "camera_solve_routes": many_routes}
+    print(f"  phase 9 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: the slice's main path, phase 8 (the sharded BA, TK and
-    # matching); each earlier phase's are in launches_by_phase
-    main_path = phase_launches["phase8"]
+    # launches: the main path, phase 9 (the many-view run's K1, K3
+    # and K2, profile_matching's top2); lm_accept's own launch and K3's grid
+    # route are not on it, and give phase 8's (the sharded BA). Each
+    # earlier phase's counts are in launches_by_phase.
+    def main_path(name):
+        return ("phase9", many_launches[name]) if name in many_launches else (
+            "phase8", phase_launches["phase8"][name])
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
-                "replaces": REPLACES[name], "launches": main_path[name],
+                "replaces": REPLACES[name], "launches": main_path(name)[1],
+                "launches_phase": main_path(name)[0],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
                 **{k: times[name][k] for k in keys}}
                for name in REPLACES]
     for k in kernels:
         if k["name"] == "camera_solve":
-            k["routes"] = sharded["camera_solve_routes"]
+            k["routes"] = many_routes
+            k["routes_phase8"] = sharded["camera_solve_routes"]
         if k["name"] == "lm_accept":
             k["tail_ms"] = times["lm_accept"]["tail_ms"]
+        if k["name"] in UNSHARDED_BA:
+            # the same kernel at the shapes phase 9 gives it
+            k["main_path_shapes"] = {
+                f"{v}x{t}": {key: shapes[f"{v}x{t}"][k["name"]][key]
+                             for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                for v, t in MAIN_PATH_SHAPES}
     print(json.dumps({"kernels": kernels, "launches_by_phase": phase_launches,
                       "ba_shapes": shapes, "ba_iter_per_s": rates,
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}, "testbench": testbench,
-                      "homography": homography, "sharded": sharded}))
+                      "homography": homography, "sharded": sharded,
+                      "many_views": many_views}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -263,6 +263,20 @@ def dehomogenize(points4):
     return points4[..., :3] / safe_w
 
 
+def project_from_params(R_l2w, offset, scale, width, height, points4):
+    """Project homogeneous points with explicit rotation and intrinsics.
+
+    R_l2w (..., 3, 3); offset (..., 2); scale, width, height (...,);
+    points4 (..., 4) → pixels (..., 2).
+    (reference: OrthographicCamera.cpp:63-76 and the two residual functors.)
+    """
+    p = dehomogenize(points4)
+    local = torch.einsum("...ij,...i->...j", R_l2w, p)  # Rᵀ·p via contraction over rows
+    proj = local[..., :2] / scale[..., None]
+    xy = (proj - offset) / (-2.0) + 0.5
+    return torch.stack([width, height], dim=-1) * xy
+
+
 def project(cams: CameraSet, points4):
     """Project points (T, 4) through every camera → pixels (V, T, 2)."""
     R = rotation_l2w(cams)  # (V, 3, 3)
@@ -369,6 +383,21 @@ def normalize_scene_to_camera(cams: CameraSet, target_index):
     if cams.kind == "quat":
         return apply_rotation(cams, quat.conjugate(quat.from_matrix(Rt)))
     return apply_rotation(cams, Rt.T)
+
+
+def normalize_scene(cams: CameraSet):
+    return normalize_scene_to_camera(cams, 0)
+
+
+def concatenate(a: CameraSet, b: CameraSet) -> CameraSet:
+    """The cameras of `a` then those of `b` (one kind and solver)."""
+    if a.kind != b.kind or a.solver != b.solver:
+        raise ValueError(f"cannot concatenate {a.kind}/{a.solver} and {b.kind}/{b.solver} "
+                         "cameras")
+    return CameraSet(**{f: torch.cat([getattr(a, f), getattr(b, f)])
+                        for f in ("rot", "offset", "scale", "width", "height", "view_ids",
+                                  "fixed")},
+                     kind=a.kind, solver=a.solver)
 
 
 def take(cams: CameraSet, indices) -> CameraSet:

@@ -106,9 +106,14 @@ CLOUDS = {
 
 def generate_gt_cameras(num_views: int = 16, width: int = 2048, height: int = 2048,
                         theta_range: float = 30.0, roll_range: float = 30.0,
-                        seed: int = 0, device="cpu") -> cam_mod.CameraSet:
+                        seed: int = 0, device="cuda") -> cam_mod.CameraSet:
     """Ring of cameras: camera 0 identity, camera i at phi = 360°/V·i with
-    random theta/roll (reference: dataset_generation.cpp:14-39)."""
+    random theta/roll (reference: dataset_generation.cpp:14-39), on `device`:
+    CUDA unless the caller names another (without a card this raises rather
+    than run on the CPU unasked)."""
+    from orthosfm_torch.pipeline.matching import checked_device
+
+    device = checked_device(device)
     rng = np.random.default_rng(seed)
     phis = np.deg2rad(360.0 / num_views * np.arange(num_views))
     thetas = np.deg2rad(rng.uniform(-theta_range, theta_range, size=num_views))

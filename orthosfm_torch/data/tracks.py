@@ -220,6 +220,22 @@ def shared_mask(tracks: TrackSet, cols, min_features: int = 2):
     return tracks.alive & (n >= min_features)
 
 
+def restrict_to_columns(tracks: TrackSet, cols, only_full_size: bool,
+                        keep_additional: bool) -> TrackSet:
+    """Dense analog of filterTracksToAvailableCameras (common.cpp:85-139).
+
+    Instead of building new lists, returns a TrackSet whose ``alive`` mask
+    keeps the qualifying tracks and (unless keep_additional) whose obs_mask
+    zeroes the features outside ``cols``.
+    """
+    keep = full_size_mask(tracks, cols) if only_full_size else shared_mask(tracks, cols)
+    if keep_additional:
+        return tracks.replace(alive=keep)
+    col_mask = torch.zeros((tracks.num_views,), dtype=torch.bool, device=tracks.device)
+    col_mask[col_index(tracks, cols)] = True
+    return tracks.replace(alive=keep, obs_mask=tracks.obs_mask & col_mask[None, :])
+
+
 def incidence(tracks: TrackSet):
     """(T, V) float incidence matrix for group scoring (alive tracks only)."""
     return (tracks.obs_mask & tracks.alive[:, None]).to(torch.float32)

@@ -32,6 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orthosfm_torch.utils.profiling import stage
+
 # MVE defaults (sift.h:48-90, sift.cc:226-236)
 SAMPLES = 3  # num_samples_per_octave
 BASE_BLUR = 1.6
@@ -557,6 +559,16 @@ def _octave_plan(H: int, W: int, per_octave_cap: int, max_octave: int, min_octav
 MEMORY_BUDGET_BYTES = 40_000_000_000
 
 
+def extract(image_gray, per_octave_cap: int = 2048, max_octave: int = MAX_OCTAVE,
+            min_octave: int = 0) -> Features:
+    """Multi-octave SIFT on one (H, W) grayscale float image: the V = 1 case
+    of extract_batch, so both give bit-identical features. Fields as
+    extract_batch's without the leading view axis."""
+    fb = extract_batch(torch.as_tensor(image_gray)[None], per_octave_cap, max_octave,
+                       min_octave)
+    return Features(*(f[0] for f in fb))
+
+
 def extract_batch(images, per_octave_cap: int = 2048, max_octave: int = MAX_OCTAVE,
                   min_octave: int = 0) -> Features:
     """Batched multi-octave SIFT over a (V, H, W) stack of same-shape images.
@@ -581,39 +593,41 @@ def extract_batch(images, per_octave_cap: int = 2048, max_octave: int = MAX_OCTA
     M = MAX_ORIENTATIONS
 
     # Phase 1: detection per octave over the stack, then ONE keypoint pull
-    dets = []
-    img, has_sigma = images, INHERENT_BLUR
-    for o, cap, h, w in plan:
-        if o == -1:
-            img, has_sigma = double_size_supersample(images), INHERENT_BLUR * 2.0
-        elif o == 0:
-            # Octave 0 always starts from the original image (sift.cc:195-199)
-            img, has_sigma = images, INHERENT_BLUR
-        dets.append(_detect_octave_batch(img, has_sigma, cap))
-        if o >= 0:
-            img, has_sigma = half_size_gaussian(img), BASE_BLUR
-    kp_all = torch.cat([kp for kp, _, _ in dets], dim=1).cpu().numpy()  # (V, Σcap, 4)
+    with stage("sift/pyramid_detect"):
+        dets = []
+        img, has_sigma = images, INHERENT_BLUR
+        for o, cap, h, w in plan:
+            if o == -1:
+                img, has_sigma = double_size_supersample(images), INHERENT_BLUR * 2.0
+            elif o == 0:
+                # Octave 0 always starts from the original image (sift.cc:195-199)
+                img, has_sigma = images, INHERENT_BLUR
+            dets.append(_detect_octave_batch(img, has_sigma, cap))
+            if o >= 0:
+                img, has_sigma = half_size_gaussian(img), BASE_BLUR
+        kp_all = torch.cat([kp for kp, _, _ in dets], dim=1).cpu().numpy()  # (V, Σcap, 4)
 
     # Phase 2: compact each octave's valid keypoints on the host and run the
     # orientation/descriptor stages on them; ONE pull of all orientations
-    launched, off = [], 0
-    for (o, cap, h, w), (_, grads, oris) in zip(plan, dets):
-        kp_np = kp_all[:, off:off + cap]
-        off += cap
-        vi_np, ki_np = np.nonzero(kp_np[:, :, 3] > 0.5)
-        kxyz = kp_np[vi_np, ki_np, :3]
-        desc = torch.zeros((V, cap * M, 128), dtype=torch.float32, device=images.device)
-        ori_ok = None
-        if len(vi_np):
-            kp_flat = np.concatenate([vi_np[:, None].astype(np.float32), kxyz], axis=1)
-            ori4, ok, d = _ori_desc_flat(
-                grads, oris, torch.as_tensor(kp_flat, device=images.device),
-                min(ORI_PATCH, _odd(h), _odd(w)), min(DESC_PATCH, _odd(h), _odd(w)))
-            slots = torch.as_tensor(ki_np[:, None] * M + np.arange(M), device=images.device)
-            desc[torch.as_tensor(vi_np, device=images.device)[:, None], slots] = d
-            ori_ok = torch.stack([ori4, ok.to(torch.float32)], dim=-1)
-        launched.append((o, cap, vi_np, ki_np, kxyz, desc, ori_ok))
-    del dets
+    with stage("sift/ori_desc"):
+        launched, off = [], 0
+        for (o, cap, h, w), (_, grads, oris) in zip(plan, dets):
+            kp_np = kp_all[:, off:off + cap]
+            off += cap
+            vi_np, ki_np = np.nonzero(kp_np[:, :, 3] > 0.5)
+            kxyz = kp_np[vi_np, ki_np, :3]
+            desc = torch.zeros((V, cap * M, 128), dtype=torch.float32, device=images.device)
+            ori_ok = None
+            if len(vi_np):
+                kp_flat = np.concatenate([vi_np[:, None].astype(np.float32), kxyz], axis=1)
+                ori4, ok, d = _ori_desc_flat(
+                    grads, oris, torch.as_tensor(kp_flat, device=images.device),
+                    min(ORI_PATCH, _odd(h), _odd(w)), min(DESC_PATCH, _odd(h), _odd(w)))
+                slots = torch.as_tensor(ki_np[:, None] * M + np.arange(M), device=images.device)
+                desc[torch.as_tensor(vi_np, device=images.device)[:, None], slots] = d
+                ori_ok = torch.stack([ori4, ok.to(torch.float32)], dim=-1)
+            launched.append((o, cap, vi_np, ki_np, kxyz, desc, ori_ok))
+        del dets
     pulled = [p[-1] for p in launched if p[-1] is not None]
     pulled = torch.cat(pulled).cpu().numpy() if pulled else np.zeros((0, M, 2), np.float32)
 

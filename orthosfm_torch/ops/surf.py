@@ -356,3 +356,10 @@ def extract_batch(grays, per_octave_cap: int = 1024) -> SurfFeatures:
     scale_out[vi_np, ki_np] = kxyz[:, 2]
     return SurfFeatures(xy=xy, scale=scale_out, orientation=ori_out, desc=desc_slots,
                         valid=valid_out)
+
+
+def extract(gray01, per_octave_cap: int = 1024) -> SurfFeatures:
+    """Single-image SURF: the V = 1 case of extract_batch (bit-identical).
+    Fields as extract_batch's without the leading view axis."""
+    fb = extract_batch(torch.as_tensor(gray01)[None], per_octave_cap)
+    return SurfFeatures(*(f[0] for f in fb))

@@ -33,6 +33,7 @@ from orthosfm_torch.ops import outliers, triangulate
 from orthosfm_torch.pipeline import grouping
 from orthosfm_torch.solvers import ba
 from orthosfm_torch.solvers import tomasi_kanade as tk
+from orthosfm_torch.utils.profiling import stage
 
 
 class TooFewTracksError(RuntimeError):
@@ -263,7 +264,8 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
     every rank calling with the same inputs. With more than one rank every
     bundle adjustment shards the tracks over the ranks and every TK
     initialization its hypotheses (MeshRunners); the results are every
-    rank's."""
+    rank's. Its stages (utils.profiling.stage): pose/grouping, pose/tk,
+    pose/filters, pose/local_ba, pose/merge and pose/global_ba."""
     runners = MeshRunners(mesh)
     solver = config.solver
     dev = tracks.device
@@ -278,8 +280,9 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
     # global filters below mutate obs_mask/alive; see initial_alignment)
     pristine_tracks = tracks
 
-    inc = tracks_mod.incidence(tracks).cpu().numpy().astype(bool)
-    groups = grouping.build_groups(view_ids, inc, config.group_size)
+    with stage("pose/grouping"):
+        inc = tracks_mod.incidence(tracks).cpu().numpy().astype(bool)
+        groups = grouping.build_groups(view_ids, inc, config.group_size)
     if verbose:
         print(f"Built {len(groups)} groups: {groups}")
 
@@ -292,7 +295,8 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
     insertion_order: List[int] = []
     col_of = {int(v): i for i, v in enumerate(view_ids)}
 
-    group_counts = group_full_size_counts(tracks, groups, col_of)
+    with stage("pose/grouping"):
+        group_counts = group_full_size_counts(tracks, groups, col_of)
     pristine_counts = None
 
     for gi, ids in enumerate(groups):
@@ -309,22 +313,25 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
         n_valid_fb = int(pristine_counts[gi]) if pristine_counts is not None else None
         first_group = not present.any()
         pair = None if first_group else (col_of[ids[0]], col_of[ids[1]])
-        local_cams = initial_alignment(tracks, ids, widths[cols], heights[cols], solver,
-                                       generator, None if first_group else global_cams,
-                                       pair, config, fallback_tracks=pristine_tracks,
-                                       verbose=verbose, n_valid=n_valid,
-                                       n_valid_fb=n_valid_fb, runners=runners)
+        with stage("pose/tk"):
+            local_cams = initial_alignment(tracks, ids, widths[cols], heights[cols], solver,
+                                           generator, None if first_group else global_cams,
+                                           pair, config, fallback_tracks=pristine_tracks,
+                                           verbose=verbose, n_valid=n_valid,
+                                           n_valid_fb=n_valid_fb, runners=runners)
 
         # Reprojection outlier filter on the LOCAL track copy (reconstruct.cpp:212)
-        local_tracks = outliers.filter_tracks_reprojection_error(
-            tracks, local_cams, cols, config.filters)
+        with stage("pose/filters"):
+            local_tracks = outliers.filter_tracks_reprojection_error(
+                tracks, local_cams, cols, config.filters)
 
         if first_group:
             fixed = local_cams.fixed.clone()
             fixed[0] = True
             local_cams = local_cams.replace(fixed=fixed)
 
-        local_cams, ba_res = _local_ba(local_cams, local_tracks, cols, config, runners)
+        with stage("pose/local_ba"):
+            local_cams, ba_res = _local_ba(local_cams, local_tracks, cols, config, runners)
         if verbose:
             print(f"  local BA: cost {float(ba_res.initial_cost):.1f} -> "
                   f"{float(ba_res.cost):.1f} in {int(ba_res.iterations)} iters")
@@ -332,13 +339,14 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
             print(cam_mod.format_cameras(local_cams))
 
         if first_group:
-            local_cams = cam_mod.normalize_scene_to_camera(local_cams, 0)
-            for j, vid in enumerate(ids):
-                c = col_of[vid]
-                global_cams = _set_camera(global_cams, c, local_cams, j)
-                present[c] = True
-                insertion_order.append(vid)
-            tracks = _triangulate_global(global_cams, present, tracks, view_ids)
+            with stage("pose/merge"):
+                local_cams = cam_mod.normalize_scene_to_camera(local_cams, 0)
+                for j, vid in enumerate(ids):
+                    c = col_of[vid]
+                    global_cams = _set_camera(global_cams, c, local_cams, j)
+                    present[c] = True
+                    insertion_order.append(vid)
+                tracks = _triangulate_global(global_cams, present, tracks, view_ids)
             continue
 
         overlap_local = [j for j, vid in enumerate(ids) if present[col_of[vid]]]
@@ -346,37 +354,43 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
         if len(overlap_local) != config.group_size - 1 and verbose:
             print(f"  warning: {len(overlap_local)} overlapping cameras "
                   f"(expected {config.group_size - 1})")
-        local_cams = align_to_global(local_cams, global_cams, overlap_local, overlap_global)
-        # mergeIntoGlobal: only cameras not yet present are added
-        for j, vid in enumerate(ids):
-            c = col_of[vid]
-            if not present[c]:
-                global_cams = _set_camera(global_cams, c, local_cams, j)
-                present[c] = True
-                insertion_order.append(vid)
-        tracks = _triangulate_global(global_cams, present, tracks, view_ids)
+        with stage("pose/merge"):
+            local_cams = align_to_global(local_cams, global_cams, overlap_local, overlap_global)
+            # mergeIntoGlobal: only cameras not yet present are added
+            for j, vid in enumerate(ids):
+                c = col_of[vid]
+                if not present[c]:
+                    global_cams = _set_camera(global_cams, c, local_cams, j)
+                    present[c] = True
+                    insertion_order.append(vid)
+            tracks = _triangulate_global(global_cams, present, tracks, view_ids)
 
         if processed % config.global_ba_interval == 0:
-            global_cams, tracks, res = _global_ba(global_cams, present, tracks, config,
-                                                  view_ids, runners)
+            with stage("pose/global_ba"):
+                global_cams, tracks, res = _global_ba(global_cams, present, tracks, config,
+                                                      view_ids, runners)
             if verbose:
                 print(f"  global BA: cost {float(res.initial_cost):.1f} -> "
                       f"{float(res.cost):.1f} in {int(res.iterations)} iters")
-            tracks = outliers.filter_outlier_tracks(tracks, config.filters)
-            pres_cols = _cols_for(tracks, view_ids[present])
-            tracks = outliers.filter_tracks_reprojection_error(
-                tracks, cam_mod.take(global_cams, pres_cols), pres_cols, config.filters)
-            # obs_mask/alive changed → refresh the per-group counts
-            group_counts = group_full_size_counts(tracks, groups, col_of)
+            with stage("pose/filters"):
+                tracks = outliers.filter_outlier_tracks(tracks, config.filters)
+                pres_cols = _cols_for(tracks, view_ids[present])
+                tracks = outliers.filter_tracks_reprojection_error(
+                    tracks, cam_mod.take(global_cams, pres_cols), pres_cols, config.filters)
+                # obs_mask/alive changed → refresh the per-group counts
+                group_counts = group_full_size_counts(tracks, groups, col_of)
 
-        global_cams = cam_mod.normalize_scene_to_camera(global_cams, col_of[insertion_order[0]])
+        with stage("pose/merge"):
+            global_cams = cam_mod.normalize_scene_to_camera(global_cams,
+                                                            col_of[insertion_order[0]])
         if verbose:
             print("Current Cameras:")
             print(cam_mod.format_cameras(global_cams, mask=present))
 
     # Final global BA + normalize (reconstruct.cpp:281-282)
-    global_cams, tracks, res = _global_ba(global_cams, present, tracks, config, view_ids,
-                                          runners)
+    with stage("pose/global_ba"):
+        global_cams, tracks, res = _global_ba(global_cams, present, tracks, config, view_ids,
+                                              runners)
     if verbose:
         print(f"final BA: cost {float(res.initial_cost):.1f} -> {float(res.cost):.1f} "
               f"in {int(res.iterations)} iters")

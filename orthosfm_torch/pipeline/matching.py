@@ -25,7 +25,6 @@ first, so every rank gets the matches of a run on one device.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import List
 
@@ -39,10 +38,7 @@ from orthosfm_torch.ops import matching as match_ops
 from orthosfm_torch.ops import ransac_f, ransac_h, sift, surf
 from orthosfm_torch.parallel import matching_sharded
 from orthosfm_torch.pipeline import tracks_build
-
-
-def _no_timer(name):
-    return contextlib.nullcontext()
+from orthosfm_torch.utils.profiling import stage
 
 
 def checked_device(device) -> torch.device:
@@ -169,16 +165,22 @@ def _assemble_features(view: View, config: ReconstructionConfig, sift_np, surf_n
                         surf_desc=surf_desc)
 
 
+def extract_view_features(view: View, config: ReconstructionConfig,
+                          device="cuda") -> ViewFeatures:
+    """Single-view extraction (the batched path below is the pipeline's)."""
+    return extract_all_view_features([view], config, device)[0]
+
+
 def extract_all_view_features(views: List[View], config: ReconstructionConfig,
-                              device="cuda", timer=None) -> List[ViewFeatures]:
+                              device="cuda") -> List[ViewFeatures]:
     """Batched extraction on `device` (CUDA unless the caller names another;
     see checked_device): views group by (padded shape, halvings) and each
-    group's SIFT and SURF run once over the group's view stack.
-    timer: optional factory of a context manager per named stage (chip_smoke.py
-    times the stages with one)."""
+    group's SIFT and SURF run once over the group's view stack. Its stages
+    (utils.profiling.stage): extract/prepare_gray, extract/sift (with
+    sift/pyramid_detect and sift/ori_desc inside), extract/surf and
+    extract/assemble."""
     device = checked_device(device)
-    stage = timer or _no_timer
-    with stage("prepare_gray"):
+    with stage("extract/prepare_gray"):
         prepared = _prepare_grays(views, config, device)
     groups = {}
     for i, (gray, halvings, _, _) in enumerate(prepared):
@@ -187,17 +189,18 @@ def extract_all_view_features(views: List[View], config: ReconstructionConfig,
     out: List[ViewFeatures] = [None] * len(views)  # type: ignore[list-item]
     for (_, halvings), idxs in groups.items():
         stack = torch.stack([prepared[i][0] for i in idxs])
-        with stage("sift"):
+        with stage("extract/sift"):
             fs = sift.extract_batch(stack, min_octave=config.matching.sift_min_octave)._asdict()
         fu = None
         if config.matching.use_surf:
-            with stage("surf"):
+            with stage("extract/surf"):
                 fu = surf.extract_batch(stack)._asdict()
-        for bi, i in enumerate(idxs):
-            s_i = {k: a[bi] for k, a in fs.items()}
-            u_i = {k: a[bi] for k, a in fu.items()} if fu is not None else None
-            out[i] = _assemble_features(views[i], config, s_i, u_i, halvings,
-                                        prepared[i][2], prepared[i][3])
+        with stage("extract/assemble"):
+            for bi, i in enumerate(idxs):
+                s_i = {k: a[bi] for k, a in fs.items()}
+                u_i = {k: a[bi] for k, a in fu.items()} if fu is not None else None
+                out[i] = _assemble_features(views[i], config, s_i, u_i, halvings,
+                                            prepared[i][2], prepared[i][3])
     return out
 
 
@@ -231,16 +234,16 @@ def _batched_pair_matches(stack, counts, pairs, ratio, mesh=None):
 
 
 def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
-                    verbose: bool = True, timer=None, mesh=None):
+                    verbose: bool = True, mesh=None):
     """Exhaustive pairwise matching with gates; returns
     [(i, j, idx_i, idx_j), ...] inlier match lists. The top-2 search runs
     through the CUDA kernel for CUDA descriptors. Pairs are verified by
     RANSAC-F, or by RANSAC-H where config.matching.pair_verification is
     "homography". With a mesh the matcher and the verification split their
-    pairs over the ranks, and every rank returns the lists of one device."""
-    stage = timer or _no_timer
+    pairs over the ranks, and every rank returns the lists of one device.
+    Its stages: candidate_pairs' and match/verify_ransac."""
     m = config.matching
-    candidates = candidate_pairs(features, config, verbose, timer, mesh=mesh)
+    candidates = candidate_pairs(features, config, verbose, mesh=mesh)
 
     # --- Geometric verification: pair-batched RANSAC-F, or RANSAC-H (the
     # CudaSift-style engine, reference: matching.cpp:172-199)
@@ -248,7 +251,7 @@ def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
     if candidates:
         device = features[0].sift_desc.device
         homography = m.pair_verification == "homography"
-        with stage("ransac_h" if homography else "ransac_f"):
+        with stage("match/verify_ransac"):
             verify = _verify_homography if homography else _verify_fundamental
             inl_counts, inliers = verify(candidates, features, config, device, mesh=mesh)
         min_required = (m.homography_min_inliers if homography
@@ -269,11 +272,11 @@ def match_all_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
 
 
 def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
-                    verbose: bool = True, timer=None, mesh=None):
+                    verbose: bool = True, mesh=None):
     """The pairs that pass the low-res gate and the match-count gate, with
     their combined SIFT + SURF matches, before geometric verification:
-    [(i, j, idx_i, idx_j), ...]."""
-    stage = timer or _no_timer
+    [(i, j, idx_i, idx_j), ...]. Its stages: match/lowres_gate,
+    match/full_sift and match/full_surf."""
     m = config.matching
     if m.matcher not in ("cascade_hashing", "exhaustive"):
         raise ValueError(f"unknown matcher {m.matcher!r} "
@@ -301,7 +304,7 @@ def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
     for kind, gpairs in gated_by_type.items():
         if not gpairs:
             continue
-        with stage("lowres_gate"):
+        with stage("match/lowres_gate"):
             if kind == "sift":
                 per_view = [(f.scale[:f.n_sift], f.sift_desc) for f in features]
                 ratio = m.lowe_ratio
@@ -323,11 +326,11 @@ def candidate_pairs(features: List[ViewFeatures], config: ReconstructionConfig,
     pairs = [p for p in all_pairs if passed[p]]
 
     # --- Full SIFT + SURF matching, batched per descriptor type
-    with stage("full_sift"):
+    with stage("match/full_sift"):
         ns_cap = max(1, max(f.n_sift for f in features))
         sift_stack, sift_counts = _stack_descriptors([f.sift_desc for f in features], ns_cap)
         m_sift = _batched_pair_matches(sift_stack, sift_counts, pairs, m.lowe_ratio, mesh)
-    with stage("full_surf"):
+    with stage("match/full_surf"):
         nu_max = max(f.surf_desc.shape[0] for f in features)
         if nu_max > 0:
             surf_stack, surf_counts = _stack_descriptors([f.surf_desc for f in features], nu_max)
@@ -454,16 +457,17 @@ def build_tracks(views: List[View], config: ReconstructionConfig, verbose: bool 
 
 
 def tracks_from_matches(views: List[View], features: List[ViewFeatures], pair_matches,
-                        device="cuda", timer=None) -> tracks_mod.TrackSet:
+                        device="cuda") -> tracks_mod.TrackSet:
     """Union-find + TrackSet assembly from verified pairwise matches, on
     `device` (CUDA unless the caller names another): the TrackSet
     tracks_mod.from_feature_lists gives for the JAX package's feature lists
-    (view id, feature, global id vi·2²⁰ + fi, x, y, color 0)."""
+    (view id, feature, global id vi·2²⁰ + fi, x, y, color 0). Its stages:
+    tracks/union_find and tracks/assemble."""
     device = checked_device(device)
-    stage = timer or _no_timer
-    with stage("union_find"):
+    with stage("tracks/union_find"):
         track, vi, fi = tracks_build.track_members(pair_matches,
                                                    [f.count for f in features])
+    with stage("tracks/assemble"):
         n_tracks = int(track[-1]) + 1 if len(track) else 0
         cap = max(n_tracks, 1)
         V = len(views)
@@ -483,3 +487,13 @@ def tracks_from_matches(views: List[View], features: List[ViewFeatures], pair_ma
         return tracks_mod.from_host(obs, obs_mask, np.zeros((cap, V, 3), np.uint8), local_ids,
                                     global_ids, np.zeros((cap, 4)), np.zeros((cap,)), alive,
                                     view_ids, device=device)
+
+
+def filter_duplicate_tracks(tracks):
+    """No-op duplicate-track filter.
+
+    API parity with the reference's filterDuplicateTracks, whose hnswlib-based
+    body is fully commented out and which returns its input unchanged
+    (src/matching/matching.cpp:370-436).
+    """
+    return tracks

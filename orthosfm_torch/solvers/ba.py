@@ -29,6 +29,7 @@ no-ops) and reads the state once at the end; on the CPU, where reading
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -37,9 +38,29 @@ from orthosfm_torch.config import BundleAdjustConfig
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.core import quaternions as quat
 from orthosfm_torch.kernel_build import resolve_impl
+from orthosfm_torch.utils import profiling
 
 # ---------------------------------------------------------------------------
-# Homogeneous point manifold, track-minor (..., T) layout
+# Homogeneous point manifold: track-major (..., 4) and track-minor (4, T)
+
+
+def point_tangent_basis(p_hat):
+    """Orthonormal basis (..., 4, 3) of the tangent space at unit p_hat ∈ S³,
+    via the Householder reflection mapping e₃ → ∓p_hat (Ceres
+    HomogeneousVectorParameterization's construction)."""
+    sign = torch.where(p_hat[..., 3:4] >= 0, 1.0, -1.0).to(p_hat.dtype)
+    v = p_hat + sign * p_hat.new_tensor([0.0, 0.0, 0.0, 1.0])
+    vn2 = torch.sum(v * v, dim=-1, keepdim=True)
+    eye4 = torch.eye(4, dtype=p_hat.dtype, device=p_hat.device)
+    H = eye4 - 2.0 * v[..., :, None] * v[..., None, :] / torch.clamp(vn2[..., None], min=1e-20)
+    return H[..., :, :3]
+
+
+def retract_point(p_hat, delta):
+    """(..., 4), (..., 3) → (..., 4) unit-norm retraction p ← normalize(p + B δ)."""
+    B = point_tangent_basis(p_hat)
+    p_new = p_hat + torch.einsum("...ij,...j->...i", B, delta)
+    return p_new / torch.clamp(torch.linalg.vector_norm(p_new, dim=-1, keepdim=True), min=1e-20)
 
 
 def point_tangent_basis_T(pT):
@@ -199,6 +220,50 @@ def _residuals_and_jacobians(kind, R, dS, camp, pT, obsT, maskT, huber_delta):
     return _Blocks(r=r, Jc=Jc, Jp=Jp, weight=wgt)
 
 
+def _obs_residual(kind, rot, offset, scale, w, h, p_hat, obs, dc, dp):
+    """Residual (2,) of one observation after camera step dc (6,) and point
+    step dp (3,), from the raw parameters through the retractions: the
+    autodiff reference for the analytic Jacobians. Mirrors the reference
+    residual functors (OrthographicReprojectionError.h:26-77,
+    OrthographicQuaternionReprojectorError.h:24-67)."""
+    if kind == "quat":
+        R = quat.to_matrix(quat.normalize(quat.multiply(quat.exp_map(dc[:3]), rot)))
+    else:
+        S = cam_mod.spherical_matrix(rot[:3] + dc[:3])
+        R = cam_mod.coord_transform(S).T @ S
+    return cam_mod.project_from_params(R, offset + dc[3:5], scale + dc[5], w, h,
+                                       retract_point(p_hat, dp)) - obs
+
+
+def _residuals_and_jacobians_autodiff(cams: cam_mod.CameraSet, points_hat, obs, mask,
+                                      huber_delta):
+    """torch.func.jacrev reference in the track-major layout, kept to hold
+    the analytic T-minor Jacobians to: (r (T, V, 2), Jc (T, V, 2, 6),
+    Jp (T, V, 2, 3), robust weights (T, V)), zero where masked."""
+    from torch.func import jacrev, vmap
+
+    def per_obs(rot, offset, scale, w, h, p_hat, o):
+        zc, zp = o.new_zeros(6), o.new_zeros(3)
+        args = (cams.kind, rot, offset, scale, w, h, p_hat, o)
+        r = _obs_residual(*args, zc, zp)
+        Jc, Jp = jacrev(lambda dc, dp: _obs_residual(*args, dc, dp), argnums=(0, 1))(zc, zp)
+        return r, Jc, Jp
+
+    per_track = vmap(per_obs, in_dims=(None, None, None, None, None, 0, 0))
+    per_all = vmap(per_track, in_dims=(0, 0, 0, 0, 0, None, 1), out_dims=1)
+    r, Jc, Jp = per_all(cams.rot, cams.offset, cams.scale, cams.width, cams.height,
+                        points_hat, obs)
+    # Hard-zero masked entries: padded or dead observations can carry NaN/Inf
+    zero = obs.new_zeros(())
+    r = torch.where(mask[..., None], r, zero)
+    Jc = torch.where(mask[..., None, None], Jc, zero)
+    Jp = torch.where(mask[..., None, None], Jp, zero)
+    rnorm = torch.linalg.vector_norm(r, dim=-1)
+    wgt = torch.where(rnorm <= huber_delta, torch.ones_like(rnorm),
+                      huber_delta / torch.clamp(rnorm, min=1e-20))
+    return r, Jc, Jp, torch.where(mask, wgt, zero)
+
+
 def robust_cost(r, mask, huber_delta, comp_axis=1):
     """½ Σ ρ(‖r‖²) with Huber ρ (Ceres convention); r (V, 2, T), mask (V, T)."""
     s = torch.sum(r * r, dim=comp_axis)
@@ -255,6 +320,41 @@ def _solve_camera_system(S_p, dU, rhs, free_c, lam):
     return delta_c * free_c.reshape(-1, 6).to(S_p.dtype)
 
 
+def reduce_camera_system(U, Wc, g_c, g_p, V_inv):
+    """The Schur complement of the point blocks, on normal_equations'
+    T-minor blocks and V̂⁻¹ (3, 3, T): S = blkdiag(U) − W V̂⁻¹ Wᵀ (n, n) in
+    block-major (view·6 + param) order, dU = diag(U) (n,) and
+    rhs = g_c − W V̂⁻¹ g_p (n,), with n = 6V; and W as (n, 3T), which the
+    points' back-substitution reads."""
+    V, T = Wc.shape[0], Wc.shape[3]
+    WVi = (Wc[:, :, 0, None, :] * V_inv[None, None, 0] +
+           Wc[:, :, 1, None, :] * V_inv[None, None, 1] +
+           Wc[:, :, 2, None, :] * V_inv[None, None, 2])  # (V, 6, 3, T)
+    X = WVi.reshape(V * 6, 3 * T)
+    Y = Wc.reshape(V * 6, 3 * T)
+    ar = torch.arange(V, device=Wc.device)
+    S = Wc.new_zeros((V, 6, V, 6))
+    S[ar, :, ar, :] = U
+    S = S.reshape(V * 6, V * 6) - X @ Y.T
+    dU = torch.diagonal(U, dim1=1, dim2=2).reshape(V * 6)
+    rhs = g_c.reshape(V * 6) - X @ g_p.reshape(3 * T)
+    return S, dU, rhs, Y
+
+
+def schur_solve(U, Wc, Vt, g_c, g_p, free_c, lam, optimize_points: bool):
+    """The plain LM step by Schur elimination of the point blocks, on
+    normal_equations' T-minor blocks: (delta_c (V, 6), delta_p (3, T)).
+    The reduced system (reduce_camera_system) is solved by
+    _solve_camera_system (damped, pinned, Jacobi-scaled), and the points
+    back-substitute δp = V̂⁻¹(g_p − Wᵀ δc)."""
+    V, T = Wc.shape[0], Wc.shape[3]
+    V_inv = damped_point_inverse(Vt, lam, optimize_points)  # (3, 3, T)
+    S, dU, rhs, Y = reduce_camera_system(U, Wc, g_c, g_p, V_inv)
+    delta_c = _solve_camera_system(S, dU, rhs, free_c, torch.as_tensor(lam, dtype=U.dtype))
+    tmp = g_p - (Y.T @ delta_c.reshape(V * 6)).reshape(3, T)
+    return delta_c, torch.einsum("pqt,qt->pt", V_inv, tmp)
+
+
 # ---------------------------------------------------------------------------
 # LM driver
 
@@ -300,6 +400,8 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     """
     from orthosfm_torch.solvers import ba_kernels as bk
 
+    recorder = profiling.ba_recorder()
+    t0 = time.perf_counter()
     impl = resolve_impl(config.impl, obs.device)
     kind = cams.kind
     T = obs.shape[0]
@@ -328,5 +430,41 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     final = state[config.max_iterations % 2]
     rot, camp, pT = (bk.current(x, final) for x in (rot2, camp2, pT2))
     cams_f = cams.replace(rot=rot, offset=camp[:, 3:5].contiguous(), scale=camp[:, 0].contiguous())
-    return BAResult(cams=cams_f, points=pT.T[:T], cost=final[bk.COST],
-                    initial_cost=final[bk.INIT_COST], iterations=final[bk.ITERS].to(torch.int32))
+    res = BAResult(cams=cams_f, points=pT.T[:T], cost=final[bk.COST],
+                   initial_cost=final[bk.INIT_COST], iterations=final[bk.ITERS].to(torch.int32))
+    if recorder is not None:
+        recorder.add(len(cams), config.max_iterations, res.iterations, time.perf_counter() - t0)
+    return res
+
+
+def reprojection_errors(cams: cam_mod.CameraSet, points4, obs, mask):
+    """Per-observation euclidean reprojection errors (T, V), 0 where masked:
+    the evaluateReprojectionError analog
+    (reference: OrthographicReconstructionAlgorithm.cpp:204-223)."""
+    r = cam_mod.project(cams, points4).permute(1, 0, 2) - obs
+    return torch.where(mask, torch.linalg.vector_norm(r, dim=-1), obs.new_zeros(()))
+
+
+def run_even_odd(cams: cam_mod.CameraSet, points4, obs, mask,
+                 optimize_points: bool = True,
+                 config: BundleAdjustConfig = BundleAdjustConfig(),
+                 fix_first_two: bool = False) -> BAResult:
+    """Alternating even/odd-camera bundle adjustment
+    (reference: bundle_adjustment.cpp:163-198 runEvenOddBundleAdjustment,
+    present in the reference API though its call sites are commented out).
+
+    Fixes the even cameras and solves; fixes the odd ones and solves;
+    restores the original fixed flags (plus, optionally, the first two) and
+    solves once more. Each solve is `run`, so it takes the kernels where
+    `run` does; the iterations are summed."""
+    idx = torch.arange(len(cams), device=cams.device)
+    first_two = (idx < 2) & fix_first_two
+    even = (idx % 2 == 0) | first_two
+    r1 = run(cams.replace(fixed=even), points4, obs, mask, optimize_points, config)
+    odd = (idx % 2 != 0) | first_two
+    r2 = run(r1.cams.replace(fixed=odd), r1.points, obs, mask, optimize_points, config)
+    r3 = run(r2.cams.replace(fixed=cams.fixed | first_two), r2.points, obs, mask,
+             optimize_points, config)
+    return BAResult(cams=r3.cams, points=r3.points, cost=r3.cost,
+                    initial_cost=r1.initial_cost,
+                    iterations=r1.iterations + r2.iterations + r3.iterations)

@@ -138,25 +138,14 @@ def normal_eq_schur_ref(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_
     views."""
     pT, rot, camp = (current(x, state_in) for x in (pT, rot, camp))
     lam = state_in[LAM]
-    V, T = obsT.shape[0], obsT.shape[2]
     R, dS = ba.rotation_tensors(kind, rot)
     blocks = ba._residuals_and_jacobians(kind, R, dS, camp, pT, obsT, maskT != 0, huber_delta)
     U, Wc, Vt, g_c, g_p = ba.normal_equations(blocks, free)
     V_inv = ba.damped_point_inverse(Vt, lam, optimize_points)
-    WVi = (Wc[:, :, 0, None, :] * V_inv[None, None, 0] +
-           Wc[:, :, 1, None, :] * V_inv[None, None, 1] +
-           Wc[:, :, 2, None, :] * V_inv[None, None, 2])  # (V, 6, 3, T)
-    X = WVi.reshape(V * 6, 3 * T)
-    Y = Wc.reshape(V * 6, 3 * T)
-    ar = torch.arange(V, device=pT.device)
-    S = pT.new_zeros((V, 6, V, 6))
-    S[ar, :, ar, :] = U
-    S = S.reshape(V * 6, V * 6) - X @ Y.T
-    dU = torch.diagonal(U, dim1=1, dim2=2).reshape(V * 6)
-    rhs = g_c.reshape(V * 6) - X @ g_p.reshape(3 * T)
+    S, dU, rhs, _ = ba.reduce_camera_system(U, Wc, g_c, g_p, V_inv)
     if out is None:
         return S, dU, rhs
-    views = schur_views(out, 6 * V)
+    views = schur_views(out, S.shape[0])
     for dst, src in zip(views, (S, dU, rhs)):
         dst.copy_(src)
     return views

@@ -1,0 +1,178 @@
+"""Device timers and the kernels' standard inputs on the card: what
+chip_smoke.py's kernel checks and the kernel scripts (scripts/
+torch_roofline.py, torch_k3_routes.py, torch_ba_kernel_turns.py,
+torch_top2_turns.py) time with and time on, so that each times the same
+thing the same way. The work counts beside these times are
+orthosfm_torch/utils/roofline.py's.
+
+This module imports nothing of orthosfm_torch at its top: the scripts that
+time another tree in turns load this file by its path and import that
+tree's package.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+# cuda_ms's sleep: cycles of torch.cuda._sleep per second (above the H100's
+# 1.98 GHz boost clock, so the sleep lasts at least as long as asked)
+SLEEP_CYCLES_PER_S = 2.0e9
+# The LM rule of the standard problem's steps: lambda_0, function tolerance,
+# lambda up and down factors, lambda's floor and ceiling
+LM_CFG_ARGS = (1e-4, 1e-6, 4.0, 0.5, 1e-12, 1e8)
+
+
+def cuda_ms(fn, n=20):
+    """Mean device time of fn() over n launches, by CUDA events. The card
+    first sleeps while the host enqueues all n calls, so the events time the
+    device's work and not the host's pace (the wrappers' Python takes tens
+    of microseconds a call, more than several kernels run)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * n * host_s + 1e-3, 2.0) * SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_ms(fn, n=20):
+    """Mean host time of fn() over n calls, none of which waits on the card:
+    the enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return t
+
+
+def stage_inputs(kind, device, num_views, n_tracks, width=2048.0):
+    """The standard problem's (pT, obsT, maskT, rot, camp, free) at a size
+    (testbench.problems.make_problem, ba.prepare)."""
+    from orthosfm_torch.core import cameras as cam_mod
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.testbench.problems import make_problem
+
+    cams, points, obs, mask = make_problem(kind, device, num_views, n_tracks, width)
+    pT, obsT, maskT = ba.prepare(points, obs, mask)
+    return (pT, obsT, maskT, cams.rot.contiguous(), ba.pack_camp(cams),
+            cam_mod.free_mask(cams).float().contiguous())
+
+
+def lm_inputs(inputs):
+    """The stage inputs with the points and cameras as fresh LM buffers."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    pT, obsT, maskT, rot, camp, free = inputs
+    p2, r2, c2 = bk.lm_buffers(pT, rot, camp)
+    return p2, obsT, maskT, r2, c2, free
+
+
+def camera_step(solve, kind, S, dU, rhs, free, lam, rot, camp):
+    """One camera solve (K3 or its plain version) at lambda `lam` from fresh
+    LM buffers of rot and camp: (delta, candidate rot, candidate camp)."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    r2, c2 = bk.lm_buffers(rot, camp)
+    delta = solve(kind, S, dU, rhs, free, bk.new_state(lam, rot.device), r2, c2)
+    return delta, r2[1], c2[1]
+
+
+def k2_stage(kind, inputs, opt, rot_c, camp_c, plain, split=False):
+    """K2 with its accept tail (or its plain version; or in split mode) on
+    LM buffers whose half 0 holds the current cameras and points and half 1
+    the candidate cameras."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    p2, obsT, maskT, r2, c2, free = lm_inputs(inputs)
+    r2[1], c2[1] = rot_c, camp_c
+    return bk.PointUpdateCost(kind, p2, obsT, maskT, r2, c2, free, 1.0, opt,
+                              bk.LMConfig(*LM_CFG_ARGS), plain=plain, split=split), (p2, r2, c2)
+
+
+def time_ba_kernels(inputs):
+    """K1, K3 and K2 with its accept tail at one shape (quat, points
+    optimized, lambda 1e-3): kernel, plain and, for K3,
+    torch.linalg.solve_ex alone on the same prepared system, with each one's
+    bound from this problem's mask; and the tail alone (lm_accept): K2's
+    time less K2's without the tail, beside lm_accept_ref."""
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.roofline import ba_work, bound
+
+    pT, obsT, maskT, rot, camp, free = inputs
+    state = bk.new_state(1e-3, pT.device)
+    lm = lm_inputs(inputs)
+    args = ("quat", *lm, state, 1.0, True)
+    S_r, dU_r, rhs_r = bk.normal_eq_schur_ref(*args)
+    # K3 writes the candidate into half 1 of the buffers, which K1 never reads
+    sargs = ("quat", S_r, dU_r, rhs_r, free, state, lm[3], lm[4])
+    S_s, b, _ = ba.prepare_camera_system(S_r, dU_r, rhs_r, free, state[bk.LAM])
+    delta, rot_c, camp_c = camera_step(bk.camera_solve_ref, "quat", S_r, dU_r, rhs_r, free, 1e-3,
+                                       rot, camp)
+    kernel, _ = k2_stage("quat", inputs, True, rot_c, camp_c, False)
+    plain, _ = k2_stage("quat", inputs, True, rot_c, camp_c, True)
+    s_in = bk.new_state(1e-3, pT.device)
+    s_in[bk.COST] = 1e30
+    s_out = torch.zeros_like(s_in)
+    parts = plain(s_in, None, delta)
+    acc_args = (parts, s_in, s_out, rot.clone(), camp.clone(), pT.clone(), rot_c, camp_c,
+                pT.clone(), bk.LMConfig(*LM_CFG_ARGS))
+    work = ba_work(maskT, True)
+    n = 30 if maskT.shape[0] <= 16 else 10 if maskT.shape[0] <= 64 else 5
+    out = {}
+    for name, kern, plain_fn, lib in (
+            ("schur_assemble", lambda: bk.schur_assemble(*args),
+             lambda: bk.normal_eq_schur_ref(*args), None),
+            ("camera_solve", lambda: bk.camera_solve(*sargs), lambda: bk.camera_solve_ref(*sargs),
+             lambda: torch.linalg.solve_ex(S_s, b)),
+            ("point_update_cost", lambda: kernel(s_in, s_out, delta),
+             lambda: plain(s_in, s_out, delta), None)):
+        b_ms, b_by = bound(*work[name])
+        out[name] = {"ms": cuda_ms(kern, n), "plain_ms": cuda_ms(plain_fn, n),
+                     "plain_host_ms": host_ms(plain_fn, n),
+                     "library_ms": cuda_ms(lib, n) if lib else None,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    no_tail = cuda_ms(lambda: kernel(s_in, None, delta), n)
+    split, _ = k2_stage("quat", inputs, True, rot_c, camp_c, False, split=True)
+    cost = split(s_in, None, delta)
+    cfg = bk.LMConfig(*LM_CFG_ARGS)
+    b_ms, b_by = bound(*work["lm_accept"])
+    # K4's own launch (the sharded LM's accept) and the rule folded into
+    # K2's last CTA (K2's time less K2's without the tail)
+    out["lm_accept"] = {"ms": cuda_ms(lambda: bk.lm_accept(cost, s_in, s_out, cfg), n),
+                        "tail_ms": out["point_update_cost"]["ms"] - no_tail,
+                        "point_update_cost_without_tail_ms": no_tail,
+                        "plain_ms": cuda_ms(lambda: bk.lm_accept_ref(*acc_args), n),
+                        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def random_top2_set(device, D, n=8192):
+    """Random unit descriptors, 11 views x n rows x D, and 8 pairs of them
+    (bi, bj, counts i, counts j): exact ties (every database row of view 3
+    twice, view 2's queries equal to duplicated rows, view 1 against itself
+    with repeated rows), a ragged pair, databases of 0 and 1 valid rows and
+    a short query side."""
+    gen = torch.Generator(device=device).manual_seed(0 if D == 128 else 1)
+    stack = torch.randn((11, n, D), generator=gen, device=device)
+    stack /= torch.linalg.vector_norm(stack, dim=-1, keepdim=True)
+    stack[3, n // 2:] = stack[3, :n // 2]
+    stack[2, :n // 4] = stack[3, :n // 4]
+    stack[1, n - 100:] = stack[1, 100:200]
+    pairs = [(0, 1, n, n), (2, 3, n, n), (4, 5, n - 37, n - 100), (6, 7, n, 0),
+             (8, 9, n, 1), (1, 1, n, n), (10, 2, n // 8, n), (3, 0, n, n // 2 + 1)]
+    return stack, [torch.tensor(c, dtype=torch.int32, device=device) for c in zip(*pairs)]

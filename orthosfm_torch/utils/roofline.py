@@ -1,0 +1,68 @@
+"""Work counts of the port's kernels and the least time the card could take
+for them: the one count that chip_smoke.py's kernels line and
+scripts/torch_roofline.py both read.
+
+Peaks are the H100 SXM data sheet's (dense, at its 700 W limit): f32
+outside the tensor cores and HBM3 bandwidth. A kernel's bound is the larger
+of its operations over the f32 peak and its bytes over the bandwidth, each
+input read once and each output written once, counting the work these
+inputs need (the observations a mask holds, the valid rows of a pair).
+"""
+
+from __future__ import annotations
+
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+# FMA per observation besides the Schur term, counted from the plain
+# versions' formulas: K1 projection and Jacobians (~60), the point block and
+# gradient (18), U's upper triangle (42), W = w Jc^T Jp (36), W V^-1 (54) and
+# the rhs (30); K2 the Jacobians (~60), point block (18), W^T dc (24) and the
+# projection and robust cost through the candidate cameras (~18)
+K1_OBS_FMA = 240
+K2_OBS_FMA = 120
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    `flops` f32 operations over `nbytes` bytes moved."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def camera_solve_work(num_views: int):
+    """(flops, bytes) of K3 on the (6V)² system: a Cholesky factorization
+    and two triangular solves, n³/6 + n² FMA; S, dU, rhs and delta, the
+    state and the cameras' rot, camp and free read or written once."""
+    n = 6 * num_views
+    return 2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 4 * (6 + 4 + 8) * num_views
+
+
+def ba_work(maskT, opt):
+    """(flops, bytes) of K1, K3, K2 (with its accept tail) and K4 on this
+    problem, counting the observations the mask holds (m_t views of track
+    t): the Schur term is the symmetric half of a rank-3 update of the
+    (6 m_t)-square block per track, 3 (6m)(6m+1)/2 FMA; the per-observation
+    block math is counted as K1_OBS_FMA and K2_OBS_FMA. Each input is read
+    once, each output written once; K4 lm_accept reads the summed cost and
+    a state slot and writes the other."""
+    V, T = maskT.shape
+    n = 6 * V
+    m = (maskT != 0).sum(dim=0).double()
+    n_obs = float(m.sum())
+    schur = float((3 * (6 * m) * (6 * m + 1) / 2).sum()) if opt else 0.0
+    inputs = 16 * T + 12 * V * T + 72 * V  # pT, obsT + maskT, rot + camp + free
+    k1 = (2 * (schur + K1_OBS_FMA * n_obs), inputs + 4 * (n * n + 2 * n))
+    # the step, the candidate cameras, the new points, the state in and out
+    k2 = (2 * K2_OBS_FMA * n_obs, inputs + 4 * 6 * V + 48 * V + 16 * T + 2 * 32)
+    return {"schur_assemble": k1, "camera_solve": camera_solve_work(V),
+            "point_update_cost": k2, "lm_accept": (0.0, 4 + 2 * 32)}
+
+
+def top2_work(stack, ci, cj):
+    """(flops, bytes) of one product per pair, both directions' outputs: 2 D
+    FMA operations per (query, database) pair of valid rows; each valid
+    descriptor read once, the six (pairs, N) outputs written once."""
+    N, D = stack.shape[1:]
+    ci, cj = ci.double().cpu(), cj.double().cpu()
+    return (2.0 * float((ci * cj).sum()) * D,
+            4.0 * (float((ci + cj).sum()) * D + 6 * ci.shape[0] * N))

@@ -33,10 +33,12 @@ SHAPES = ((3, 7800), (16, 8192), (64, 4096))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _smoke():
-    """This checkout's chip_smoke module (for its timer), whichever tree is
-    being timed."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+def _bench():
+    """This checkout's orthosfm_torch/utils/kernel_bench.py (its timer),
+    whichever tree is being timed, loaded by its path: an older tree may
+    not have it."""
+    path = os.path.join(REPO, "orthosfm_torch", "utils", "kernel_bench.py")
+    spec = importlib.util.spec_from_file_location("kernel_bench", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -93,7 +95,7 @@ def time_tree(tree):
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda:0")
     bk.library()
-    cuda_ms = _smoke().cuda_ms
+    cuda_ms = _bench().cuda_ms
 
     def profile(fn, n):
         """Device microseconds per call of each kernel fn launches

@@ -19,7 +19,6 @@ and one JSON object; needs CUDA.
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -29,15 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def _smoke():
-    """chip_smoke.py of this checkout, for its timer."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def time_routes(num_views, n_tracks, smoke):
+def time_routes(num_views, n_tracks):
     """{route: {"ms", "rel_err_f64"}} and solve_ex's time and the plain
     LU's error at V = num_views."""
     import torch
@@ -46,6 +37,7 @@ def time_routes(num_views, n_tracks, smoke):
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
     from orthosfm_torch.testbench.problems import make_problem
+    from orthosfm_torch.utils.kernel_bench import cuda_ms
 
     dev = torch.device("cuda")
     cams, points, obs, mask = make_problem("quat", dev, num_views, n_tracks)
@@ -73,10 +65,10 @@ def time_routes(num_views, n_tracks, smoke):
 
         delta = call()
         torch.cuda.synchronize()
-        out[route] = {"ms": smoke.cuda_ms(call, n_time), "rel_err_f64": rel(delta)}
+        out[route] = {"ms": cuda_ms(call, n_time), "rel_err_f64": rel(delta)}
     S_s, b, _ = ba.prepare_camera_system(S, dU, rhs, free, state[bk.LAM])
     plain = bk.camera_solve_ref("quat", S, dU, rhs, free, state, r2, c2)
-    return out, {"solve_ex_ms": smoke.cuda_ms(lambda: torch.linalg.solve_ex(S_s, b), n_time),
+    return out, {"solve_ex_ms": cuda_ms(lambda: torch.linalg.solve_ex(S_s, b), n_time),
                  "plain_rel_err_f64": rel(plain), "auto": bk.camera_solve_route(num_views)}
 
 
@@ -96,10 +88,9 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     print(card)
-    smoke = _smoke()
     rows = {}
     for V in args.views:
-        routes, other = time_routes(V, args.tracks, smoke)
+        routes, other = time_routes(V, args.tracks)
         rows[V] = {"routes": routes, **other}
         times = "   ".join(f"{r} {t['ms']:.4f} ms (rel err {t['rel_err_f64']:.2e})"
                            for r, t in routes.items())

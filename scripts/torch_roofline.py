@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Speed-of-light accounting of the port's four kernels on one H100: the
+counterpart of scripts/roofline.py (the JAX package's TPU roofline) and of
+scripts/ablate_ba_fused.py (the port has no single-kernel LM to ablate; its
+counterpart is the per-stage table of one LM iteration below).
+
+For each kernel it takes the FLOP and byte counts of orthosfm_torch/utils/
+roofline.py (the count chip_smoke.py's kernels line reads) at this run's
+inputs, its device time (CUDA events) on the standard inputs of
+orthosfm_torch/utils/kernel_bench.py (chip_smoke.py's phase 2 times with
+the same functions), and reports the
+achieved TFLOP/s and GB/s against the card's f32 peak (67 TFLOP/s) and HBM
+bandwidth (3.35 TB/s), and the share of the bound it reaches:
+  - K1 schur_assemble, K3 camera_solve, K2 point_update_cost with its accept
+    tail and K4 lm_accept's own launch, at 16 x 8192 (make_problem(), the
+    standard BA problem), 64 x 4096 and 64 x 50000 (the many-view run's
+    global BA), quaternion cameras, points optimized;
+  - top2 on 8 pairs of random unit descriptors, 8192 x 128, both directions
+    from one launch.
+The per-stage table of one LM iteration at each BA shape puts K1 + K3 + K2's
+device time beside the host's enqueue time an iteration and ba.run's wall
+time an iteration (30 iterations, function_tolerance 0): whichever is larger
+sets BA's pace.
+
+    python3 scripts/torch_roofline.py [--json OUT]
+
+Needs a CUDA device; prints the card's name and power limit first.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+BA_SHAPES = ((16, 8192), (64, 4096), (64, 50000))
+LM_ITERATIONS = 30
+
+
+def row(name, flops, nbytes, ms):
+    from orthosfm_torch.utils.roofline import F32_FLOPS, HBM_BYTES, bound
+
+    b_ms, b_by = bound(flops, nbytes)
+    return {"kernel": name, "flops": flops, "bytes": nbytes, "ms": ms,
+            "tflops": flops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6,
+            "pct_f32_peak": 100.0 * flops / ms / 1e-3 / F32_FLOPS,
+            "pct_hbm": 100.0 * nbytes / ms / 1e-3 / HBM_BYTES,
+            "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / ms}
+
+
+def lm_iteration(device, num_views, n_tracks):
+    """ba.run on the kernels, LM_ITERATIONS iterations that all do work:
+    (wall ms an iteration, host enqueue ms an iteration)."""
+    import torch
+
+    from orthosfm_torch.config import BundleAdjustConfig
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.testbench.problems import make_problem
+    from orthosfm_torch.utils import profiling
+
+    args = make_problem("quat", device, num_views, n_tracks, 2048.0)
+    cfg = BundleAdjustConfig(max_iterations=LM_ITERATIONS, function_tolerance=0.0,
+                             min_lambda=1e-12, impl="kernel")
+    ba.run(*args, True, cfg)
+    torch.cuda.synchronize()
+    recorder = profiling.BARecorder()
+    t0 = time.perf_counter()
+    with recorder.recording():
+        res = ba.run(*args, True, cfg)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / LM_ITERATIONS
+    if int(res.iterations) != LM_ITERATIONS:
+        raise AssertionError(f"{num_views}x{n_tracks}: {int(res.iterations)} iterations")
+    return wall, recorder.summary()["enqueue_ms_per_it"]
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--json", default="")
+    args = p.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_roofline: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi)
+    from orthosfm_torch.ops import matching_kernels as mk
+    from orthosfm_torch.utils.kernel_bench import (cuda_ms, random_top2_set, stage_inputs,
+                                                   time_ba_kernels)
+    from orthosfm_torch.utils.roofline import F32_FLOPS, HBM_BYTES, ba_work, top2_work
+
+    device = torch.device("cuda:0")
+    out = {"card": smi, "peaks": {"f32_flops": F32_FLOPS, "hbm_bytes_per_s": HBM_BYTES},
+           "ba": {}, "lm_iteration": {}}
+    head = (f"{'kernel':18s} {'shape':9s} {'GFLOP':>9s} {'MB':>9s} {'ms':>9s} {'TFLOP/s':>8s} "
+            f"{'GB/s':>8s} {'%f32':>6s} {'%HBM':>6s} {'bound ms':>9s} {'by':10s} {'%bound':>7s}")
+    print(head)
+    for num_views, n_tracks in BA_SHAPES:
+        label = f"{num_views}x{n_tracks}"
+        inputs = stage_inputs("quat", device, num_views, n_tracks)
+        times = time_ba_kernels(inputs)
+        work = ba_work(inputs[2], True)
+        rows = [row(name, *work[name], times[name]["ms"])
+                for name in ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")]
+        out["ba"][label] = rows
+        for r in rows:
+            print(f"{r['kernel']:18s} {label:9s} {r['flops'] / 1e9:9.4f} {r['bytes'] / 1e6:9.3f} "
+                  f"{r['ms']:9.4f} {r['tflops']:8.3f} {r['gb_per_s']:8.1f} "
+                  f"{r['pct_f32_peak']:6.2f} {r['pct_hbm']:6.2f} {r['bound_ms']:9.5f} "
+                  f"{r['bound_by']:10s} {r['pct_of_bound']:7.2f}")
+        wall, enqueue = lm_iteration(device, num_views, n_tracks)
+        device_ms = sum(times[k]["ms"] for k in ("schur_assemble", "camera_solve",
+                                                 "point_update_cost"))
+        out["lm_iteration"][label] = {
+            "schur_assemble_ms": times["schur_assemble"]["ms"],
+            "camera_solve_ms": times["camera_solve"]["ms"],
+            "point_update_cost_with_tail_ms": times["point_update_cost"]["ms"],
+            "device_ms": device_ms, "host_enqueue_ms": enqueue, "ba_run_ms": wall,
+            "paced_by": "host" if enqueue > device_ms else "device"}
+    stack, cols = random_top2_set(device, 128)
+    t_ms = cuda_ms(lambda: mk.top2(stack, *cols, impl="kernel"), 20)
+    out["top2"] = row("top2", *top2_work(stack, cols[2], cols[3]), t_ms)
+    r = out["top2"]
+    print(f"{'top2':18s} {'8x8192':9s} {r['flops'] / 1e9:9.4f} {r['bytes'] / 1e6:9.3f} "
+          f"{r['ms']:9.4f} {r['tflops']:8.3f} {r['gb_per_s']:8.1f} {r['pct_f32_peak']:6.2f} "
+          f"{r['pct_hbm']:6.2f} {r['bound_ms']:9.5f} {r['bound_by']:10s} "
+          f"{r['pct_of_bound']:7.2f}")
+    print("one LM iteration (ms): K1, K3, K2 + tail, their sum on the device, the host's "
+          "enqueue, ba.run's wall")
+    for label, t in out["lm_iteration"].items():
+        print(f"  {label:9s} {t['schur_assemble_ms']:.4f} {t['camera_solve_ms']:.4f} "
+              f"{t['point_update_cost_with_tail_ms']:.4f} = {t['device_ms']:.4f} device; "
+              f"enqueue {t['host_enqueue_ms']:.4f}; ba.run {t['ba_run_ms']:.4f} "
+              f"({t['paced_by']}-paced)")
+    print(json.dumps(out))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+            f.write("\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,8 +38,19 @@ CASES = ("sift", "surf", "random_128", "random_64")
 
 
 def _smoke():
-    """This checkout's chip_smoke module (its timer, bound and inputs)."""
+    """This checkout's chip_smoke module (phase 5's scene)."""
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bench():
+    """This checkout's orthosfm_torch/utils/kernel_bench.py (its timer and
+    the random sets), whichever tree is being timed, loaded by its path: an
+    older tree may not have it."""
+    path = os.path.join(REPO, "orthosfm_torch", "utils", "kernel_bench.py")
+    spec = importlib.util.spec_from_file_location("kernel_bench", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -56,7 +67,7 @@ def make_inputs(path):
     for kind, (stack, cols) in smoke.front_end_stacks(dev).items():
         cases[kind] = (stack, *cols)
     for D in (128, 64):
-        stack, cols = smoke.random_top2_set(dev, D)
+        stack, cols = _bench().random_top2_set(dev, D)
         cases[f"random_{D}"] = (stack, *cols)
     torch.save({k: [t.cpu() for t in v] for k, v in cases.items()}, path)
 
@@ -94,7 +105,7 @@ def time_tree(tree, inputs):
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda:0")
     mk.library()
-    cuda_ms = _smoke().cuda_ms
+    cuda_ms = _bench().cuda_ms
     data = torch.load(inputs)
     out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
     for case in CASES:

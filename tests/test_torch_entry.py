@@ -251,3 +251,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "orthosfm_tpu"), \
                     f"{path.relative_to(root)} imports {name}"
+
+
+def test_gt_cameras_run_on_cuda_unless_asked(monkeypatch):
+    """synthetic.generate_gt_cameras defaults to CUDA, as generate_dataset
+    does: without a card it raises, naming device="cpu"; asked for the CPU
+    it gives the JAX package's cameras."""
+    from orthosfm_tpu.data import synthetic as jsyn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        synthetic.generate_gt_cameras(4)
+    gt = synthetic.generate_gt_cameras(4, seed=3, device="cpu")
+    ref = jsyn.generate_gt_cameras(4, seed=3)
+    assert gt.rot.device.type == "cpu"
+    np.testing.assert_allclose(gt.rot.numpy(), np.asarray(ref.rot), rtol=0, atol=1e-6)

@@ -157,6 +157,59 @@ def test_surf_matches_jax(grays, jax_features):
     _assert_features_agree(jax_features[1], surf.extract_batch(grays), 30)
 
 
+def test_single_view_extraction_is_the_batch_of_one(grays):
+    """sift.extract and surf.extract are extract_batch at V = 1, bit for bit,
+    as in the JAX package."""
+    g = grays[1]
+    for one, batch in ((sift.extract(g), sift.extract_batch(g[None])),
+                       (surf.extract(g), surf.extract_batch(g[None]))):
+        assert type(one) is type(batch)
+        for name, a, b in zip(one._fields, one, batch):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b[0]), err_msg=name)
+        assert one.valid.sum() > 10
+
+
+def test_extract_view_features_matches_jax(scene):
+    """pipeline.matching.extract_view_features: the batch of one view of the
+    pipeline's extraction, against the JAX package's features of that view
+    (the SIFT / SURF bar above: 97% of the features within 0.01 px)."""
+    _, jviews, pviews = scene
+    cfg = ReconstructionConfig()
+    got = pipe.extract_view_features(pviews[1], cfg, "cpu")
+    one = pipe.extract_all_view_features([pviews[1]], cfg, "cpu")[0]
+    np.testing.assert_array_equal(got.xy, one.xy)
+    assert torch.equal(got.sift_desc, one.sift_desc) and torch.equal(got.surf_desc, one.surf_desc)
+    ref = jpipe.extract_all_view_features(jviews, JConfig())[1]
+    assert abs(got.count - ref.count) <= 0.03 * ref.count and got.count > 20
+    dist = np.abs(got.xy[:, None, :] - np.asarray(ref.xy)[None]).max(-1).min(1)
+    assert (dist <= 0.01).sum() >= 0.97 * ref.count
+
+
+def test_stage_names_match_jax(scene):
+    """build_tracks under collect_stages records the JAX package's stage
+    names for the same views (no low-res gate at 160^2: fewer than 10^6
+    feature pairs)."""
+    from orthosfm_tpu.utils import profiling as jprof
+
+    from orthosfm_torch.utils import profiling
+
+    _, jviews, pviews = scene
+    ref, got = {}, {}
+    with jprof.collect_stages(ref):
+        jpipe.build_tracks(jviews, JConfig(), verbose=False)
+    with profiling.collect_stages(got, "cpu"):
+        pipe.build_tracks(pviews, ReconstructionConfig(), verbose=False, device="cpu")
+    assert set(got) == set(ref)
+    assert {"extract/sift", "sift/pyramid_detect", "match/verify_ransac",
+            "tracks/union_find", "tracks/assemble"} <= set(got)
+
+
+def test_filter_duplicate_tracks_returns_its_input():
+    tracks = object()
+    assert pipe.filter_duplicate_tracks(tracks) is tracks
+    assert jpipe.filter_duplicate_tracks(tracks) is tracks
+
+
 def test_top_k_first_ranks_like_lax_top_k():
     score = np.array([[0.5, -1.0, 0.5, 2.0, 0.0, 2.0, 0.5, -1.0]], np.float32)
     vals, idx = sift.top_k_first(torch.as_tensor(score), 5)

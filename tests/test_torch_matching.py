@@ -123,3 +123,37 @@ def test_front_end_defaults_to_cuda_and_names_the_cpu(call, monkeypatch):
             "tracks_from_matches": (views, [], [])}[call]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         getattr(pipe, call)(*args)
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+def test_match_pair_matches_both_jax_routes(route, monkeypatch):
+    """ops.matching.match_pair against the JAX package's two single-pair
+    routes, _match_pair_xla and _match_pair_pallas (its kernel interpreted),
+    on 300 descriptors of which 240 are noisy copies of the other view's.
+    Rows whose best and second d2 lie within NEAR_TIE (either direction, at
+    the row or at the column it names) are exempt."""
+    from orthosfm_tpu.ops import matching as jmatch
+
+    monkeypatch.setattr(jpl, "pallas_call", functools.partial(jpl.pallas_call, interpret=True))
+    rng = np.random.default_rng(5)
+    d1 = rng.normal(size=(N, 128)).astype(np.float32)
+    d2 = d1[rng.permutation(N)] + 0.3 * rng.normal(size=(N, 128)).astype(np.float32)
+    d2[240:] = rng.normal(size=(N - 240, 128))
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    v1, v2 = np.arange(N) < 270, np.ones(N, bool)
+    fn = jmatch._match_pair_xla if route == "xla" else jmatch._match_pair_pallas
+    ref = np.asarray(fn(jnp.asarray(d1), jnp.asarray(v1), jnp.asarray(d2), jnp.asarray(v2)))
+    got = match_ops.match_pair(torch.as_tensor(d1), torch.as_tensor(v1), torch.as_tensor(d2),
+                               torch.as_tensor(v2)).numpy()
+
+    def near(a, va, b, vb):
+        d2_ = np.where(vb[None, :], np.maximum(2.0 - 2.0 * a @ b.T, 0.0), 4.0)
+        top = np.sort(d2_, axis=1)[:, :2]
+        return va & ((top[:, 1] - top[:, 0]) <= NEAR_TIE)
+
+    near12, near21 = near(d1, v1, d2, v2), near(d2, v2, d1, v1)
+    exempt = near12 | ((ref >= 0) & near21[np.clip(ref, 0, N - 1)]) | (
+        (got >= 0) & near21[np.clip(got, 0, N - 1)])
+    np.testing.assert_array_equal(got[~exempt], ref[~exempt])
+    assert int((got >= 0).sum()) >= 200 and exempt.sum() <= 3

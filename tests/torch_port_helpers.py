@@ -147,3 +147,10 @@ def rank_world3(mesh, problem, ba_config, tk_args):
     padded to a multiple of 3) and the sharded TK (its 241 hypotheses
     padded to 243)."""
     return {"ba": sharded_ba(mesh, problem, ba_config), "tk": sharded_tk(mesh, **tk_args)}
+
+
+def rank_dryrun(mesh):
+    """parallel.dryrun.dryrun_multichip on this rank."""
+    from orthosfm_torch.parallel import dryrun
+
+    return dryrun.dryrun_multichip(mesh, verbose=False)
