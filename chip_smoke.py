@@ -32,23 +32,32 @@ Phases:
      views and databases
      of 0 and 1 valid rows, against its plain version, a second run and
      the swapped pair table (bit for bit), timed beside its plain version,
-     with the host's time a call;
+     with the host's time a call; then lm_fused, the whole LM solve in one
+     cooperative launch (ba.run's route up to 37 views), against the
+     per-iteration kernels bit for bit (cameras, points, cost, initial
+     cost, iterations) at 3 x 7800, 16 x 8192, 3 x 50 000 and 37 x 2048,
+     both camera kinds, points optimized and fixed, camera 0 fixed, with
+     the main path's BA config and in a run with rejected steps; against
+     lm_solve_ref (one iteration at the JAX package's tolerances for its
+     fused kernel, and to convergence), and all three timed at each shape;
   3. pose estimation from tracks (run_pose_estimation with the kernels) on
      the 16-view 2048^2 blob scene (7800 tracks), solvers 0 and 3,
      noise-free (mean angular error < 0.01 deg) and with sigma = 1 px pixel
      noise (< 0.25 deg), with the launch counts of the BA kernels over this
-     phase, the LM iterations that did work and the host's enqueue time per
-     launched iteration, and the port's writers producing cameras.txt,
+     phase (one lm_fused launch a BA, no per-iteration kernel), the LM
+     iterations run by route, and the port's writers producing cameras.txt,
      sparse_cloud.ply, tracks.txt and time_measurements.txt;
-  4. BA iterations/s of the kernel path and of the plain PyTorch path on the
-     standard problem and on a 64-view problem (64 x 4096 tracks), 30
-     iterations each, and the host's enqueue time per iteration;
+  4. BA iterations/s of the fused route (lm_fused), the per-iteration
+     kernels and the plain PyTorch path on the standard problem, and of the
+     last two on a 64-view problem (64 x 4096 tracks), 30 iterations each,
+     in turns, and the host's time per iteration;
   5. the image front end at reference scale: 16 sphere views of 2048^2
      rendered on the card (seed 7, a 200 degree ring), then SIFT + SURF,
      pair matching through top2, RANSAC-F, union-find tracks and pose
      estimation (quaternion solver, kernels on), with the time of each
-     stage, the counts of features, pairs and tracks, and the launch count
-     of top2 over this phase; every view must be placed with a mean angular
+     stage, the counts of features, pairs and tracks, and the launch counts
+     of top2 and the BA kernels over this phase (one lm_fused a BA); every
+     view must be placed with a mean angular
      error < 1 deg. Then top2 against its plain version on the real SIFT and
      SURF stacks of this run, both directions, with the cross-checked match
      counts per pair, timed beside the plain version and torch.bmm of the
@@ -57,8 +66,8 @@ Phases:
      --solvers all --repetitions 1 at width 320, the whole dataset_matrix
      (10 rendered datasets, 21 (dataset, solver) cells, in process), every
      cell's mean angular error < 1 deg, printed beside the JAX package's
-     docs/results.csv, with the launch counts of K1, K3, K2 and top2 over
-     the run (the testbench's path); then
+     docs/results.csv, with the launch counts of lm_fused (one a BA) and
+     top2 over the run (the testbench's path); then
      the noise sweep at its full size (Cube, Sphere, Suzanne; 16 views, 2048
      tracks; solvers 0 and 3) at 0, 1 and 10 px (< 0.01, < 0.25, < 3 deg, no
      failed entry), beside docs/synthetic_results_r5.csv; then
@@ -84,14 +93,16 @@ Phases:
   9. the many-view reconstruction, the main path of the kernels line
      (testbench/scale_demo.py, the JAX package's scripts/scale_demo.py):
      64 views x 50 000 blob tracks at 1 px through run_pose_estimation
-     with the kernels (62 local BAs, K3 by its warp route, and 21 global
-     BAs over all 64 cameras, K3 by its cluster route), every view placed
-     with a mean angular error < 0.05 deg and a max < 0.1 deg, with the
-     launches of K1, K3 (by route) and K2, the BAs run and their LM
+     with the kernels (62 local BAs of 3 views, one lm_fused launch each,
+     and 21 global BAs over all 64 cameras, K1, K3 by its cluster route and
+     K2 an iteration), every view placed with a mean angular error
+     < 0.05 deg and a max < 0.1 deg, with the launches of lm_fused, K1, K3
+     (by route) and K2, the BAs run by route and their LM
      iterations, TK's peak device memory and the share of each stage; then
      profile_matching at 16 x 2048^2 (the front end's stage table, top2's
-     launches). Its counts are the kernels line's launches of K1, K3, K2
-     and top2 (launches_phase names the phase of each kernel's count).
+     launches). Its counts are the kernels line's launches of lm_fused, K1,
+     K3, K2 and top2 (launches_phase names the phase of each kernel's
+     count).
 
 Phase 2 also runs K3's grid route at 700, 1100 and 2000 views (n = 4200,
 6600, 12000) beside torch.linalg.solve_ex, held to an f64 solve (no further
@@ -129,6 +140,7 @@ WIDTH = 2048.0
 BA_SOURCE = "orthosfm_torch/csrc/ba_kernels.cu"
 MATCH_SOURCE = "orthosfm_torch/csrc/match_kernels.cu"
 REPLACES = {
+    "lm_fused": "orthosfm_tpu/solvers/ba_fused.py:545",
     "schur_assemble": "orthosfm_tpu/solvers/ba_pallas.py:394",
     "camera_solve": "orthosfm_tpu/solvers/ba_fused.py:545",
     "camera_solve_grid": "orthosfm_tpu/solvers/ba_fused.py:545",
@@ -139,10 +151,14 @@ REPLACES = {
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
-# The unsharded BA (phases 3 to 7 and 9) launches K1, K3 and K2; K4
-# lm_accept's rule runs there in K2's last CTA, and as a launch of its own
-# only in the sharded BA (phase 8), whose count the kernels line gives it.
+# The unsharded BA (ba.run, phases 3 to 7 and 9) launches lm_fused once a BA
+# of up to 37 views, and K1, K3 and K2 an iteration for larger ones (phase
+# 9's 64-view global BAs); K4 lm_accept's rule runs there in K2's last CTA
+# (and in lm_fused), and as a launch of its own only in the sharded BA
+# (phase 8), whose count the kernels line gives it. The kernels line's
+# launches of lm_fused are the wrapper's, lm_solve.
 UNSHARDED_BA = ("schur_assemble", "camera_solve", "point_update_cost")
+LAUNCH_KEY = {"lm_fused": "lm_solve"}
 # K3's grid route (camera_solve_grid in the kernels line): phase 2 at these
 # views of K3_TRACKS tracks, timed at K3_GRID_TIMED; the crossover with the
 # cluster (GRID_MIN_V in the CUDA source)
@@ -167,6 +183,24 @@ BA_SHAPES = ((N_VIEWS, N_TRACKS), (64, 4096))
 # bars; then the front end's stage profile at phase 5's scale
 MANY_VIEWS, MANY_TRACKS, MANY_NOISE_PX = 64, 50000, 1.0
 MANY_LIMIT_MEAN_DEG, MANY_LIMIT_MAX_DEG = 0.05, 0.1
+# lm_fused (the whole LM solve in one launch) against the per-iteration
+# kernels, bit for bit, at the local BA (3 views) of phase 3 and of phase 9,
+# the standard problem and the one-CTA camera solve's edge (37 views); and
+# against its plain version after one iteration at the JAX package's
+# tolerances for its fused kernel (tests/test_ba_fused.py:54-72: f32 both,
+# other sum orders and another solve; the cost sits in a sharp valley)
+LM_FUSED_SHAPES = ((3, 7800), (16, 8192), (3, 50000), (37, 2048))
+# timed at those and at phase 3's size (16 views x 7800 tracks)
+LM_FUSED_TIMED = (*LM_FUSED_SHAPES, (N_VIEWS, 7800))
+# the rejecting run: every free camera's scale 2.5 times too large (pinned,
+# so no step can repair it) and lambda_0 = 1e-8, whose near Gauss-Newton
+# steps overshoot
+LM_REJECT_SCALE, LM_REJECT_LAMBDA0, LM_REJECT_ITERATIONS = 2.5, 1e-8, 10
+TOL_LM_INIT_COST_REL = 1e-5
+TOL_LM_COST_REL = 1e-3
+TOL_LM_ROT_REL, TOL_LM_ROT_ABS = 1e-4, 2e-6
+TOL_LM_OFFSET_ABS = 1e-5
+TOL_LM_POINTS_REL, TOL_LM_POINTS_ABS = 1e-3, 1e-5
 # K1, K3 and K2 are checked and timed at the main paths' shapes: the local
 # BA of a 3-view group (n = 18) at phase 3's 7800 tracks and at phase 9's
 # 50 000, the global BA (make_problem(), n = 96), and many views (n = 384)
@@ -220,6 +254,33 @@ def rel_err(a, b):
 def require(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def require_routes(launches, ba_calls, what):
+    """The routes ba.run took over a phase (launches: ba_kernels'
+    launch_counts(); ba_calls: its BARecorder's summary()): every BA of up to
+    FUSED_MAX_VIEWS views one lm_fused launch and nothing else, every larger
+    one K1, K3 and K2 for each of its max_iterations iterations, none on
+    the plain route."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    routes = ba_calls["by_route"]
+    small = sum(r["ba_calls"] for v, r in ba_calls["by_views"].items()
+                if int(v) <= bk.FUSED_MAX_VIEWS)
+    fused = routes.get("fused", {}).get("ba_calls", 0)
+    per_it = routes.get("kernel", {"ba_calls": 0, "iterations_launched": 0})
+    its = per_it["iterations_launched"]
+    print(f"  {what}: {ba_calls['ba_calls']} BAs, {small} of up to {bk.FUSED_MAX_VIEWS} views; "
+          f"lm_fused launches {launches['lm_solve']} ({fused} fused BAs), per-iteration BAs "
+          f"{per_it['ba_calls']} ({its} iterations: K1 {launches['schur_assemble']}, K3 "
+          f"{launches['camera_solve']}, K2 {launches['point_update_cost']})")
+    require(small > 0 and launches["lm_solve"] == fused == small and "torch" not in routes,
+            f"{what}: lm_fused launches {launches['lm_solve']} for {small} BAs of up to "
+            f"{bk.FUSED_MAX_VIEWS} views ({routes})")
+    require(launches["schur_assemble"] == launches["camera_solve"] == its
+            and launches["point_update_cost"] == its + per_it["ba_calls"]
+            and launches.get("lm_accept", 0) == 0,
+            f"{what}: per-iteration launches {launches} for {per_it}")
 
 
 def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
@@ -404,6 +465,118 @@ def check_many_views(device, errs, rels):
     return time_ba_kernels(inputs)
 
 
+def same_result(a, b):
+    """Two BAResults bit for bit: cameras, points, costs, iterations."""
+    import torch
+
+    return (torch.equal(a.cams.rot, b.cams.rot) and torch.equal(a.cams.offset, b.cams.offset)
+            and torch.equal(a.cams.scale, b.cams.scale) and torch.equal(a.points, b.points)
+            and float(a.cost) == float(b.cost) and float(a.initial_cost) == float(b.initial_cost)
+            and int(a.iterations) == int(b.iterations))
+
+
+def rejecting(cams):
+    """Every free camera's scale LM_REJECT_SCALE times too large (scale is
+    pinned, so no step repairs it): from LM_REJECT_LAMBDA0 some LM steps are
+    rejected (check_lm_fused counts them)."""
+    scale = cams.scale.clone()
+    scale[1:] *= LM_REJECT_SCALE
+    return cams.replace(scale=scale)
+
+
+def check_lm_fused(device):
+    """lm_fused (ba.run's fused route) against the per-iteration kernels,
+    bit for bit (cameras, points, cost, initial cost, iterations) at
+    LM_FUSED_SHAPES, both camera kinds, points optimized and fixed (camera 0
+    fixed, as make_problem fixes it), with the main path's BA config and in
+    a run with rejected steps; against lm_solve_ref at each shape: one
+    iteration to the JAX package's tolerances for its fused kernel
+    (TOL_LM_*), and the main path's config converging like it; then all
+    three timed at LM_FUSED_TIMED (kernel_bench.time_lm_solve). Returns
+    (max abs error of the one-iteration cameras and points, max relative
+    error of its cost, {shape: times}, {shape: bit-for-bit cases})."""
+    import torch
+
+    from orthosfm_torch.config import BundleAdjustConfig
+    from orthosfm_torch.solvers import ba
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.testbench.problems import make_problem
+    from orthosfm_torch.utils.kernel_bench import time_lm_solve
+
+    cfg = BundleAdjustConfig()
+    reject_cfg = dataclasses.replace(cfg, initial_lambda=LM_REJECT_LAMBDA0,
+                                     max_iterations=LM_REJECT_ITERATIONS)
+    err, rel, times, cases = 0.0, 0.0, {}, {}
+    for num_views, n_tracks in LM_FUSED_SHAPES:
+        label = f"{num_views}x{n_tracks}"
+        cases[label] = []
+        for kind in ("quat", "euler"):
+            cams, points, obs, mask = make_problem(kind, device, num_views, n_tracks, WIDTH)
+            runs = [(opt, cams, cfg, "") for opt in (True, False)]
+            runs.append((True, rejecting(cams), reject_cfg, " with rejected steps"))
+            for opt, c, config, note in runs:
+                bk.reset_launch_counts()
+                r_f = ba.run(c, points, obs, mask, opt, dataclasses.replace(config, impl="fused"))
+                launched = bk.launch_counts()
+                r_k = ba.run(c, points, obs, mask, opt, dataclasses.replace(config, impl="kernel"))
+                same = same_result(r_f, r_k)
+                cases[label].append({"kind": kind, "opt": opt, "rejecting": bool(note),
+                                     "iterations": int(r_f.iterations), "bit_for_bit": same})
+                print(f"  lm_fused {label} {kind:5s} opt={opt!s:5s}{note}: {int(r_f.iterations)} "
+                      f"iterations, cost {float(r_f.initial_cost):.6g} -> {float(r_f.cost):.6g}; "
+                      f"bit for bit with the per-iteration kernels: {same}")
+                require(same, f"lm_fused {label} {kind} opt={opt}{note}: not the per-iteration "
+                        f"kernels' bits ({float(r_f.cost)} / {float(r_k.cost)}, "
+                        f"{int(r_f.iterations)} / {int(r_k.iterations)} iterations)")
+                require(launched["lm_solve"] == 1 and launched["schur_assemble"] == 0,
+                        f"lm_fused {label}: launches {launched}")
+                if note:  # the costs after 1, 2, ... iterations: a repeat is a rejected step
+                    costs = [float(r_f.initial_cost)] + [
+                        float(ba.run(c, points, obs, mask, opt, dataclasses.replace(
+                            config, impl="fused", max_iterations=k)).cost)
+                        for k in range(1, config.max_iterations + 1)]
+                    rejected = sum(a == b for a, b in zip(costs, costs[1:]))
+                    cases[label][-1]["rejected_steps"] = rejected
+                    print(f"    steps rejected: {rejected} of {config.max_iterations}")
+                    require(rejected > 0, f"lm_fused {label} {kind}: no step was rejected")
+        # against the plain version: one iteration, then the main path's config
+        cams, points, obs, mask = make_problem("quat", device, num_views, n_tracks, WIDTH)
+        one = BundleAdjustConfig(max_iterations=1, function_tolerance=0.0, min_lambda=1e-12)
+        r_f, r_p = (ba.run(cams, points, obs, mask, True, dataclasses.replace(one, impl=i))
+                    for i in ("fused", "torch"))
+        e_i = rel_err(r_f.initial_cost, r_p.initial_cost)
+        e_c = rel_err(r_f.cost, r_p.cost)
+        e_r = max_err(r_f.cams.rot, r_p.cams.rot)
+        e_o = max_err(r_f.cams.offset, r_p.cams.offset)
+        e_p = max_err(r_f.points, r_p.points)
+        ok = (e_i < TOL_LM_INIT_COST_REL and e_c < TOL_LM_COST_REL
+              and bool(torch.allclose(r_f.cams.rot, r_p.cams.rot, rtol=TOL_LM_ROT_REL,
+                                      atol=TOL_LM_ROT_ABS))
+              and e_o < TOL_LM_OFFSET_ABS
+              and bool(torch.allclose(r_f.points, r_p.points, rtol=TOL_LM_POINTS_REL,
+                                      atol=TOL_LM_POINTS_ABS)))
+        f_full, p_full = (ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl=i))
+                          for i in ("fused", "torch"))
+        like = (float(f_full.cost) < float(f_full.initial_cost) * 1e-2
+                and float(f_full.cost) < float(p_full.cost) * 1.5 + 1e-6)
+        print(f"  lm_fused {label} quat against lm_solve_ref, one iteration: initial cost rel "
+              f"{e_i:.3e}, cost rel {e_c:.3e}, rot {e_r:.3e}, offset {e_o:.3e}, points {e_p:.3e}; "
+              f"to convergence {int(f_full.iterations)} / {int(p_full.iterations)} iterations, "
+              f"cost {float(f_full.cost):.6g} / {float(p_full.cost):.6g}")
+        require(ok and like, f"lm_fused {label}: not within tolerance of lm_solve_ref")
+        err, rel = max(err, e_r, e_o, e_p), max(rel, e_c)
+    for num_views, n_tracks in LM_FUSED_TIMED:
+        label = f"{num_views}x{n_tracks}"
+        t = times[label] = time_lm_solve("quat", device, num_views, n_tracks)
+        print(f"  lm_fused {label}: {t['iterations']} iterations in {t['ms']:.4f} ms "
+              f"({t['ms_per_iteration']:.4f} ms/it, wall {t['wall_ms']:.4f} ms); per-iteration "
+              f"kernels {t['per_iteration_ms']:.4f} ms device, {t['per_iteration_wall_ms']:.4f} ms "
+              f"wall ({t['max_iterations']} enqueued); plain {t['plain_ms']:.2f} ms; bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}), stages' bounds "
+              f"{t['stages_bound_ms']:.5f} ms")
+    return err, rel, times, cases
+
+
 def k3_system(device, num_views):
     """The plain reduced camera system of the standard problem at lambda
     1e-3 (num_views x K3_TRACKS), its LM buffers and its f64 solve."""
@@ -523,7 +696,7 @@ def run_slice(device, project):
     """Phase 3: the main path, pose estimation from tracks with the kernels."""
     import torch
 
-    from orthosfm_torch.config import BundleAdjustConfig, ReconstructionConfig, SolverType
+    from orthosfm_torch.config import ReconstructionConfig, SolverType
     from orthosfm_torch.data import synthetic
     from orthosfm_torch.io import ply, timing, tracks_io
     from orthosfm_torch.pipeline import incremental, reconstruct
@@ -539,8 +712,7 @@ def run_slice(device, project):
             if sigma:
                 tracks = synthetic.add_observation_noise(tracks, sigma,
                                                          np.random.default_rng(solver))
-            cfg = ReconstructionConfig(solver=SolverType(solver),
-                                       ba=BundleAdjustConfig(impl="kernel"))
+            cfg = ReconstructionConfig(solver=SolverType(solver))  # ba.impl "auto"
             t0 = time.perf_counter()
             res = incremental.run_pose_estimation(tracks, wh, wh, cfg, verbose=False)
             torch.cuda.synchronize()
@@ -567,19 +739,25 @@ def run_slice(device, project):
 
 
 def ba_rate(device, num_views, n_tracks, iterations=30):
-    """Phase 4: BA iterations/s of both paths, in turns, and the host's
-    enqueue time per iteration (ba.run's return before the final sync, over
-    its iterations)."""
+    """Phase 4: BA iterations/s of each route, in turns (the fused route
+    where it serves; the per-iteration kernels and the plain versions
+    everywhere), and the host's time per iteration until ba.run returns
+    (before the final sync; the whole solve's launch on the fused route)."""
     import torch
 
     from orthosfm_torch.config import BundleAdjustConfig
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.testbench.problems import make_problem
 
+    from orthosfm_torch.solvers import ba_kernels as bk
+
     cams, points, obs, mask = make_problem("quat", device, num_views, n_tracks, WIDTH)
-    rates = {"kernel": [], "torch": []}
-    enqueue = {"kernel": [], "torch": []}
-    for impl in ("kernel", "torch", "torch", "kernel"):
+    fused = bk.fused_fits(num_views, n_tracks, device)
+    order = ("kernel", "fused", "torch", "torch", "fused", "kernel") if fused else (
+        "kernel", "torch", "torch", "kernel")
+    rates = {impl: [] for impl in order}
+    enqueue = {impl: [] for impl in order}
+    for impl in order:
         cfg = BundleAdjustConfig(max_iterations=iterations, function_tolerance=0.0,
                                  min_lambda=1e-12, impl=impl)
         ba.run(cams, points, obs, mask, True, cfg)
@@ -839,19 +1017,22 @@ def run_testbench(device, root):
     from orthosfm_torch.solvers import ba_kernels as bk
     from orthosfm_torch.testbench import bench_pipeline, synthetic_tests
     from orthosfm_torch.testbench import run as tb_run
+    from orthosfm_torch.utils.profiling import BARecorder
 
     here = os.path.dirname(os.path.abspath(__file__))
     proj, data = os.path.join(root, "proj"), os.path.join(root, "data")
     log = io.StringIO()
     bk.reset_launch_counts()
     mk.top2.launches = 0
+    recorder = BARecorder()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
+    with contextlib.redirect_stdout(log), recorder.recording():
         rc = tb_run.main([proj, data, "--generate", "--solvers", "all", "--repetitions", "1",
                           "--width", str(TESTBENCH_WIDTH)])
     torch.cuda.synchronize()
     t_matrix = time.perf_counter() - t0
     launches = {**bk.launch_counts(), "top2": mk.top2.launches}
+    ba_calls = recorder.summary()
     lines = log.getvalue().splitlines()
     for ln in lines:
         if ln.startswith("Run failed"):
@@ -897,8 +1078,8 @@ def run_testbench(device, root):
     require(not missing, f"testbench: cells missing from results.csv: {missing}")
     worst = max(t["mean_angular_error_deg"] for t in table.values())
     require(worst < TESTBENCH_LIMIT_DEG, f"testbench: a cell's mean angular error is {worst}")
-    for name in (*UNSHARDED_BA, "top2"):
-        require(launches[name] > 0, f"{name} was not launched on the testbench's path")
+    require(launches["top2"] > 0, "top2 was not launched on the testbench's path")
+    require_routes(launches, ba_calls, "phase 6 (the testbench matrix)")
 
     t0 = time.perf_counter()
     sweep = synthetic_tests.run_noise_sweep(noise_levels=tuple(SWEEP_LIMITS_DEG), verbose=False,
@@ -920,6 +1101,7 @@ def run_testbench(device, root):
     print("  " + json.dumps(bench))
     require(bench["views_placed"] == BENCH_VIEWS, f"bench_pipeline placed {bench['views_placed']}")
     return launches, {"matrix_s": t_matrix, "run_phases_s": phases, "cells": table,
+                      "ba": ba_calls,
                       "sweep_s": t_sweep,
                       "sweep": [dataclasses.asdict(e) for e in sweep], "bench_pipeline": bench}
 
@@ -1256,8 +1438,9 @@ def run_many_views(device):
             and many["max_angular_error_deg"] < MANY_LIMIT_MAX_DEG,
             f"many views: angular error {many['mean_angular_error_deg']} / "
             f"{many['max_angular_error_deg']}")
-    for name in UNSHARDED_BA:
-        require(launches[name] > 0, f"{name} was not launched on the many-view path")
+    require_routes(launches, ba_calls, "phase 9")
+    require(all(launches[name] > 0 for name in UNSHARDED_BA),
+            f"phase 9: the 64-view global BAs did not take the per-iteration kernels: {launches}")
 
     mk.top2.launches = 0
     prof = profile_matching.profile_matching(FRONT_VIEWS, FRONT_WIDTH, device=device)
@@ -1319,6 +1502,9 @@ def main() -> int:
     t0 = time.perf_counter()
     errs, rels, times, shapes = check_kernels(device)
     errs["top2"], rels["top2"], top2_times = check_top2_random(device)
+    errs["lm_fused"], rels["lm_fused"], lm_times, lm_cases = check_lm_fused(device)
+    times["lm_fused"] = lm_times[f"{N_VIEWS}x{N_TRACKS}"]
+    shapes["lm_fused"] = {"times": lm_times, "bit_for_bit_cases": lm_cases}
     print(f"  phase 2 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 3: pose estimation from tracks (16 views x 7800 tracks, 2048^2)")
@@ -1331,12 +1517,10 @@ def main() -> int:
     launches_slice = dict(launches)
     slice_ba = recorder.summary()
     print(f"  launches {launches}")
-    require(launches["lm_accept"] == 0, f"K4 launched on the unsharded path: {launches}")
     print(f"  BA: {slice_ba['ba_calls']} calls, {slice_ba['iterations_worked']} of "
-          f"{slice_ba['iterations_launched']} iterations did work; host enqueue "
-          f"{slice_ba['enqueue_ms_per_it']:.4f} ms per iteration")
-    for name in UNSHARDED_BA:
-        require(launches[name] > 0, f"{name} was not launched on the main path")
+          f"{slice_ba['iterations_launched']} iterations did work; by route "
+          f"{slice_ba['by_route']}")
+    require_routes(launches, slice_ba, "phase 3")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 4: BA iterations/s (quat)")
@@ -1346,7 +1530,9 @@ def main() -> int:
         print(f"  {num_views} views x {n_tracks} tracks")
         r = ba_rate(device, num_views, n_tracks)
         rates[f"{num_views}x{n_tracks}"] = r
-        print(f"  kernel path {r['kernel']:.1f} it/s, plain torch path {r['torch']:.1f} it/s")
+        print(f"  fused {r['fused']:.1f} it/s, kernel path {r['kernel']:.1f} it/s, plain torch "
+              f"path {r['torch']:.1f} it/s" if "fused" in r else
+              f"  kernel path {r['kernel']:.1f} it/s, plain torch path {r['torch']:.1f} it/s")
     for num_views, n_tracks in BA_RUN_SHAPES_MANY:
         print(f"  {num_views} views x {n_tracks} tracks, {BA_RUN_ITERATIONS_MANY} iterations "
               "(past shared memory)")
@@ -1375,11 +1561,10 @@ def main() -> int:
     front_iters = recorder.summary()
     print(f"  launches top2 {launches['top2']}, BA {front_ba}")
     print(f"  BA: {front_iters['ba_calls']} calls, {front_iters['iterations_worked']} of "
-          f"{front_iters['iterations_launched']} iterations did work; host enqueue "
-          f"{front_iters['enqueue_ms_per_it']:.4f} ms per iteration")
+          f"{front_iters['iterations_launched']} iterations did work; by route "
+          f"{front_iters['by_route']}")
     require(launches["top2"] > 0, "top2 was not launched on the front end's path")
-    require(all(front_ba[name] > 0 for name in UNSHARDED_BA),
-            "a BA kernel was not launched in phase 5")
+    require_routes(front_ba, front_iters, "phase 5")
     err, rel, real_times = check_top2_real(device, features, cfg)
     errs["top2"], rels["top2"] = max(errs["top2"], err), max(rels["top2"], rel)
     times["top2"] = real_times["top2_sift"]
@@ -1420,8 +1605,9 @@ def main() -> int:
     # route are not on it, and give phase 8's (the sharded BA). Each
     # earlier phase's counts are in launches_by_phase.
     def main_path(name):
-        return ("phase9", many_launches[name]) if name in many_launches else (
-            "phase8", phase_launches["phase8"][name])
+        key = LAUNCH_KEY.get(name, name)
+        return ("phase9", many_launches[key]) if key in many_launches else (
+            "phase8", phase_launches["phase8"][key])
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
                 "replaces": REPLACES[name], "launches": main_path(name)[1],
@@ -1435,6 +1621,9 @@ def main() -> int:
             k["routes_phase8"] = sharded["camera_solve_routes"]
         if k["name"] == "lm_accept":
             k["tail_ms"] = times["lm_accept"]["tail_ms"]
+        if k["name"] == "lm_fused":  # phase 9's local BA, and every shape timed
+            k["main_path_shapes"] = {"3x50000": lm_times["3x50000"]}
+            k["shapes"] = lm_times
         if k["name"] in UNSHARDED_BA:
             # the same kernel at the shapes phase 9 gives it
             k["main_path_shapes"] = {

@@ -8,7 +8,8 @@ pipeline is a named, overridable field here.
 A copy of orthosfm_tpu/config.py, not an import of it: importing anything
 from orthosfm_tpu imports jax. It accepts every field of the JAX package's
 config, so a config written for it runs here unchanged, and differs in
-BundleAdjustConfig.impl ("auto" | "torch" | "kernel"). Some fields are
+BundleAdjustConfig.impl, which takes the port's "torch" and "kernel" beside
+the JAX package's "xla", "pallas" and "fused". Some fields are
 accepted and not read, as each says: the Ceres gradient and parameter
 tolerances (unread in the JAX package too), `use_pallas` (`impl` picks the
 kernels here), ReconstructionConfig.camera_distance
@@ -110,10 +111,13 @@ class BundleAdjustConfig:
     # Accepted for the JAX package's configs (which pick their Pallas kernels
     # by it), not read: `impl` picks the CUDA kernels here
     use_pallas: bool = True
-    # LM stage implementation: "kernel" runs the hand-written CUDA kernels
-    # (solvers/ba_kernels.py), "torch" their plain PyTorch versions, and
-    # "auto" picks "kernel" for CUDA tensors and "torch" for CPU tensors.
-    impl: str = "auto"  # "auto" | "torch" | "kernel"
+    # LM implementation (solvers/ba_kernels.py): "fused" runs the whole solve
+    # in one cooperative CUDA launch (up to 37 views; raises above), "kernel"
+    # the hand-written CUDA kernels one iteration at a time, "torch" their
+    # plain PyTorch versions; "auto" picks "fused" for CUDA tensors where it
+    # serves, else "kernel", and "torch" for CPU tensors. The JAX package's
+    # "xla" is "torch" here and its "pallas" "kernel".
+    impl: str = "auto"  # "auto" | "torch" | "kernel" | "fused" | "xla" | "pallas"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,6 +30,13 @@
 // _couplings, _inv3x3_rows) is written once, as the __device__ functions
 // below, and shared by K1 and K2.
 //
+// lm_fused (below K4) runs the whole solve in one cooperative launch for up
+// to 37 views: the initial cost and every iteration of the three stages,
+// by the same device functions on the same work items, with grid-wide
+// barriers between the stages and the loop's stop on the device (the
+// counterpart of ba_fused.py run_lm). ba.run takes it where it serves and
+// the per-iteration launches elsewhere.
+//
 // Scalar LM state: float[STATE_SIZE] = [lambda, cost, iterations, done,
 // initial cost, current half, 0, 0]. Iteration i reads slot i%2 and K2's
 // last CTA writes slot (i+1)%2, so no CTA ever reads a scalar that another
@@ -52,6 +59,22 @@ constexpr int NT = 256;                 // threads per CTA of schur_reduce
 constexpr size_t SMEM_MAX = 227 * 1024;  // shared bytes per CTA, sm_90
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// A barrier over the threads that run one work item: the whole CTA (id 0,
+// __syncthreads: the per-iteration kernels), one warp, or the `nthreads`
+// threads of consecutive warps by named barrier `id` (a thread group of
+// lm_fused, which runs several work items side by side in one CTA).
+struct GroupSync {
+  int id, nthreads;
+  __device__ __forceinline__ void operator()() const {
+    if (id == 0)
+      __syncthreads();
+    else if (nthreads == 32)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+  }
+};
 
 // K1's per-camera tables, built in shared memory by each of its CTAs.
 struct Cam {
@@ -298,65 +321,55 @@ __global__ void schur_cams_kernel(int quat, const float* rot_a, const float* rot
   if (v < V) fill_cam(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, v, cams[v]);
 }
 
-// gcams null: the camera tables and the chunk's per-view sums in shared
-// memory; else the tables in gcams (schur_cams) and the sums in vpart.
-__global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
-    int quat, const float* pT_a, const float* pT_b, const float* __restrict__ obsT,
-    const float* __restrict__ maskT, const float* rot_a, const float* rot_b,
-    const float* camp_a, const float* camp_b, const float* __restrict__ free,
-    const float* __restrict__ state, float huber, int opt, int V, int T, int G, int ldx,
-    const Cam* __restrict__ gcams, float* __restrict__ Xk, float* __restrict__ Yk,
-    int* __restrict__ counts, float* __restrict__ vpart) {
-  if (state[DONE] != 0.f) return;
-  const bool cur = state[CUR] != 0.f;
-  const float* __restrict__ pT = cur ? pT_b : pT_a;
-  extern __shared__ float smem[];
+// One block pass's own shared buffers: schur_blocks_kernel's, and each
+// 256-thread group's in lm_fused. Per warp: its groups' tracks (slots); its
+// X, Y slices ([2][3][192]), staged for coalesced stores of the scratch
+// rows, then its per-view sums ([G][NU]) for the sum over warps.
+struct __align__(16) BlocksShared {
+  float stage[BLK_NT / 32][2 * 3 * 192];
+  int wslot[BLK_NT / 32][32];
+  int slot[TC], seen[TC];
+  int count;
+};
+
+// The block pass of chunk c (tracks c TC .. c TC + TC - 1) by the BLK_NT
+// threads of one group (tid 0 .. BLK_NT - 1; `sync` their barrier), from
+// the camera tables `cams` and the current points pT at damping lam. usum:
+// the chunk's [V][NU] sums, in shared memory (then copied to vpart_c) or,
+// with vpart_c null, the chunk's partial itself.
+__device__ __forceinline__ void schur_blocks_chunk(
+    int quat, const float* pT, const float* obsT, const float* maskT, const Cam* cams,
+    float lam, float huber, int opt, int V, int T, int G, int ldx, int c, float* Xk, float* Yk,
+    int* counts, float* usum, float* vpart_c, BlocksShared& sh, GroupSync sync, int tid) {
   constexpr int NW = BLK_NT / 32;
-  constexpr int STAGE = 2 * 3 * 192;  // floats of a warp's staging area
-  Cam* scams = reinterpret_cast<Cam*>(smem);
-  const Cam* cams = gcams ? gcams : scams;
-  // [V][NU], the chunk's sums
-  float* usum = gcams ? vpart + (size_t)blockIdx.x * V * NU : reinterpret_cast<float*>(scams + V);
-  __shared__ int slot[TC];
-  __shared__ int s_count;
-  // per warp: its groups' tracks (slots); its X, Y slices ([2][3][192]),
-  // staged for coalesced stores of the scratch rows, then its per-view sums
-  // ([G][NU]) for the sum over warps
-  __shared__ int wslot[NW][32];
-  __shared__ __align__(16) float stage[NW][STAGE];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
   const int gl = tid & (G - 1);  // lane within the track's group
   const int grp = tid / G;
-  const int c = blockIdx.x, t0 = c * TC;
-  const float lam = state[LAM];
+  const int t0 = c * TC;
 
-  __shared__ int seen[TC];
-  if (!gcams)
-    for (int v = tid; v < V; v += BLK_NT)
-      fill_cam(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, v, scams[v]);
   for (int i = tid; i < V * NU; i += BLK_NT) usum[i] = 0.f;
-  if (tid < TC) seen[tid] = 0;
-  __syncthreads();
+  if (tid < TC) sh.seen[tid] = 0;
+  sync();
   {  // which of the chunk's tracks have an observation: every thread a few views
     const int k = tid % TC, t = t0 + k;
     int any = 0;
     if (t < T)
       for (int v = tid / TC; v < V; v += BLK_NT / TC) any |= maskT[(size_t)v * T + t] != 0.f;
-    if (any) seen[k] = 1;
+    if (any) sh.seen[k] = 1;
   }
-  __syncthreads();
+  sync();
   if (warp == 0) {
-    const unsigned bal = __ballot_sync(0xffffffffu, seen[lane] != 0);
-    slot[lane] = seen[lane] ? __popc(bal & ((1u << lane) - 1u)) : -1;
+    const unsigned bal = __ballot_sync(0xffffffffu, sh.seen[lane] != 0);
+    sh.slot[lane] = sh.seen[lane] ? __popc(bal & ((1u << lane) - 1u)) : -1;
     if (lane == 0) {
-      s_count = __popc(bal);
+      sh.count = __popc(bal);
       counts[c] = opt ? __popc(bal) : 0;
     }
   }
-  __syncthreads();
+  sync();
   const size_t cbase = (size_t)c * 3 * TC;  // first scratch column of the chunk
   if (opt) {  // zero the unused columns of the chunk's last k-tile
-    const int count = s_count;
+    const int count = sh.count;
     const size_t k0 = cbase + 3 * count, k1 = cbase + 3 * (((count + KTT - 1) / KTT) * KTT);
     for (size_t i = tid; i < (k1 - k0) * ldx; i += BLK_NT) {
       Xk[k0 * ldx + i] = 0.f;
@@ -366,7 +379,7 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
 
   const int per_lane = (V + G - 1) / G;
   for (int k = grp; k - grp < TC; k += BLK_NT / G) {
-    const int s = k < TC ? slot[k] : -1;
+    const int s = k < TC ? sh.slot[k] : -1;
     const int t = t0 + k;
     const bool live = s >= 0;
     PointPre P;
@@ -390,7 +403,7 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
     }
     float Vi[9];
     point_inv(vt, lam, opt, Vi);
-    if (gl == 0) wslot[warp][lane / G] = s;
+    if (gl == 0) sh.wslot[warp][lane / G] = s;
 
     for (int j = 0; j < per_lane; ++j) {
       const int v = gl + j * G;
@@ -423,17 +436,17 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
         const int gw = lane / G, base = j * G * 6;
         for (int q = 0; q < 3; ++q)
           for (int a = 0; a < 6; ++a) {
-            stage[warp][q * 192 + gw * G * 6 + gl * 6 + a] = X[a][q];
-            stage[warp][(3 + q) * 192 + gw * G * 6 + gl * 6 + a] = Y[a][q];
+            sh.stage[warp][q * 192 + gw * G * 6 + gl * 6 + a] = X[a][q];
+            sh.stage[warp][(3 + q) * 192 + gw * G * 6 + gl * 6 + a] = Y[a][q];
           }
         __syncwarp();
         for (int e = lane; e < 192; e += 32) {
-          const int g2 = e / (G * 6), off = e % (G * 6), s2 = wslot[warp][g2];
+          const int g2 = e / (G * 6), off = e % (G * 6), s2 = sh.wslot[warp][g2];
           if (s2 < 0 || base + off >= 6 * V) continue;
           for (int q = 0; q < 3; ++q) {
             const size_t at = (cbase + 3 * s2 + q) * ldx + base + off;
-            Xk[at] = stage[warp][q * 192 + e];
-            Yk[at] = stage[warp][(3 + q) * 192 + e];
+            Xk[at] = sh.stage[warp][q * 192 + e];
+            Yk[at] = sh.stage[warp][(3 + q) * 192 + e];
           }
         }
         __syncwarp();
@@ -443,18 +456,43 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
       for (int off = G; off < 32; off <<= 1)
         for (int e = 0; e < NU; ++e) u[e] += __shfl_xor_sync(0xffffffffu, u[e], off);
       if (lane < G)
-        for (int e = 0; e < NU; ++e) stage[warp][lane * NU + e] = u[e];
-      __syncthreads();
+        for (int e = 0; e < NU; ++e) sh.stage[warp][lane * NU + e] = u[e];
+      sync();
       for (int i = tid; i < G * NU && j * G * NU + i < V * NU; i += BLK_NT) {
         float s = usum[j * G * NU + i];
-        for (int w = 0; w < NW; ++w) s += stage[w][i];
+        for (int w = 0; w < NW; ++w) s += sh.stage[w][i];
         usum[j * G * NU + i] = s;
       }
-      __syncthreads();
+      sync();
     }
   }
+  if (vpart_c)
+    for (int i = tid; i < V * NU; i += BLK_NT) vpart_c[i] = usum[i];
+}
+
+// gcams null: the camera tables and the chunk's per-view sums in shared
+// memory; else the tables in gcams (schur_cams) and the sums in vpart.
+__global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
+    int quat, const float* pT_a, const float* pT_b, const float* __restrict__ obsT,
+    const float* __restrict__ maskT, const float* rot_a, const float* rot_b,
+    const float* camp_a, const float* camp_b, const float* __restrict__ free,
+    const float* __restrict__ state, float huber, int opt, int V, int T, int G, int ldx,
+    const Cam* __restrict__ gcams, float* __restrict__ Xk, float* __restrict__ Yk,
+    int* __restrict__ counts, float* __restrict__ vpart) {
+  if (state[DONE] != 0.f) return;
+  const bool cur = state[CUR] != 0.f;
+  extern __shared__ float smem[];
+  __shared__ BlocksShared sh;
+  Cam* scams = reinterpret_cast<Cam*>(smem);
+  const int tid = threadIdx.x, c = blockIdx.x;
+  float* vpart_c = vpart + (size_t)c * V * NU;
   if (!gcams)
-    for (int i = tid; i < V * NU; i += BLK_NT) vpart[(size_t)c * V * NU + i] = usum[i];
+    for (int v = tid; v < V; v += BLK_NT)
+      fill_cam(quat, cur ? rot_b : rot_a, cur ? camp_b : camp_a, free, v, scams[v]);
+  schur_blocks_chunk(quat, cur ? pT_b : pT_a, obsT, maskT, gcams ? gcams : scams, state[LAM],
+                     huber, opt, V, T, G, ldx, c, Xk, Yk, counts,
+                     gcams ? vpart_c : reinterpret_cast<float*>(scams + V),
+                     gcams ? nullptr : vpart_c, sh, GroupSync{0, BLK_NT}, tid);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -473,29 +511,34 @@ __device__ __forceinline__ bool next_ktile(const int* __restrict__ counts, int c
   return c < c_end;
 }
 
-__global__ void __launch_bounds__(PROD_NT) schur_product_kernel(
-    const float* __restrict__ state, int ldx, int n_chunks, int cps,
-    const int* __restrict__ counts, const float* __restrict__ Xk, const float* __restrict__ Yk,
-    float* __restrict__ Ppart) {
-  if (state[DONE] != 0.f) return;
-  __shared__ __align__(16) float Xs[2][KT3][PT];
-  __shared__ __align__(16) float Ys[2][KT3][PT];
+// The product's double-buffered k-tiles of X and Y, one work item's.
+struct ProductShared {
+  float Xs[2][KT3][PT], Ys[2][KT3][PT];
+};
+
+// Work item (tile, y) of the product: output tile `tile` of the upper
+// triangle over split y's chunks, by the PROD_NT threads of one group
+// (tid 0 .. PROD_NT - 1; `sync` their barrier), into its partial tile.
+__device__ __forceinline__ void schur_product_tile(int ldx, int n_chunks, int cps,
+                                                   const int* counts, const float* Xk,
+                                                   const float* Yk, float* Ppart, int tile, int y,
+                                                   ProductShared& sh, GroupSync sync, int tid) {
   const int nt = ldx / PT;
-  int ti = 0, u = blockIdx.x;
+  int ti = 0, u = tile;
   while (u >= nt - ti) {
     u -= nt - ti;
     ++ti;
   }
   const int r0 = ti * PT, c0 = (ti + u) * PT;
-  const int c_end = min(n_chunks, (int)(blockIdx.y + 1) * cps);
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int c_end = min(n_chunks, (y + 1) * cps);
+  const int ty = tid >> 3, tx = tid & 7;
 
   auto load = [&](int buf, int c, int kt) {
     const size_t col0 = (size_t)c * 3 * TC + kt * KT3;
     for (int i = tid; i < KT3 * (PT / 4); i += PROD_NT) {
       const int kk = i / (PT / 4), q4 = (i % (PT / 4)) * 4;
-      cp_async16(&Xs[buf][kk][q4], Xk + (col0 + kk) * ldx + r0 + q4);
-      cp_async16(&Ys[buf][kk][q4], Yk + (col0 + kk) * ldx + c0 + q4);
+      cp_async16(&sh.Xs[buf][kk][q4], Xk + (col0 + kk) * ldx + r0 + q4);
+      cp_async16(&sh.Ys[buf][kk][q4], Yk + (col0 + kk) * ldx + c0 + q4);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -503,7 +546,7 @@ __global__ void __launch_bounds__(PROD_NT) schur_product_kernel(
   float acc[4][4];
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  int c = blockIdx.y * cps, kt = -1;
+  int c = y * cps, kt = -1;
   bool have = next_ktile(counts, c_end, c, kt);
   int buf = 0;
   if (have) load(0, c, kt);
@@ -516,25 +559,35 @@ __global__ void __launch_bounds__(PROD_NT) schur_product_kernel(
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
-    __syncthreads();
+    sync();
 #pragma unroll 8
     for (int kk = 0; kk < KT3; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&Xs[buf][kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ys[buf][kk][tx * 4]);
+      const float4 a = *reinterpret_cast<const float4*>(&sh.Xs[buf][kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&sh.Ys[buf][kk][tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
       for (int i = 0; i < 4; ++i)
         for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
     }
-    __syncthreads();
+    sync();
     buf ^= 1;
     c = cn;
     kt = ktn;
     have = more;
   }
-  float* P = Ppart + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * PT * PT;
+  float* P = Ppart + ((size_t)y * (nt * (nt + 1) / 2) + tile) * PT * PT;
   for (int i = 0; i < 4; ++i)
     *reinterpret_cast<float4*>(&P[(ty * 4 + i) * PT + tx * 4]) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+__global__ void __launch_bounds__(PROD_NT) schur_product_kernel(
+    const float* __restrict__ state, int ldx, int n_chunks, int cps,
+    const int* __restrict__ counts, const float* __restrict__ Xk, const float* __restrict__ Yk,
+    float* __restrict__ Ppart) {
+  if (state[DONE] != 0.f) return;
+  __shared__ __align__(16) ProductShared sh;
+  schur_product_tile(ldx, n_chunks, cps, counts, Xk, Yk, Ppart, blockIdx.x, blockIdx.y, sh,
+                     GroupSync{0, PROD_NT}, threadIdx.x);
 }
 
 // schur_reduce: RL lanes per output value, each summing every RL-th partial
@@ -563,18 +616,19 @@ __device__ __forceinline__ float strided_sum(const float* __restrict__ p, size_t
   return s;
 }
 
-// Item i of the first n * n: S'(i / n, i % n) and its mirror, for i / n <=
-// i % n (blkdiag(U) minus the product's partials); then rhs, then diag(U).
-// Every lane of a warp reaches the shuffles; idle groups add zeros.
-__global__ void __launch_bounds__(NT) schur_reduce_kernel(
-    const float* __restrict__ state, int V, int ldx, int n_split, int n_chunks,
-    const float* __restrict__ Ppart, const float* __restrict__ vpart, float* __restrict__ S,
-    float* __restrict__ dU, float* __restrict__ rhs) {
-  if (state[DONE] != 0.f) return;
+// Lane vt of the reduce (lane vt % RL of item vt / RL). Item i of the first
+// n * n: S'(i / n, i % n) and its mirror, for i / n <= i % n (blkdiag(U)
+// minus the product's partials); then rhs, then diag(U). Every lane of a
+// warp reaches the shuffles (a warp holds lanes 32w .. 32w + 31); idle
+// groups add zeros.
+__device__ __forceinline__ void schur_reduce_lane(size_t vt, int V, int ldx, int n_split,
+                                                  int n_chunks, const float* Ppart,
+                                                  const float* vpart, float* S, float* dU,
+                                                  float* rhs) {
   const int n = 6 * V, nt = ldx / PT, n_tiles = nt * (nt + 1) / 2;
   const size_t nn = (size_t)n * n;  // 64-bit: n * n passes 2^31 from ~7700 views
-  const size_t item = ((size_t)blockIdx.x * NT + threadIdx.x) / RL;
-  const int sub = threadIdx.x % RL;
+  const size_t item = vt / RL;
+  const int sub = (int)(vt % RL);
   const bool is_s = item < nn;
   int i = 0, j = 0, e = -1;  // e: the per-view sum this item needs, if any
   bool live = item < nn + 2 * (size_t)n;
@@ -605,6 +659,15 @@ __global__ void __launch_bounds__(NT) schur_reduce_kernel(
   } else {
     (item - nn < (size_t)n ? rhs : dU)[i] = u;
   }
+}
+
+__global__ void __launch_bounds__(NT) schur_reduce_kernel(
+    const float* __restrict__ state, int V, int ldx, int n_split, int n_chunks,
+    const float* __restrict__ Ppart, const float* __restrict__ vpart, float* __restrict__ S,
+    float* __restrict__ dU, float* __restrict__ rhs) {
+  if (state[DONE] != 0.f) return;
+  schur_reduce_lane((size_t)blockIdx.x * NT + threadIdx.x, V, ldx, n_split, n_chunks, Ppart,
+                    vpart, S, dU, rhs);
 }
 
 // ---------------------------------------------------------------------------
@@ -705,16 +768,16 @@ __device__ __forceinline__ CamHalves cam_halves(const float* state, float* rot_a
   return {cur ? rot_b : rot_a, cur ? camp_b : camp_a, cur ? rot_a : rot_b, cur ? camp_a : camp_b};
 }
 
-template <int V>
-__global__ void __launch_bounds__(32) camera_solve_warp_kernel(
-    int quat, const float* __restrict__ S, const float* __restrict__ dU,
-    const float* __restrict__ rhs, const float* __restrict__ free,
-    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
-    float* __restrict__ delta) {
+// The one-warp solve by lane i of one warp, its matrix staged in Ls and its
+// step in ds (shared memory). CHECK_DONE: return at once on state[DONE]
+// (the per-iteration kernel); lm_fused leaves its loop instead.
+template <int V, bool CHECK_DONE>
+__device__ __forceinline__ void camera_solve_warp(int quat, const float* S, const float* dU,
+                                                  const float* rhs, const float* free,
+                                                  const float* state, float* rot_a, float* rot_b,
+                                                  float* camp_a, float* camp_b, float* delta,
+                                                  float (*Ls)[6 * V + 1], float* ds, int i) {
   constexpr int N = 6 * V;
-  __shared__ float Ls[N][N + 1];
-  __shared__ float ds[32];
-  const int i = threadIdx.x;
   const bool row = i < N;
   const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
   const float *rot = h.rot, *camp = h.camp;
@@ -730,7 +793,7 @@ __global__ void __launch_bounds__(32) camera_solve_warp_kernel(
 #pragma unroll
   for (int k = 0; k < 8; ++k) cp[k] = i < V ? camp[i * 8 + k] : 0.f;
   const float lam = state[LAM];
-  if (state[DONE] != 0.f) return;
+  if (CHECK_DONE && state[DONE] != 0.f) return;
 
   // The damped, pinned, Jacobi-scaled system (ba.prepare_camera_system).
   float aii = 0.f;
@@ -792,14 +855,31 @@ __global__ void __launch_bounds__(32) camera_solve_warp_kernel(
   if (i < V) retract_camera(quat, ds + 6 * i, q, cp, h.rot_c + 4 * i, h.camp_c + 8 * i);
 }
 
-template <int NT>
-__global__ void __launch_bounds__(NT) camera_solve_kernel(
+template <int V>
+__global__ void __launch_bounds__(32) camera_solve_warp_kernel(
     int quat, const float* __restrict__ S, const float* __restrict__ dU,
     const float* __restrict__ rhs, const float* __restrict__ free,
     const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
-    int V, float* __restrict__ delta) {
+    float* __restrict__ delta) {
+  __shared__ float Ls[6 * V][6 * V + 1];
+  __shared__ float ds[32];
+  camera_solve_warp<V, true>(quat, S, dU, rhs, free, state, rot_a, rot_b, camp_a, camp_b, delta,
+                             Ls, ds, threadIdx.x);
+}
+
+// The one-CTA solve by the NT threads of one CTA (tid 0 .. NT - 1), its
+// matrix and vectors in solve_smem (solve_plan(V).smem bytes, 16-byte
+// aligned). Every entry is computed by one thread or one warp whatever NT
+// is, so the result does not depend on NT. CHECK_DONE: return at once on
+// state[DONE] (the per-iteration kernel); lm_fused leaves its loop instead.
+template <int NT, bool CHECK_DONE>
+__device__ __forceinline__ void camera_solve_cta(int quat, const float* S, const float* dU,
+                                                 const float* rhs, const float* free,
+                                                 const float* state, float* rot_a, float* rot_b,
+                                                 float* camp_a, float* camp_b, int V,
+                                                 float* delta, float* solve_smem, int& s_failed,
+                                                 int tid) {
   const int n = 6 * V, N = n + 1, ld = round4(N);
-  extern __shared__ __align__(16) float solve_smem[];
   float* rds = solve_smem;            // [n]       1 / Jacobi scale
   float* fr = rds + round4(n);        // [n]       free mask
   float* dmp = fr + round4(n);        // [n]       LM damping of the diagonal
@@ -809,10 +889,9 @@ __global__ void __launch_bounds__(NT) camera_solve_kernel(
   float* dgi = dg + round4(PW * DS);  // [PW]      1 / its diagonal (1 past kb)
   float* pan = dgi + PW;              // [N + 3][PS] the panel's rows below its block
   float* A = pan + (n + 4) * PS;      // [N][ld]   the lower triangle
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __shared__ int s_failed;  // a pivot was not positive
+  const int lane = tid & 31, warp = tid >> 5;
   const float lam = state[LAM];
-  if (state[DONE] != 0.f) return;
+  if (CHECK_DONE && state[DONE] != 0.f) return;
   if (tid == 0) s_failed = 0;
 
   // Per unknown: damping, free mask and the reciprocal of the Jacobi scale
@@ -1010,6 +1089,18 @@ __global__ void __launch_bounds__(NT) camera_solve_kernel(
   for (int v = tid; v < V; v += NT)
     retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
                    h.camp_c + 8 * v);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT) camera_solve_kernel(
+    int quat, const float* __restrict__ S, const float* __restrict__ dU,
+    const float* __restrict__ rhs, const float* __restrict__ free,
+    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
+    int V, float* __restrict__ delta) {
+  extern __shared__ __align__(16) float solve_smem[];
+  __shared__ int s_failed;  // a pivot was not positive
+  camera_solve_cta<NT, true>(quat, S, dU, rhs, free, state, rot_a, rot_b, camp_a, camp_b, V,
+                             delta, solve_smem, s_failed, threadIdx.x);
 }
 
 // The cluster version, for a matrix too large for one CTA's shared memory:
@@ -1918,6 +2009,131 @@ __global__ void k2_tables_kernel(int quat, const float* rot_a, const float* rot_
   if (upd) k2_table(quat, ci, cur, true, gtab + (size_t)V * TAB_CAND + v * TAB_CUR);
 }
 
+// Work item `item` of K2 (tracks 32 item .. 32 item + 31, one a lane) by the
+// nw warps of one group (warp 0 .. nw - 1; `sync` their barrier), after the
+// per-view tables tab_c (candidate cameras) and tab (current ones, for the
+// point pass) are in place: the point update (upd) from the current half
+// of pT into the other, then the robust cost at the candidate cameras and
+// the new points, summed in warp order and over the lanes into
+// cost_part[item]. (m, ox, oy): this warp's first view, and p4 the lane's
+// current point, both loaded by the caller; sums and p3s: the group's
+// shared buffers.
+__device__ __forceinline__ void k2_item(int quat, float* pT_a, float* pT_b, const float* obsT,
+                                        const float* maskT, float huber, bool upd, int V, int T,
+                                        int item, const float* tab_c, const float* tab, float lam,
+                                        bool cur, float m, float ox, float oy, const float p4[4],
+                                        float (*sums)[NQ][K2_TRACKS],
+                                        float (*p3s)[K2_TRACKS], GroupSync sync, int lane,
+                                        int warp, int nw, float* cost_part) {
+  const int t = item * K2_TRACKS + lane;
+  const bool live = t < T;
+  const int tc = live ? t : T - 1;  // a column the idle lanes may load
+  if (upd) {
+    PointPre P;
+    point_pre(p4, P);
+    float q[NQ];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) q[i] = 0.f;
+    for (int v = warp; v < V; v += nw) {  // each view's loads one view ahead
+      float mn, oxn, oyn;
+      load_obs(obsT, maskT, V, T, v + nw, tc, mn, oxn, oyn);
+      if (live && m != 0.f) {
+        const float* c = tab + v * TAB_CUR;
+        float r[2], w, Jc[2][6], Jp[2][3];
+        obs_block(quat, c, c + 14, c + 9, nullptr, P, ox, oy, huber, r, w, Jc, Jp);
+        add_point_block(w, Jp, r, q, q + 6);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float jd = 0.f;
+#pragma unroll
+          for (int a = 0; a < 6; ++a) jd += Jc[k][a] * c[32 + a];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) q[9 + j] += w * jd * Jp[k][j];
+        }
+      }
+      m = mn;
+      ox = oxn;
+      oy = oyn;
+    }
+    load_obs(obsT, maskT, V, T, warp, tc, m, ox, oy);  // the cost pass's first view
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) sums[warp][i][lane] = q[i];
+    sync();
+    if (warp == 0) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        for (int w2 = 1; w2 < nw; ++w2) q[i] += sums[w2][i][lane];  // q holds warp 0's
+      float Vi[9], tmp[3], dp[3], pn[4], nrm2 = 0.f;
+      point_inv(q, lam, 1, Vi);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) tmp[j] = q[6 + j] - q[9 + j];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        dp[j] = Vi[j * 3 + 0] * tmp[0] + Vi[j * 3 + 1] * tmp[1] + Vi[j * 3 + 2] * tmp[2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pn[j] = P.p4[j] + P.B[j * 3 + 0] * dp[0] + P.B[j * 3 + 1] * dp[1] + P.B[j * 3 + 2] * dp[2];
+        nrm2 += pn[j] * pn[j];
+      }
+      const float nrm = sqrtf(fmaxf(nrm2, 1e-40f));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pn[j] /= nrm;
+      float* p_out = cur ? pT_a : pT_b;  // the other half
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p_out[(size_t)j * T + t] = pn[j];
+      }
+      const float sw = safe_w(pn[3]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) p3s[j][lane] = pn[j] / sw;
+    }
+  } else if (warp == 0) {
+    const float sw = safe_w(p4[3]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) p3s[j][lane] = p4[j] / sw;
+  }
+  sync();
+
+  // The robust cost at the candidate cameras and the new point.
+  const float p3[3] = {p3s[0][lane], p3s[1][lane], p3s[2][lane]};
+  const float d2 = huber * huber;
+  float rho = 0.f;
+  for (int v = warp; v < V; v += nw) {
+    float mn, oxn, oyn;
+    load_obs(obsT, maskT, V, T, v + nw, tc, mn, oxn, oyn);
+    if (live && m != 0.f) {
+      const float* c = tab_c + v * TAB_CAND;
+      float local[3], pix[2];
+      project(c, c + 9, p3, local, pix);
+      const float rx = pix[0] - ox, ry = pix[1] - oy;
+      const float s2 = rx * rx + ry * ry;
+      // a NaN residual (a failed camera step) stays NaN, as in torch.clamp:
+      // fmaxf would drop it and count -huber^2
+      rho += s2 <= d2 ? s2 : 2.f * huber * sqrtf(s2 < 1e-20f ? 1e-20f : s2) - d2;
+    }
+    m = mn;
+    ox = oxn;
+    oy = oyn;
+  }
+  sums[warp][0][lane] = rho;
+  sync();
+  if (warp != 0) return;
+  for (int w2 = 1; w2 < nw; ++w2) rho += sums[w2][0][lane];
+  for (int off = 16; off > 0; off >>= 1) rho += __shfl_xor_sync(FULL, rho, off);
+  if (lane == 0) cost_part[item] = 0.5f * rho;
+}
+
+// The sum of K2's n cost partials in index order, by one warp (lane l the
+// partials l, l + 32, ..., then a shuffle tree): bit-stable; every lane
+// gets it. The partials are read through L2, where other CTAs wrote them.
+__device__ __forceinline__ float ordered_cost_sum(const float* cost_part, int n, int lane) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int i = lane; i < n; i += 32) s += __ldcg(cost_part + i);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  return s;
+}
+
 // gtab null: the per-view tables in shared memory, built by every CTA; else
 // read from gtab (k2_tables).
 __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
@@ -1933,8 +2149,7 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
   __shared__ float p3s[3][K2_TRACKS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const int t = blockIdx.x * K2_TRACKS + lane;
-  const bool live = t < T;
-  const int tc = live ? t : T - 1;  // a column the idle lanes may load
+  const int tc = t < T ? t : T - 1;  // a column the idle lanes may load
   // Every load that the first pass needs is issued before the scalar state
   // arrives: this warp's first view, both halves of this lane's point and of
   // this thread's first camera (state[CUR] then picks), so no load waits
@@ -1973,101 +2188,9 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
     }
   }
   __syncthreads();
-
-  if (upd) {
-    PointPre P;
-    point_pre(p4, P);
-    float q[NQ];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) q[i] = 0.f;
-    for (int v = warp; v < V; v += nw) {  // each view's loads one view ahead
-      float mn, oxn, oyn;
-      load_obs(obsT, maskT, V, T, v + nw, tc, mn, oxn, oyn);
-      if (live && m != 0.f) {
-        const float* c = tab + v * TAB_CUR;
-        float r[2], w, Jc[2][6], Jp[2][3];
-        obs_block(quat, c, c + 14, c + 9, nullptr, P, ox, oy, huber, r, w, Jc, Jp);
-        add_point_block(w, Jp, r, q, q + 6);
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float jd = 0.f;
-#pragma unroll
-          for (int a = 0; a < 6; ++a) jd += Jc[k][a] * c[32 + a];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) q[9 + j] += w * jd * Jp[k][j];
-        }
-      }
-      m = mn;
-      ox = oxn;
-      oy = oyn;
-    }
-    load_obs(obsT, maskT, V, T, warp, tc, m, ox, oy);  // the cost pass's first view
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) sums[warp][i][lane] = q[i];
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-      for (int i = 0; i < NQ; ++i)
-        for (int w2 = 1; w2 < nw; ++w2) q[i] += sums[w2][i][lane];  // q holds warp 0's
-      float Vi[9], tmp[3], dp[3], pn[4], nrm2 = 0.f;
-      point_inv(q, st[LAM], 1, Vi);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) tmp[j] = q[6 + j] - q[9 + j];
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        dp[j] = Vi[j * 3 + 0] * tmp[0] + Vi[j * 3 + 1] * tmp[1] + Vi[j * 3 + 2] * tmp[2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pn[j] = P.p4[j] + P.B[j * 3 + 0] * dp[0] + P.B[j * 3 + 1] * dp[1] + P.B[j * 3 + 2] * dp[2];
-        nrm2 += pn[j] * pn[j];
-      }
-      const float nrm = sqrtf(fmaxf(nrm2, 1e-40f));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pn[j] /= nrm;
-      float* p_out = cur ? pT_a : pT_b;  // the other half
-      if (live) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) p_out[(size_t)j * T + t] = pn[j];
-      }
-      const float sw = safe_w(pn[3]);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) p3s[j][lane] = pn[j] / sw;
-    }
-  } else if (warp == 0) {
-    const float sw = safe_w(p4[3]);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) p3s[j][lane] = p4[j] / sw;
-  }
-  __syncthreads();
-
-  // The robust cost at the candidate cameras and the new point.
-  const float p3[3] = {p3s[0][lane], p3s[1][lane], p3s[2][lane]};
-  const float d2 = huber * huber;
-  float rho = 0.f;
-  for (int v = warp; v < V; v += nw) {
-    float mn, oxn, oyn;
-    load_obs(obsT, maskT, V, T, v + nw, tc, mn, oxn, oyn);
-    if (live && m != 0.f) {
-      const float* c = tab_c + v * TAB_CAND;
-      float local[3], pix[2];
-      project(c, c + 9, p3, local, pix);
-      const float rx = pix[0] - ox, ry = pix[1] - oy;
-      const float s2 = rx * rx + ry * ry;
-      // a NaN residual (a failed camera step) stays NaN, as in torch.clamp:
-      // fmaxf would drop it and count -huber^2
-      rho += s2 <= d2 ? s2 : 2.f * huber * sqrtf(s2 < 1e-20f ? 1e-20f : s2) - d2;
-    }
-    m = mn;
-    ox = oxn;
-    oy = oyn;
-  }
-  sums[warp][0][lane] = rho;
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w2 = 1; w2 < nw; ++w2) rho += sums[w2][0][lane];
-  for (int off = 16; off > 0; off >>= 1) rho += __shfl_xor_sync(FULL, rho, off);
-  if (lane == 0) cost_part[blockIdx.x] = 0.5f * rho;
-  if (!state_out && !cost_out) return;
+  k2_item(quat, pT_a, pT_b, obsT, maskT, huber, upd, V, T, blockIdx.x, tab_c, tab, st[LAM], cur,
+          m, ox, oy, p4, sums, p3s, GroupSync{0, (int)blockDim.x}, lane, warp, nw, cost_part);
+  if (warp != 0 || (!state_out && !cost_out)) return;
 
   // The accept tail, in the CTA that takes the last ticket.
   unsigned int last = 0;
@@ -2077,10 +2200,7 @@ __global__ void __launch_bounds__(K2_MAXW * 32) point_update_cost_kernel(
   }
   if (!__shfl_sync(FULL, last, 0)) return;
   __threadfence();
-  float s = 0.f;
-#pragma unroll 8
-  for (int i = lane; i < (int)gridDim.x; i += 32) s += __ldcg(cost_part + i);
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  const float s = ordered_cost_sum(cost_part, gridDim.x, lane);
   if (lane != 0) return;
   *ticket = 0u;
   if (cost_out) *cost_out = s;
@@ -2110,6 +2230,247 @@ __global__ void lm_accept_kernel(const float* __restrict__ state_in,
   lm_rule(st, cost[0], init, rule, out);
 #pragma unroll
   for (int i = 0; i < STATE_SIZE; ++i) state_out[i] = out[i];
+}
+
+// ---------------------------------------------------------------------------
+// lm_fused — replaces ba_fused.py run_lm (_make_lm_kernel :229), the whole
+// robust LM solve in one pallas_call: the initial cost, then up to
+// max_iters iterations of K1, K3 and K2 with its accept rule, and the loop
+// with its stop, in one cooperative launch for problems of up to 37 views.
+//
+// Bound: per iteration that works, the K1 + K3 + K2 work above (FMA for
+// K1's Schur term, the dependent chain of K3's pivots, K2's per-observation
+// math); the inputs are read once for the whole solve. What the
+// per-iteration path paid besides that work was the host: ~0.14 ms of
+// enqueue an iteration (five launches from Python) against ~0.08 ms of
+// device work at 16 x 8192, and max_iterations iterations enqueued whether
+// they worked or not. Here one launch runs the loop, and the iterations
+// after convergence are never run. What remains between the stages is a
+// grid-wide barrier (grid.sync(), four or five an iteration).
+//
+// Design: a persistent grid of as many 512-thread CTAs as the occupancy
+// query lets be resident (at most one wave; one a SM: the CTA takes up to
+// 128 registers a thread), every stage the per-iteration kernels' own work
+// items, walked grid-stride, each by the same device function with the
+// same per-item arithmetic and sum order, so that the solve agrees with the
+// per-iteration path bit for bit, iteration count included. How the CTA's
+// 16 warps map onto the per-iteration kernels' CTAs (a group runs one work
+// item; named barrier 1 + g stands in for its __syncthreads, __syncwarp for
+// a group of one warp):
+//   K1 blocks   two groups of 8 warps (BLK_NT threads), a chunk each; the
+//               camera tables in shared memory are the CTA's, built once
+//   K1 product  eight groups of 2 warps (PROD_NT threads), an output tile
+//               and split each, each with its own k-tile buffers
+//   K1 reduce   the per-iteration launch's lanes, item * RL + sub, walked by
+//               whole warps (a warp holds 32 consecutive lanes)
+//   K3          CTA 0 alone: warp 0 for the one-warp solve (up to 5 views),
+//               all 512 threads for the one-CTA solve (6 to 37 views; each
+//               entry is one thread's or one warp's work whatever the CTA's
+//               size, so it computes what the 256-thread launch does)
+//   K2          16 / w groups of w warps (w = the launch's warps a CTA,
+//               ba_kernels.py _k2_warps), 32 tracks each; the per-view
+//               tables are the CTA's, built once
+//   accept      every CTA's warp 0 sums the cost partials in K2's tail order
+//               and applies the rule to its own copy of the scalar state in
+//               shared memory, so every CTA holds the same state without a
+//               further barrier, and all of them leave the loop together
+//               on its done flag; CTA 0 writes the final state.
+// Between stages: grid.sync(). No stage returns early on the done flag
+// (every CTA must reach every barrier); the loop stops instead. The stages
+// reuse one dynamic shared buffer, sized for the largest (lm_fused_smem).
+// Data written in the launch is read through plain or L2 loads, never the
+// read-only path (no __restrict__ on what a stage writes).
+
+constexpr int FUSED_NT = 512;                          // threads of lm_fused's CTA
+constexpr int FUSED_BLK_GROUPS = FUSED_NT / BLK_NT;    // K1 block-pass groups a CTA
+constexpr int FUSED_PROD_GROUPS = FUSED_NT / PROD_NT;  // K1 product groups a CTA
+
+struct FusedArgs {
+  int quat;
+  float *pT_a, *pT_b;
+  const float *obsT, *maskT;
+  float *rot_a, *rot_b, *camp_a, *camp_b;
+  const float* free;
+  float huber;
+  int opt, V, T, G, ldx, n_chunks, n_split, cps, warps, max_iters;
+  float *Xk, *Yk;
+  int* counts;
+  float *vpart, *Ppart, *S, *dU, *rhs, *delta, *cost_part, *state_out;
+  LMRule rule;
+};
+
+__host__ __device__ constexpr size_t round16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+// Bytes of a K1 block-pass group's buffers in lm_fused: its BlocksShared and
+// its per-view sums.
+__host__ __device__ inline size_t fused_blocks_group_bytes(int V) {
+  return sizeof(BlocksShared) + round16(sizeof(float) * V * NU);
+}
+
+// Floats of a K2 group's buffers in lm_fused: sums [w][NQ][32], p3s [3][32].
+__host__ __device__ constexpr int fused_k2_group_floats(int w) {
+  return w * NQ * K2_TRACKS + 3 * K2_TRACKS;
+}
+
+// K1's block pass over every chunk.
+__device__ __forceinline__ void fused_blocks(const FusedArgs& a, const float* st, float* fsm) {
+  const int tid = threadIdx.x, g = tid / BLK_NT;
+  const bool cur = st[CUR] != 0.f;
+  Cam* cams = reinterpret_cast<Cam*>(fsm);
+  for (int v = tid; v < a.V; v += FUSED_NT)
+    fill_cam(a.quat, cur ? a.rot_b : a.rot_a, cur ? a.camp_b : a.camp_a, a.free, v, cams[v]);
+  __syncthreads();
+  char* base = reinterpret_cast<char*>(fsm) + round16(sizeof(Cam) * a.V) +
+               g * fused_blocks_group_bytes(a.V);
+  BlocksShared& sh = *reinterpret_cast<BlocksShared*>(base);
+  float* usum = reinterpret_cast<float*>(base + sizeof(BlocksShared));
+  const GroupSync sync{1 + g, BLK_NT};
+  for (int c = blockIdx.x * FUSED_BLK_GROUPS + g; c < a.n_chunks;
+       c += gridDim.x * FUSED_BLK_GROUPS) {
+    sync();  // the group's buffers are free again
+    schur_blocks_chunk(a.quat, cur ? a.pT_b : a.pT_a, a.obsT, a.maskT, cams, st[LAM], a.huber,
+                       a.opt, a.V, a.T, a.G, a.ldx, c, a.Xk, a.Yk, a.counts, usum,
+                       a.vpart + (size_t)c * a.V * NU, sh, sync, tid % BLK_NT);
+  }
+}
+
+// K1's product over every (tile, split).
+__device__ __forceinline__ void fused_product(const FusedArgs& a, float* fsm) {
+  const int tid = threadIdx.x, g = tid / PROD_NT;
+  ProductShared& sh = reinterpret_cast<ProductShared*>(fsm)[g];
+  const GroupSync sync{1 + g, PROD_NT};
+  const int nt = a.ldx / PT, tiles = nt * (nt + 1) / 2, items = tiles * a.n_split;
+  for (int it = blockIdx.x * FUSED_PROD_GROUPS + g; it < items;
+       it += gridDim.x * FUSED_PROD_GROUPS) {
+    sync();
+    schur_product_tile(a.ldx, a.n_chunks, a.cps, a.counts, a.Xk, a.Yk, a.Ppart, it % tiles,
+                       it / tiles, sh, sync, tid % PROD_NT);
+  }
+}
+
+// K1's ordered reduce over every lane of the per-iteration launch.
+__device__ __forceinline__ void fused_reduce(const FusedArgs& a) {
+  const int n = 6 * a.V;
+  const size_t lanes = (((size_t)n * n + 2 * (size_t)n) * RL + 31) & ~(size_t)31;
+  for (size_t vt = (size_t)blockIdx.x * FUSED_NT + threadIdx.x; vt < lanes;
+       vt += (size_t)gridDim.x * FUSED_NT)
+    schur_reduce_lane(vt, a.V, a.ldx, a.opt ? a.n_split : 0, a.n_chunks, a.Ppart, a.vpart, a.S,
+                      a.dU, a.rhs);
+}
+
+// K3 in CTA 0: the candidate cameras into the half st[CUR] does not name.
+__device__ __forceinline__ void fused_solve(const FusedArgs& a, const float* st, float* fsm,
+                                            int& s_failed) {
+  const int tid = threadIdx.x;
+  if (a.V > WARP_SOLVE_V) {
+    camera_solve_cta<FUSED_NT, false>(a.quat, a.S, a.dU, a.rhs, a.free, st, a.rot_a, a.rot_b,
+                                      a.camp_a, a.camp_b, a.V, a.delta, fsm, s_failed, tid);
+    return;
+  }
+  if (tid >= 32) return;
+#define OSFM_WARP_SOLVE(v)                                                                    \
+  camera_solve_warp<v, false>(a.quat, a.S, a.dU, a.rhs, a.free, st, a.rot_a, a.rot_b,         \
+                              a.camp_a, a.camp_b, a.delta,                                    \
+                              reinterpret_cast<float(*)[6 * v + 1]>(fsm),                     \
+                              fsm + 6 * v * (6 * v + 1), tid)
+  switch (a.V) {
+    case 1: OSFM_WARP_SOLVE(1); break;
+    case 2: OSFM_WARP_SOLVE(2); break;
+    case 3: OSFM_WARP_SOLVE(3); break;
+    case 4: OSFM_WARP_SOLVE(4); break;
+    default: OSFM_WARP_SOLVE(5); break;
+  }
+#undef OSFM_WARP_SOLVE
+}
+
+// K2 over every 32-track item: the CTA's per-view tables, then its groups.
+// init: the initial cost (the current cameras as candidates, no point
+// update; st all zeros).
+__device__ __forceinline__ void fused_k2(const FusedArgs& a, const float* st, bool init,
+                                         float* fsm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool upd = a.opt && !init;
+  const bool cur = st[CUR] != 0.f;
+  float* tab_c = fsm;                        // [V][TAB_CAND] candidate cameras
+  float* tab = tab_c + a.V * TAB_CAND;       // [V][TAB_CUR]  current cameras (point pass)
+  for (int v = tid; v < a.V; v += FUSED_NT) {
+    CamIn ci;
+    load_cam(v, a.rot_a, a.rot_b, a.camp_a, a.camp_b, upd ? a.delta : nullptr, a.free, ci);
+    k2_table(a.quat, ci, init ? cur : !cur, false, tab_c + v * TAB_CAND);
+    if (upd) k2_table(a.quat, ci, cur, true, tab + v * TAB_CUR);
+  }
+  __syncthreads();
+  const int nw = a.warps, groups = (FUSED_NT / 32) / nw, g = warp / nw, w = warp % nw;
+  if (g >= groups) return;
+  float* gb = fsm + round4(a.V * (TAB_CAND + TAB_CUR)) + g * fused_k2_group_floats(nw);
+  auto sums = reinterpret_cast<float(*)[NQ][K2_TRACKS]>(gb);
+  auto p3s = reinterpret_cast<float(*)[K2_TRACKS]>(gb + nw * NQ * K2_TRACKS);
+  const GroupSync sync{1 + g, nw * 32};
+  const float* pc = cur ? a.pT_b : a.pT_a;
+  const int items = (a.T + K2_TRACKS - 1) / K2_TRACKS;
+  for (int item = blockIdx.x * groups + g; item < items; item += gridDim.x * groups) {
+    sync();  // the group's buffers are free again
+    const int t = item * K2_TRACKS + lane, tc = t < a.T ? t : a.T - 1;
+    float m, ox, oy, p4[4];
+    load_obs(a.obsT, a.maskT, a.V, a.T, w, tc, m, ox, oy);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p4[j] = pc[(size_t)j * a.T + tc];
+    k2_item(a.quat, a.pT_a, a.pT_b, a.obsT, a.maskT, a.huber, upd, a.V, a.T, item, tab_c, tab,
+            st[LAM], cur, m, ox, oy, p4, sums, p3s, sync, lane, w, nw, a.cost_part);
+  }
+}
+
+// K2's accept tail, in every CTA: the rule on the ordered sum of the cost
+// partials, from st_in (all zeros with init) into st_out.
+__device__ __forceinline__ void fused_accept(const FusedArgs& a, const float* st_in, bool init,
+                                             float* st_out) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float s = ordered_cost_sum(a.cost_part, (a.T + K2_TRACKS - 1) / K2_TRACKS, lane);
+    if (lane == 0) {
+      float in[STATE_SIZE], out[STATE_SIZE];
+#pragma unroll
+      for (int i = 0; i < STATE_SIZE; ++i) in[i] = st_in[i];
+      lm_rule(in, s, init, a.rule, out);
+#pragma unroll
+      for (int i = 0; i < STATE_SIZE; ++i) st_out[i] = out[i];
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(FUSED_NT, 1) lm_fused_kernel(const FusedArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ float st[2][STATE_SIZE];  // this CTA's copy of the two state slots
+  __shared__ int s_failed;
+  const int tid = threadIdx.x;
+  if (tid < 2 * STATE_SIZE) st[tid / STATE_SIZE][tid % STATE_SIZE] = 0.f;
+  __syncthreads();
+  fused_k2(a, st[1], true, fsm);  // the initial cost
+  grid.sync();
+  fused_accept(a, st[1], true, st[0]);
+  int slot = 0;
+  for (int it = 0; it < a.max_iters; ++it) {
+    const float* s_in = st[it & 1];
+    float* s_out = st[(it + 1) & 1];
+    fused_blocks(a, s_in, fsm);
+    grid.sync();
+    if (a.opt) {  // with the points held fixed V^-1 = 0, and S' is blkdiag(U)
+      fused_product(a, fsm);
+      grid.sync();
+    }
+    fused_reduce(a);
+    grid.sync();
+    if (blockIdx.x == 0) fused_solve(a, s_in, fsm, s_failed);
+    grid.sync();
+    fused_k2(a, s_in, false, fsm);
+    grid.sync();
+    fused_accept(a, s_in, false, s_out);
+    slot = (it + 1) & 1;
+    if (s_out[DONE] != 0.f) break;  // every CTA holds the same state
+  }
+  if (blockIdx.x == 0 && tid < STATE_SIZE) a.state_out[tid] = st[slot][tid];
 }
 
 // Lets `fn` take up to SMEM_MAX bytes of shared memory, static and dynamic
@@ -2249,6 +2610,42 @@ int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
   camera_solve_warp_kernel<V><<<1, 32, 0, st>>>(a.quat, a.S, a.dU, a.rhs, a.free, a.state,
                                                 a.rot_a, a.rot_b, a.camp_a, a.camp_b, a.delta);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared bytes of lm_fused at V views with K2 in groups of `warps`
+// warps: its largest stage's (the stages reuse one buffer).
+size_t lm_fused_smem(int V, int warps) {
+  const int n = 6 * V;
+  const size_t blocks =
+      round16(sizeof(Cam) * V) + FUSED_BLK_GROUPS * fused_blocks_group_bytes(V);
+  const size_t product = FUSED_PROD_GROUPS * sizeof(ProductShared);
+  const size_t solve =
+      V <= WARP_SOLVE_V ? sizeof(float) * (n * (n + 1) + 32) : solve_plan(V).smem;
+  const size_t k2 = sizeof(float) * (round4(V * (TAB_CAND + TAB_CUR)) +
+                                     (size_t)(FUSED_NT / 32 / warps) * fused_k2_group_floats(warps));
+  size_t m = blocks > product ? blocks : product;
+  m = solve > m ? solve : m;
+  return k2 > m ? k2 : m;
+}
+
+// The CTAs of lm_fused's cooperative grid at V views (as many as the
+// occupancy query lets be resident: one wave), or 0 where it cannot serve
+// V views: past the one-CTA camera solve's limit (37 views), or a card
+// without cooperative launch. *smem: its dynamic shared bytes.
+int lm_fused_grid(int V, int warps, size_t* smem) {
+  if (V < 1 || warps < 1 || warps > K2_MAXW) return 0;
+  const int route = solve_route(V, R_AUTO);
+  if (route != R_WARP && route != R_CTA) return 0;
+  *smem = lm_fused_smem(V, warps);
+  const void* fn = (const void*)lm_fused_kernel;
+  if (allow_smem(fn) || !fits_smem(fn, *smem)) return 0;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) || !coop)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lm_fused_kernel, FUSED_NT, *smem))
+    return 0;
+  return per_sm * sms;
 }
 
 }  // namespace
@@ -2405,6 +2802,60 @@ int osfm_lm_accept(const float* state_in, const float* cost, float* state_out, f
   const LMRule rule = {lam0, func_tol, lam_up, lam_down, min_lam, max_lam};
   lm_accept_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(state_in, cost, state_out,
                                                                     rule);
+  return (int)cudaGetLastError();
+}
+
+// The CTAs of lm_fused's grid at V views with K2 in groups of `warps` warps
+// (ba_kernels.py _k2_warps); 0 where lm_fused cannot serve V views.
+int osfm_lm_fused_grid(int V, int warps) {
+  size_t smem = 0;
+  return lm_fused_grid(V, warps, &smem);
+}
+
+// The whole LM solve in one cooperative launch (lm_fused): the initial cost,
+// then up to max_iters iterations of K1, K3 and K2 with its accept rule on
+// the LM buffers (two halves each, state[CUR] = 0 at the start), stopping
+// at the done flag; the final scalar state into state_out (STATE_SIZE
+// floats). K1's geometry (ldx, n_chunks, n_split, cps) and scratch (Xk, Yk,
+// counts, vpart, Ppart), the system (S, dU, rhs), delta (6V) and K2's cost
+// partials (ceil(T / 32)) are as the per-iteration launches take them.
+// Where lm_fused cannot serve V views it returns
+// cudaErrorCooperativeLaunchTooLarge and launches nothing.
+int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const float* maskT,
+                  float* rot_a, float* rot_b, float* camp_a, float* camp_b, const float* free,
+                  float huber, int opt, int V, int T, int ldx, int n_chunks, int n_split,
+                  int cps, int warps, int max_iters, float* Xk, float* Yk, int* counts,
+                  float* vpart, float* Ppart, float* S, float* dU, float* rhs, float* delta,
+                  float* cost_part, float* state_out, float lam0, float func_tol, float lam_up,
+                  float lam_down, float min_lam, float max_lam, void* stream) {
+  if (T < 1 || max_iters < 0) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int grid = lm_fused_grid(V, warps, &smem);
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // no more CTAs than the stage with the most work items can use
+  const int n = 6 * V, nt = ldx / PT, items = (T + K2_TRACKS - 1) / K2_TRACKS;
+  const size_t lanes = ((size_t)n * n + 2 * (size_t)n) * RL;
+  const int groups = (FUSED_NT / 32) / warps;
+  int need = (n_chunks + FUSED_BLK_GROUPS - 1) / FUSED_BLK_GROUPS;
+  if (opt) {
+    const int p = (nt * (nt + 1) / 2 * n_split + FUSED_PROD_GROUPS - 1) / FUSED_PROD_GROUPS;
+    need = p > need ? p : need;
+  }
+  const int r = (int)((lanes + FUSED_NT - 1) / FUSED_NT), k = (items + groups - 1) / groups;
+  need = r > need ? r : need;
+  need = k > need ? k : need;
+  grid = need < grid ? need : grid;
+  int G = 1;  // K1's lanes per track, as osfm_schur_assemble's
+  while (G < V && G < 32) G *= 2;
+  const FusedArgs a = {quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b, free,
+                       huber, opt, V, T, G, ldx, n_chunks, n_split, cps, warps, max_iters,
+                       Xk, Yk, counts, vpart, Ppart, S, dU, rhs, delta, cost_part, state_out,
+                       {lam0, func_tol, lam_up, lam_down, min_lam, max_lam}};
+  void* args[] = {const_cast<FusedArgs*>(&a)};
+  const int err = (int)cudaLaunchCooperativeKernel((const void*)lm_fused_kernel, dim3(grid),
+                                                   dim3(FUSED_NT), args, smem,
+                                                   static_cast<cudaStream_t>(stream));
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

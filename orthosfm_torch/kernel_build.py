@@ -27,13 +27,36 @@ CXX = shutil.which("g++") or shutil.which("c++") or "g++"
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
-def resolve_impl(impl: str, device) -> str:
-    """A kernel wrapper's route: "auto" gives "kernel" for CUDA tensors and
-    "torch" (the plain PyTorch version) for CPU tensors."""
+# The JAX package's names of its BA implementations (orthosfm_tpu/config.py
+# BundleAdjustConfig.impl), as the routes here that compute the same
+IMPL_ALIASES = {"xla": "torch", "pallas": "kernel"}
+
+
+def resolve_impl(impl: str, device, fused=None) -> str:
+    """A kernel wrapper's route: "torch" (the plain PyTorch version),
+    "kernel" (the hand-written kernels) or "fused" (ba.run's whole LM solve
+    in one launch). The JAX package's names map onto them: "xla" is
+    "torch", "pallas" "kernel" (its per-iteration kernels) and "fused"
+    "fused". `fused` says whether the caller's fused route serves this
+    problem (None: the caller has none, and "fused" takes its kernels).
+    "auto" gives "torch" for CPU tensors and, for CUDA tensors, "fused"
+    where that serves and "kernel" elsewhere; an explicit "fused" that does
+    not serve raises."""
     if impl == "auto":
-        return "kernel" if device.type == "cuda" else "torch"
+        if device.type != "cuda":
+            return "torch"
+        return "fused" if fused else "kernel"
+    impl = IMPL_ALIASES.get(impl, impl)
+    if impl == "fused":
+        if fused is None:
+            return "kernel"
+        if not fused:
+            raise ValueError("impl 'fused' cannot serve this problem (the whole LM solve in one "
+                             "launch serves up to 37 views)")
+        return impl
     if impl not in ("torch", "kernel"):
-        raise ValueError(f"unknown impl {impl!r} (expected auto|torch|kernel)")
+        raise ValueError(f"unknown impl {impl!r} (expected auto|torch|kernel|fused, or the JAX "
+                         "package's xla|pallas)")
     return impl
 
 

@@ -37,7 +37,10 @@ def make_sharded_ba(mesh: Mesh, optimize_points: bool = True,
     (T_r, V, 2), mask (T_r, V), the cameras whole. The result's points are
     every rank's, all-gathered in rank order. `impl` ("kernel" | "torch",
     default config.impl) picks the per-shard stages as ba.run does: with
-    no card, the plain versions."""
+    no card, the plain versions. The sharded BA has no whole-solve launch
+    (its cost and system are summed over the ranks every iteration), so
+    "fused" and "auto" run the per-iteration kernels on the card, as the
+    JAX package's sharded BA keeps its two kernels."""
 
     def run(cams: cam_mod.CameraSet, points4, obs, mask) -> ba.BAResult:
         route = resolve_impl(config.impl if impl is None else impl, obs.device)

@@ -17,14 +17,27 @@ Per-observation tensors keep the track dimension T minor-most: r (V,2,T),
 Jc (V,2,6,T), Jp (V,2,3,T).
 
 `run` drives one LM loop of three stages (solvers/ba_kernels.py):
-assemble → camera solve + retract → point update + cost + accept. With
-impl "kernel" each stage is a hand-written CUDA kernel, with impl "torch"
-its plain PyTorch version. The points and cameras live in LM buffers of two
-halves; the scalar state names the current one, and an accepted step flips
-it. On the card the loop runs ``max_iterations`` times with no host sync
-for either impl (a device `done` flag turns the converged iterations into
-no-ops) and reads the state once at the end; on the CPU, where reading
-`done` syncs nothing, it stops at convergence.
+assemble → camera solve + retract → point update + cost + accept. It takes
+one of three routes (config.impl, kernel_build.resolve_impl):
+  - "fused": the whole solve in one cooperative CUDA launch (lm_fused,
+    ba_kernels.lm_solve), which stops at convergence on the device. "auto"
+    takes it on the card wherever ba_kernels.fused_fits holds: up to 37
+    views, which covers the local BAs, the 16-view global BAs and the
+    testbench. The gate is the card's, not the JAX package's
+    ba_fused.fits(): there the whole problem had to sit in VMEM; here the
+    problem lives in device memory, and the limit is the one-CTA camera
+    solve, whose (6V)² matrix fills one SM's shared memory at 37 views.
+  - "kernel": the hand-written CUDA kernels one iteration at a time
+    (ba_kernels.lm_iterate), which serve any size: "auto" takes it on the
+    card from 38 views up (phase 9's 64-view global BAs, the many-view
+    problems). The loop enqueues ``max_iterations`` iterations with no host
+    sync; a device `done` flag turns the converged ones into no-ops.
+  - "torch": their plain PyTorch versions in the same loop ("auto" on the
+    CPU, where reading `done` syncs nothing and the loop stops there).
+The JAX package's "xla" and "pallas" name the "torch" and "kernel" routes.
+Nothing falls back: a route that cannot serve a problem raises. The points
+and cameras live in LM buffers of two halves; the scalar state names the
+current one, and an accepted step flips it.
 """
 
 from __future__ import annotations
@@ -402,38 +415,26 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
 
     recorder = profiling.ba_recorder()
     t0 = time.perf_counter()
-    impl = resolve_impl(config.impl, obs.device)
     kind = cams.kind
-    T = obs.shape[0]
+    T, V = obs.shape[0], len(cams)
+    fits = config.impl in ("auto", "fused") and bk.fused_fits(V, T, obs.device)
+    route = resolve_impl(config.impl, obs.device, fused=fits)
     pT, obsT, maskT = prepare(points4, obs.to(torch.float32), mask)
     free = cam_mod.free_mask(cams).to(torch.float32).contiguous()
     pT2, rot2, camp2 = bk.lm_buffers(pT, cams.rot.to(torch.float32), pack_camp(cams))
-    hub = float(config.huber_delta)
-    if impl == "kernel":
-        assemble, solve = bk.schur_assemble, bk.camera_solve
+    args = (kind, pT2, obsT, maskT, rot2, camp2, free, float(config.huber_delta),
+            optimize_points, bk.LMConfig.of(config), config.max_iterations)
+    if route == "fused":
+        final = bk.lm_solve(*args)
     else:
-        assemble, solve = bk.normal_eq_schur_ref, bk.camera_solve_ref
-    update = bk.PointUpdateCost(kind, pT2, obsT, maskT, rot2, camp2, free, hub, optimize_points,
-                                bk.LMConfig.of(config), plain=impl == "torch")
-
-    state = torch.zeros((2, bk.STATE_SIZE), dtype=torch.float32, device=obs.device)
-    update(None, state[0])
-    for it in range(config.max_iterations):
-        s_in, s_out = state[it % 2], state[(it + 1) % 2]
-        S, dU, rhs = assemble(kind, pT2, obsT, maskT, rot2, camp2, free, s_in, hub,
-                              optimize_points)
-        delta = solve(kind, S, dU, rhs, free, s_in, rot2, camp2)
-        update(s_in, s_out, delta)
-        if obs.device.type == "cpu" and bool(s_out[bk.DONE] != 0):
-            state[config.max_iterations % 2] = s_out
-            break
-    final = state[config.max_iterations % 2]
+        final = bk.lm_iterate(*args, plain=route == "torch",
+                              stop_at_done=obs.device.type == "cpu")
     rot, camp, pT = (bk.current(x, final) for x in (rot2, camp2, pT2))
     cams_f = cams.replace(rot=rot, offset=camp[:, 3:5].contiguous(), scale=camp[:, 0].contiguous())
     res = BAResult(cams=cams_f, points=pT.T[:T], cost=final[bk.COST],
                    initial_cost=final[bk.INIT_COST], iterations=final[bk.ITERS].to(torch.int32))
     if recorder is not None:
-        recorder.add(len(cams), config.max_iterations, res.iterations, time.perf_counter() - t0)
+        recorder.add(V, route, config.max_iterations, res.iterations, time.perf_counter() - t0)
     return res
 
 

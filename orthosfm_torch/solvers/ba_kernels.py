@@ -1,8 +1,11 @@
-"""The three stages of one bundle-adjustment LM iteration: hand-written CUDA
-kernels for Hopper (orthosfm_torch/csrc/ba_kernels.cu) and, beside each, its
-plain PyTorch version.
+"""The bundle-adjustment LM solve on the card: hand-written CUDA kernels for
+Hopper (orthosfm_torch/csrc/ba_kernels.cu) and, beside each, its plain
+PyTorch version.
 
   stage                 kernel wrapper       plain version          replaces (JAX package)
+  the whole LM solve    lm_solve             lm_solve_ref           ba_fused.run_lm (one launch;
+  (up to 37 views)      (lm_fused, one       (the plain stages      the solve, the loop and its
+                        cooperative launch)  in a loop)             stop in one kernel)
   assemble              schur_assemble       normal_eq_schur_ref    ba_pallas.normal_eq_schur,
                                                                     ba_fused.run_lm pass 1
   camera solve+retract  camera_solve         camera_solve_ref       ba_fused._gauss_jordan and the
@@ -15,6 +18,14 @@ plain PyTorch version.
   accept (sharded LM)   lm_accept (K4)       lm_accept_state_ref      ba.py:444-513 with
                                                                     cost_reduce_fn (psum)
 
+lm_solve runs the initial cost and every iteration of K1, K3 and K2 with
+its accept rule in one cooperative launch (lm_fused), with the same work
+items and sum orders as those kernels launched one iteration at a time
+(lm_iterate), so the two agree bit for bit; it stops at convergence on the
+card. It serves up to FUSED_MAX_VIEWS views (fused_fits): its camera solve
+is K3's one-warp or one-CTA route, in one SM's shared memory. lm_iterate
+runs every size, one iteration at a time.
+
 K3 has four routes (CAMERA_SOLVE_ROUTES): one warp, one CTA, a cluster of 8
 CTAs and the grid route over the whole card; camera_solve_route(V) names the
 one it takes for V views. The sharded LM (parallel/ba_sharded.py) runs K2 in
@@ -23,14 +34,15 @@ that cost over the shards and runs K4 on the sum.
 
 A wrapper given CPU tensors calls the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
-integer attribute (``schur_assemble.launches``, ``camera_solve.launches``
-and ``camera_solve.route_launches`` by route, ``PointUpdateCost.launches``,
-``lm_accept.launches``); ``launch_counts()`` reads them by kernel name.
+integer attribute (``lm_solve.launches``, ``schur_assemble.launches``,
+``camera_solve.launches`` and ``camera_solve.route_launches`` by route,
+``PointUpdateCost.launches``, ``lm_accept.launches``); ``launch_counts()``
+reads them by kernel name.
 
 The scalar LM state is a float tensor of STATE_SIZE entries
-[λ, cost, iterations, done, initial cost, current half, 0, 0]; ba.run keeps
-two slots and alternates them, so each iteration reads one and writes the
-other. The LM buffers (``lm_buffers``) hold the points (2, 4, T), rotations
+[λ, cost, iterations, done, initial cost, current half, 0, 0]; lm_iterate
+keeps two slots and alternates them, so each iteration reads one and writes
+the other. The LM buffers (``lm_buffers``) hold the points (2, 4, T), rotations
 (2, V, 4) and packed camera params (2, V, 8) in two halves; the state's
 CUR slot names the current half. K1 reads it, K3 writes the candidate
 cameras and K2 the candidate points into the other half, and an accepted
@@ -73,6 +85,10 @@ _K2_VIEWS_PER_WARP = 4  # views each warp of K2 walks, up to _K2_MAXW warps
 # their per-view tables in shared memory up to ~600 and ~990 views and in
 # global memory past that; no kernel has a view limit but the card's memory.
 CAMERA_SOLVE_ROUTES = ("warp", "cta", "cluster", "grid")
+# lm_fused's limit: its camera solve is K3's one-CTA route, whose matrix
+# fills one SM's shared memory at 37 views (the card's library says so
+# itself, osfm_lm_fused_grid; this is the rule where there is no card)
+FUSED_MAX_VIEWS = 37
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,6 +291,10 @@ _SIGNATURES = {
     "osfm_point_update_cost": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                                _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
     "osfm_lm_accept": [_P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
+    "osfm_lm_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
+                      _F, _P],
+    "osfm_lm_fused_grid": [_I, _I],
     "osfm_camera_solve_route": [_I, _I],
     "osfm_camera_solve_scratch_floats": [_I, _I],
     "osfm_schur_table_floats": [_I],
@@ -369,6 +389,26 @@ def schur_plan(V: int, T: int) -> tuple:
     return ldx, n_chunks, math.ceil(n_chunks / cps), cps
 
 
+def _k1_scratch(V: int, plan: tuple, opt: bool) -> list:
+    """Floats of K1's scratch at V views with schur_plan's `plan`: the X
+    and Y columns (only when points move), the blocks' per-chunk sums and
+    the product's per-split tiles."""
+    ldx, n_chunks, n_split, _ = plan
+    nt = ldx // _PT
+    return [3 * _TC * n_chunks * ldx if opt else 0] * 2 + [
+        n_chunks * V * _NU, (n_split * nt * (nt + 1) // 2 if opt else 0) * _PT * _PT]
+
+
+def _workspace(sizes, device):
+    """One float buffer of the given sizes, each at a 16-byte aligned
+    offset: (the buffer, the device address of each part)."""
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + -(-size // 4) * 4)
+    ws = torch.empty((offsets[-1],), dtype=torch.float32, device=device)
+    return ws, [ws.data_ptr() + 4 * o for o in offsets[:-1]]
+
+
 @functools.lru_cache(maxsize=None)
 def _schur_table_floats(V: int) -> int:
     """Floats of K1's global camera tables at V views (0 below ~600)."""
@@ -389,20 +429,10 @@ def schur_assemble(kind, pT, obsT, maskT, rot, camp, free, state_in, huber_delta
     if out is None:
         out = torch.empty((n * n + 2 * n,), dtype=torch.float32, device=dev)
     _check("out", out, (n * n + 2 * n,), dev)
-    ldx, n_chunks, n_split, cps = schur_plan(V, T)
+    ldx, n_chunks, n_split, cps = plan = schur_plan(V, T)
     opt = bool(optimize_points)
-    nt = ldx // _PT
-    # one float workspace: the X and Y scratch (only when points move), the
-    # blocks' per-chunk sums and the product's per-split tiles, each at a
-    # 16-byte aligned offset
-    sizes = [3 * _TC * n_chunks * ldx if opt else 0] * 2 + [
-        n_chunks * V * _NU, (n_split * nt * (nt + 1) // 2 if opt else 0) * _PT * _PT]
-    offsets = [0]
-    for size in sizes:
-        offsets.append(offsets[-1] + -(-size // 4) * 4)
     n_tables = _schur_table_floats(V)
-    ws = torch.empty((offsets[-1] + n_tables,), dtype=torch.float32, device=dev)
-    Xk, Yk, vpart, Ppart, gcams = (ws.data_ptr() + 4 * o for o in offsets)
+    ws, (Xk, Yk, vpart, Ppart, gcams) = _workspace(_k1_scratch(V, plan, opt) + [n_tables], dev)
     gcams = gcams if n_tables else None
     counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     S, dU, rhs = schur_views(out, n)
@@ -562,17 +592,127 @@ def lm_accept(cost, state_in, state_out, cfg: LMConfig, plain: bool = False):
     lm_accept.launches += 1
 
 
+# ---------------------------------------------------------------------------
+# The whole LM solve
+
+
+def lm_iterate(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_points,
+               cfg: LMConfig, max_iterations: int, plain: bool, stop_at_done: bool):
+    """The LM loop one iteration at a time on the LM buffers pT (2, 4, T),
+    rot (2, V, 4) and camp (2, V, 8) (half 0 current): the initial cost,
+    then K1, K3 and K2 with its accept rule an iteration (or, with
+    plain=True or CPU tensors, their plain versions), each reading one
+    state slot and writing the other. With stop_at_done it reads the done
+    flag after every iteration and stops there (a host sync on the card);
+    without, it enqueues max_iterations iterations and the flag turns those
+    after convergence into no-ops on the device. Returns the final state
+    (STATE_SIZE,), whose CUR names the half that holds the result."""
+    if plain:
+        assemble, solve = normal_eq_schur_ref, camera_solve_ref
+    else:
+        assemble, solve = schur_assemble, camera_solve
+    update = PointUpdateCost(kind, pT, obsT, maskT, rot, camp, free, huber_delta,
+                             optimize_points, cfg, plain=plain)
+    state = torch.zeros((2, STATE_SIZE), dtype=torch.float32, device=pT.device)
+    update(None, state[0])
+    for it in range(max_iterations):
+        s_in, s_out = state[it % 2], state[(it + 1) % 2]
+        S, dU, rhs = assemble(kind, pT, obsT, maskT, rot, camp, free, s_in, huber_delta,
+                              optimize_points)
+        delta = solve(kind, S, dU, rhs, free, s_in, rot, camp)
+        update(s_in, s_out, delta)
+        if stop_at_done and bool(s_out[DONE] != 0):
+            return s_out
+    return state[max_iterations % 2]
+
+
+def lm_solve_ref(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_points,
+                 cfg: LMConfig, max_iterations: int):
+    """lm_fused's plain version: the plain stages in a loop that stops at
+    the done flag (lm_iterate, plain=True, stop_at_done=True). Returns the
+    final state (STATE_SIZE,)."""
+    return lm_iterate(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_points, cfg,
+                      max_iterations, plain=True, stop_at_done=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_grid(V: int) -> int:
+    """lm_fused's CTAs at V views on this card (0: it cannot serve V views)."""
+    return library().osfm_lm_fused_grid(V, _k2_warps(V))
+
+
+def _fused_scratch(V: int, T: int, opt: bool) -> list:
+    """Floats of lm_fused's workspace: K1's scratch (_k1_scratch), the
+    system S, dU, rhs, the step and K2's cost partials."""
+    n = 6 * V
+    return _k1_scratch(V, schur_plan(V, T), opt) + [n * n, n, n, n, math.ceil(T / _K2_TRACKS)]
+
+
+def fused_fits(V: int, T: int, device) -> bool:
+    """Whether lm_solve serves V views and T tracks on `device`. On the
+    card the library answers (osfm_lm_fused_grid: up to the one-CTA camera
+    solve's 37 views, with a cooperative grid of at least one CTA) and its
+    workspace must fit the card's memory; on the CPU, where lm_solve runs
+    its plain version, the same rule: 1 <= V <= FUSED_MAX_VIEWS."""
+    if V < 1 or T < 1:
+        return False
+    device = torch.device(device)
+    if device.type != "cuda":
+        return V <= FUSED_MAX_VIEWS
+    if _fused_grid(V) < 1:
+        return False
+    total = torch.cuda.get_device_properties(device).total_memory
+    return 4 * sum(_fused_scratch(V, T, True)) <= total
+
+
+def lm_solve(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_points,
+             cfg: LMConfig, max_iterations: int):
+    """lm_fused: the whole LM solve of lm_iterate, in one cooperative launch,
+    on the LM buffers pT (2, 4, T), rot (2, V, 4) and camp (2, V, 8) (half
+    0 current), stopping at convergence on the device; it agrees with the
+    per-iteration kernels bit for bit. Returns the final state (STATE_SIZE,),
+    whose CUR names the half that holds the result. Raises where fused_fits
+    refuses the problem. With CPU tensors, lm_solve_ref."""
+    if pT.device.type == "cpu":
+        if not fused_fits(obsT.shape[0], obsT.shape[2], "cpu"):
+            raise ValueError(f"lm_solve serves 1 to {FUSED_MAX_VIEWS} views, not {obsT.shape[0]}")
+        return lm_solve_ref(kind, pT, obsT, maskT, rot, camp, free, huber_delta,
+                            optimize_points, cfg, max_iterations)
+    V, T, dev = _check_problem(kind, pT, obsT, maskT, rot, camp, free)
+    if max_iterations < 0:
+        raise ValueError(f"max_iterations must be >= 0, not {max_iterations}")
+    if not fused_fits(V, T, dev):
+        raise ValueError(f"lm_fused cannot serve {V} views x {T} tracks on this card (up to "
+                         f"{FUSED_MAX_VIEWS} views)")
+    opt = bool(optimize_points)
+    ldx, n_chunks, n_split, cps = schur_plan(V, T)
+    ws, ptrs = _workspace(_fused_scratch(V, T, opt), dev)
+    counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
+    state = torch.empty((STATE_SIZE,), dtype=torch.float32, device=dev)
+    Xk, Yk, vpart, Ppart, S, dU, rhs, delta, parts = ptrs
+    err = library().osfm_lm_fused(
+        int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT), *_halves(rot),
+        *_halves(camp), _ptr(free), float(huber_delta), int(opt), V, T, ldx, n_chunks, n_split,
+        cps, _k2_warps(V), int(max_iterations), Xk, Yk, _ptr(counts), vpart, Ppart, S, dU, rhs,
+        delta, parts, _ptr(state), cfg.lam0, cfg.func_tol, cfg.lam_up, cfg.lam_down,
+        cfg.min_lam, cfg.max_lam, _stream())
+    _raise_on(err, "lm_solve")
+    lm_solve.launches += 1
+    return state
+
+
 def reset_launch_counts():
     schur_assemble.launches = camera_solve.launches = PointUpdateCost.launches = 0
-    lm_accept.launches = 0
+    lm_accept.launches = lm_solve.launches = 0
     camera_solve.route_launches = dict.fromkeys(CAMERA_SOLVE_ROUTES, 0)
 
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset_launch_counts(), by name
-    (K4 lm_accept: its own launches, the sharded LM's; unsharded its rule
-    runs in K2's last CTA)."""
-    return {"schur_assemble": schur_assemble.launches, "camera_solve": camera_solve.launches,
+    (lm_solve: lm_fused's, one a BA; K4 lm_accept: its own launches, the
+    sharded LM's; unsharded its rule runs in K2's last CTA)."""
+    return {"lm_solve": lm_solve.launches, "schur_assemble": schur_assemble.launches,
+            "camera_solve": camera_solve.launches,
             "point_update_cost": PointUpdateCost.launches, "lm_accept": lm_accept.launches}
 
 

@@ -14,8 +14,10 @@ solver) → metrics.pose_errors.
 
 On the card it first builds the BA kernels, then times `runs`
 reconstructions (the first cold, the rest warm), each to a
-torch.cuda.synchronize(), with the launches of the BA kernels (K3 by route)
-and the bundle adjustments it ran (utils.profiling.BARecorder); then it
+torch.cuda.synchronize(), with the launches of the BA kernels (lm_fused,
+one a BA of up to 37 views; K1, K3 by route and K2 an iteration of the
+larger ones) and the bundle adjustments it ran, by route
+(utils.profiling.BARecorder); then it
 measures Tomasi-Kanade's peak device memory on the first group, and runs
 once more under utils.profiling.collect_stages for the share of the wall time in each
 stage of the pose estimation (each stage ends in a device barrier there).
@@ -138,7 +140,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         "jax_package": JAX_ACCURACY_DEG,
         "wall_s_runs": walls,
         "build_s": build_s,
-        "launches": {k: launches[k] for k in ("schur_assemble", "camera_solve",
+        "launches": {k: launches[k] for k in ("lm_solve", "schur_assemble", "camera_solve",
                                               "point_update_cost")},
         "camera_solve_routes": routes,
         "ba": ba_calls,

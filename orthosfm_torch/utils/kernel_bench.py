@@ -161,6 +161,79 @@ def time_ba_kernels(inputs):
     return out
 
 
+def wall_ms(fn, n=5):
+    """Mean host time of fn() to a torch.cuda.synchronize() after it, over n
+    calls: what a caller that waits for the result pays."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total * 1e3 / n
+
+
+def time_lm_solve(kind, device, num_views, n_tracks, config=None, opt=True, n=10):
+    """The whole LM solve on make_problem() at a size with `config` (the
+    main path's BundleAdjustConfig() by default: function tolerance 1e-6,
+    up to 100 iterations), three ways from the same LM buffers: lm_solve
+    (lm_fused, one launch), the per-iteration kernels (lm_iterate, which
+    enqueues max_iterations iterations) and the plain version lm_solve_ref
+    (its stages stop at the done flag, a host sync an iteration). Each
+    call first restores the buffers (three copies, timed alone as
+    reset_ms and taken off the device times). Returns each one's device
+    time a solve (CUDA events; the plain version's is its wall time), the
+    wall time a solve to a synchronize, the iterations that worked, ms per
+    iteration that worked, and lm_solve_work's bound for this run's
+    iterations."""
+    from orthosfm_torch.config import BundleAdjustConfig
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.roofline import bound, lm_solve_work
+
+    config = BundleAdjustConfig() if config is None else config
+    pT, obsT, maskT, rot, camp, free = stage_inputs(kind, device, num_views, n_tracks)
+    p0, r0, c0 = bk.lm_buffers(pT, rot, camp)
+    p2, r2, c2 = p0.clone(), r0.clone(), c0.clone()
+    cfg = bk.LMConfig.of(config)
+    args = (kind, p2, obsT, maskT, r2, c2, free, float(config.huber_delta), opt, cfg,
+            config.max_iterations)
+
+    def reset():
+        p2.copy_(p0)
+        r2.copy_(r0)
+        c2.copy_(c0)
+
+    def fused():
+        reset()
+        return bk.lm_solve(*args)
+
+    def per_iteration():
+        reset()
+        return bk.lm_iterate(*args, plain=False, stop_at_done=False)
+
+    def plain():
+        reset()
+        return bk.lm_solve_ref(*args)
+
+    iterations = int(fused()[bk.ITERS])
+    reset_ms = cuda_ms(reset, n)
+    ms = cuda_ms(fused, n) - reset_ms
+    flops, nbytes, stages_ms = lm_solve_work(maskT, opt, iterations)
+    b_ms, b_by = bound(flops, nbytes)
+    out = {"views": num_views, "tracks": n_tracks, "iterations": iterations,
+           "max_iterations": config.max_iterations, "ms": ms,
+           "ms_per_iteration": ms / max(iterations, 1), "wall_ms": wall_ms(fused, n),
+           "per_iteration_ms": cuda_ms(per_iteration, n) - reset_ms,
+           "per_iteration_wall_ms": wall_ms(per_iteration, n),
+           "plain_ms": wall_ms(plain, max(1, n // 5)), "reset_ms": reset_ms,
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "stages_bound_ms": stages_ms}
+    out["per_iteration_ms_per_iteration"] = out["per_iteration_ms"] / max(iterations, 1)
+    return out
+
+
 def random_top2_set(device, D, n=8192):
     """Random unit descriptors, 11 views x n rows x D, and 8 pairs of them
     (bi, bj, counts i, counts j): exact ties (every database row of view 3

@@ -122,12 +122,13 @@ _BA_RECORDER: contextvars.ContextVar = contextvars.ContextVar("orthosfm_torch_ba
 
 class BARecorder:
     """Records every solvers.ba.run call made inside `recording()`: its
-    camera count, max_iterations, its BAResult.iterations tensor (read once,
-    in summary()) and the host time until it returned (its enqueue time on
-    the card, where ba.run does not wait for the device)."""
+    camera count, its route ("fused", "kernel" or "torch"), max_iterations,
+    its BAResult.iterations tensor (read once, in summary()) and the host
+    time until it returned (its enqueue time on the card, where ba.run does
+    not wait for the device)."""
 
     def __init__(self):
-        self.calls: List[Tuple[int, int, torch.Tensor, float]] = []
+        self.calls: List[Tuple[int, str, int, torch.Tensor, float]] = []
 
     @contextlib.contextmanager
     def recording(self):
@@ -137,27 +138,40 @@ class BARecorder:
         finally:
             _BA_RECORDER.reset(token)
 
-    def add(self, views: int, max_iterations: int, iterations: torch.Tensor, host_s: float):
-        self.calls.append((views, max_iterations, iterations, host_s))
+    def add(self, views: int, route: str, max_iterations: int, iterations: torch.Tensor,
+            host_s: float):
+        self.calls.append((views, route, max_iterations, iterations, host_s))
 
     def summary(self) -> dict:
-        """Calls, LM iterations launched (max_iterations each) and those that
-        did work, and the host's enqueue time per launched iteration; and
-        the same counts by the calls' camera count (`by_views`)."""
-        worked = ([int(x) for x in torch.stack([c[2] for c in self.calls]).cpu()]
+        """Calls, LM iterations launched and those that did work, and the
+        same counts by the calls' camera count (`by_views`) and by route
+        (`by_route`, with each route's host time). The per-iteration routes
+        launch max_iterations iterations a call, converged or not; the fused
+        route (one launch a call) runs the iterations that work and stops,
+        so there the two counts are the same. enqueue_ms_per_it: the host's
+        time per launched iteration of the per-iteration routes (0 without
+        one)."""
+        worked = ([int(x) for x in torch.stack([c[3] for c in self.calls]).cpu()]
                   if self.calls else [])
         by_views: Dict[int, dict] = {}
-        for (views, launched, _, _), w in zip(self.calls, worked):
-            row = by_views.setdefault(views, {"ba_calls": 0, "iterations_launched": 0,
-                                              "iterations_worked": 0})
-            row["ba_calls"] += 1
-            row["iterations_launched"] += launched
-            row["iterations_worked"] += w
-        launched = sum(c[1] for c in self.calls)
-        return {"ba_calls": len(self.calls), "iterations_launched": launched,
+        by_route: Dict[str, dict] = {}
+        for (views, route, max_it, _, host_s), w in zip(self.calls, worked):
+            launched = w if route == "fused" else max_it
+            for key, table in ((views, by_views), (route, by_route)):
+                row = table.setdefault(key, {"ba_calls": 0, "iterations_launched": 0,
+                                             "iterations_worked": 0})
+                row["ba_calls"] += 1
+                row["iterations_launched"] += launched
+                row["iterations_worked"] += w
+            by_route[route]["host_ms"] = by_route[route].get("host_ms", 0.0) + host_s * 1e3
+        per_it = [r for k, r in by_route.items() if k != "fused"]
+        per_it_launched = sum(r["iterations_launched"] for r in per_it)
+        return {"ba_calls": len(self.calls),
+                "iterations_launched": sum(r["iterations_launched"] for r in by_route.values()),
                 "iterations_worked": sum(worked),
-                "enqueue_ms_per_it": sum(c[3] for c in self.calls) * 1e3 / max(launched, 1),
-                "by_views": by_views}
+                "enqueue_ms_per_it": (sum(r["host_ms"] for r in per_it) / per_it_launched
+                                      if per_it_launched else 0.0),
+                "by_views": by_views, "by_route": by_route}
 
 
 def ba_recorder():

@@ -58,6 +58,26 @@ def ba_work(maskT, opt):
             "point_update_cost": k2, "lm_accept": (0.0, 4 + 2 * 32)}
 
 
+def lm_solve_work(maskT, opt, iterations):
+    """(flops, bytes) of lm_fused's whole solve on this problem: the initial
+    cost (K2's cost pass, ~18 FMA an observation) and, for each of the
+    `iterations` that ran, K1 + K3 + K2 of ba_work; the inputs (pT, obsT,
+    maskT, rot, camp, free) read once and the outputs (both halves of the
+    points and cameras, the state) written once: the stages' intermediates
+    (S, the step, the scratch) never need to leave the chip. Also the sum
+    of the stages' own bounds over the iterations (`stages_bound_ms`),
+    what the per-iteration kernels could reach at best."""
+    V, T = maskT.shape
+    w = ba_work(maskT, opt)
+    n_obs = float((maskT != 0).sum())
+    per_it = sum(w[k][0] for k in ("schur_assemble", "camera_solve", "point_update_cost"))
+    flops = 2 * 18 * n_obs + iterations * per_it
+    nbytes = 16 * T + 12 * V * T + 72 * V + 2 * (16 * T + 48 * V) + 32
+    stages = iterations * sum(bound(*w[k])[0] for k in ("schur_assemble", "camera_solve",
+                                                         "point_update_cost"))
+    return flops, nbytes, stages
+
+
 def top2_work(stack, ci, cj):
     """(flops, bytes) of one product per pair, both directions' outputs: 2 D
     FMA operations per (query, database) pair of valid rows; each valid

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Speed-of-light accounting of the port's four kernels on one H100: the
+"""Speed-of-light accounting of the port's kernels on one H100: the
 counterpart of scripts/roofline.py (the JAX package's TPU roofline) and of
-scripts/ablate_ba_fused.py (the port has no single-kernel LM to ablate; its
-counterpart is the per-stage table of one LM iteration below).
+scripts/ablate_ba_fused.py (the per-stage table of one LM iteration below,
+beside the whole solve in one launch).
 
 For each kernel it takes the FLOP and byte counts of orthosfm_torch/utils/
 roofline.py (the count chip_smoke.py's kernels line reads) at this run's
@@ -16,11 +16,17 @@ bandwidth (3.35 TB/s), and the share of the bound it reaches:
     standard BA problem), 64 x 4096 and 64 x 50000 (the many-view run's
     global BA), quaternion cameras, points optimized;
   - top2 on 8 pairs of random unit descriptors, 8192 x 128, both directions
-    from one launch.
+    from one launch;
+  - lm_fused, the whole LM solve in one cooperative launch, at
+    FUSED_SHAPES (16 x 8192, and phase 9's local BA, 3 x 50000), 30
+    iterations that all work: its work is the initial cost and K1 + K3 + K2
+    an iteration, its bytes the inputs read once and the outputs written
+    once (utils/roofline.py lm_solve_work), beside the sum of the three
+    stages' own bounds over the iterations.
 The per-stage table of one LM iteration at each BA shape puts K1 + K3 + K2's
 device time beside the host's enqueue time an iteration and ba.run's wall
 time an iteration (30 iterations, function_tolerance 0): whichever is larger
-sets BA's pace.
+sets BA's pace; and, where it serves, lm_fused's device time an iteration.
 
     python3 scripts/torch_roofline.py [--json OUT]
 
@@ -38,6 +44,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 BA_SHAPES = ((16, 8192), (64, 4096), (64, 50000))
+FUSED_SHAPES = ((16, 8192), (3, 50000))
 LM_ITERATIONS = 30
 
 
@@ -91,10 +98,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi)
+    from orthosfm_torch.config import BundleAdjustConfig
     from orthosfm_torch.ops import matching_kernels as mk
     from orthosfm_torch.utils.kernel_bench import (cuda_ms, random_top2_set, stage_inputs,
-                                                   time_ba_kernels)
-    from orthosfm_torch.utils.roofline import F32_FLOPS, HBM_BYTES, ba_work, top2_work
+                                                   time_ba_kernels, time_lm_solve)
+    from orthosfm_torch.utils.roofline import (F32_FLOPS, HBM_BYTES, ba_work, lm_solve_work,
+                                               top2_work)
 
     device = torch.device("cuda:0")
     out = {"card": smi, "peaks": {"f32_flops": F32_FLOPS, "hbm_bytes_per_s": HBM_BYTES},
@@ -139,6 +148,26 @@ def main() -> int:
               f"{t['point_update_cost_with_tail_ms']:.4f} = {t['device_ms']:.4f} device; "
               f"enqueue {t['host_enqueue_ms']:.4f}; ba.run {t['ba_run_ms']:.4f} "
               f"({t['paced_by']}-paced)")
+    cfg = BundleAdjustConfig(max_iterations=LM_ITERATIONS, function_tolerance=0.0,
+                             min_lambda=1e-12)
+    out["lm_fused"] = {}
+    for num_views, n_tracks in FUSED_SHAPES:
+        label = f"{num_views}x{n_tracks}"
+        t = time_lm_solve("quat", device, num_views, n_tracks, cfg)
+        flops, nbytes, stages_ms = lm_solve_work(stage_inputs("quat", device, num_views,
+                                                              n_tracks)[2], True, t["iterations"])
+        r = out["lm_fused"][label] = {**row("lm_fused", flops, nbytes, t["ms"]), **t}
+        if label in out["lm_iteration"]:
+            out["lm_iteration"][label]["lm_fused_ms_per_it"] = t["ms_per_iteration"]
+        print(f"{'lm_fused':18s} {label:9s} {r['flops'] / 1e9:9.4f} {r['bytes'] / 1e6:9.3f} "
+              f"{r['ms']:9.4f} {r['tflops']:8.3f} {r['gb_per_s']:8.1f} {r['pct_f32_peak']:6.2f} "
+              f"{r['pct_hbm']:6.2f} {r['bound_ms']:9.5f} {r['bound_by']:10s} "
+              f"{r['pct_of_bound']:7.2f}  ({t['iterations']} iterations; the stages' bounds "
+              f"{stages_ms:.5f} ms; per-iteration kernels {t['per_iteration_ms']:.4f} ms)")
+    for label, t in out["lm_iteration"].items():
+        if "lm_fused_ms_per_it" in t:
+            print(f"  {label:9s} lm_fused {t['lm_fused_ms_per_it']:.4f} ms an iteration, one "
+                  f"launch a solve")
     print(json.dumps(out))
     if args.json:
         with open(args.json, "w") as f:

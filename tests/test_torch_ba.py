@@ -338,12 +338,14 @@ def test_wrappers_use_plain_versions_on_cpu():
     cfg = BundleAdjustConfig(max_iterations=4, function_tolerance=0.0, impl="kernel")
     r_k = ba.run(tc, tp, to, tm, True, cfg)
     r_t = ba.run(tc, tp, to, tm, True, dataclasses.replace(cfg, impl="torch"))
-    assert bk.launch_counts() == {"schur_assemble": 0, "camera_solve": 0, "point_update_cost": 0,
-                                  "lm_accept": 0}
-    np.testing.assert_array_equal(n(r_k.points), n(r_t.points))
-    assert float(r_k.cost) == float(r_t.cost)
-    with pytest.raises(ValueError):
-        ba.run(tc, tp, to, tm, True, dataclasses.replace(cfg, impl="xla"))
+    r_f = ba.run(tc, tp, to, tm, True, dataclasses.replace(cfg, impl="fused"))
+    assert bk.launch_counts() == {"lm_solve": 0, "schur_assemble": 0, "camera_solve": 0,
+                                  "point_update_cost": 0, "lm_accept": 0}
+    for r in (r_k, r_f):
+        np.testing.assert_array_equal(n(r.points), n(r_t.points))
+        assert float(r.cost) == float(r_t.cost)
+    with pytest.raises(ValueError, match="impl"):
+        ba.run(tc, tp, to, tm, True, dataclasses.replace(cfg, impl="fast"))
 
 
 def test_wrapper_argument_checks():

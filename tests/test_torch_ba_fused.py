@@ -1,0 +1,161 @@
+"""The port's whole-solve LM (solvers/ba_kernels.py lm_solve, whose CUDA
+kernel is lm_fused, and its plain version lm_solve_ref) against the JAX
+package's fused LM kernel (orthosfm_tpu/solvers/ba_fused.py run_lm) run in
+interpret mode, on the CPU, where lm_solve runs lm_solve_ref.
+
+The problem is the JAX package's own test problem (tests/test_ba_pallas.py
+_problem: 8 views x 1024 tracks) and the tolerances are its own for its
+fused kernel against its XLA path (tests/test_ba_fused.py:54-109): both
+sides are f32 and differ in the order of their sums and in the solve (LU
+here, Gauss-Jordan there). The CUDA kernel itself is held to lm_solve_ref
+and, bit for bit, to the per-iteration kernels in tests/test_torch_cuda.py,
+on the card."""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_port_helpers import n, t
+from tests.test_ba_pallas import _problem as _make_problem
+from tests.test_ba_fused import _fused_inputs
+
+from orthosfm_tpu.config import BundleAdjustConfig as JBAConfig
+from orthosfm_tpu.core import cameras as jcam
+from orthosfm_tpu.solvers import ba as jba
+
+from orthosfm_torch import kernel_build
+from orthosfm_torch.config import BundleAdjustConfig
+from orthosfm_torch.core import cameras as cam_mod
+from orthosfm_torch.solvers import ba
+from orthosfm_torch.solvers import ba_kernels as bk
+
+
+@functools.lru_cache(maxsize=None)
+def _problem(kind, num_views=8, n_points=1024):
+    return _make_problem(kind, num_views=num_views, n_points=n_points)
+
+
+def _fixed_03(cams):
+    return cams.replace(fixed=jnp.zeros(8, bool).at[0].set(True).at[3].set(True))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fused(kind, optimize_points, max_iterations, fixed=False):
+    """The JAX package's fused LM kernel in interpret mode on the problem
+    (cameras 0 and 3 fixed with `fixed`)."""
+    cams, points, obs, mask = _problem(kind)
+    if fixed:
+        cams = _fixed_03(cams)
+    cfg = JBAConfig(max_iterations=max_iterations, function_tolerance=0.0, min_lambda=1e-12,
+                    use_pallas=False)
+    pT, obsT, maskT = _fused_inputs(cams, points, obs, mask)
+    return jba._run_fused(cams, pT, obsT, maskT, jcam.free_mask(cams), optimize_points, cfg,
+                          n_tracks=obs.shape[0], interpret=True)
+
+
+def _port(kind, optimize_points, max_iterations, fixed=False):
+    """The port's two whole solves on the same problem: lm_solve_ref on the
+    LM buffers ba.run builds, as (rot, offset, points, cost, initial cost,
+    iterations), and ba.run(impl="fused")."""
+    cams, points, obs, mask = _problem(kind)
+    if fixed:
+        cams = _fixed_03(cams)
+    tc, tp, to, tm = cam_mod.from_numpy(cams), t(points), t(obs), t(mask)
+    cfg = BundleAdjustConfig(max_iterations=max_iterations, function_tolerance=0.0,
+                             min_lambda=1e-12, impl="fused")
+    pT, obsT, maskT = ba.prepare(tp, to, tm)
+    p2, r2, c2 = bk.lm_buffers(pT, tc.rot, ba.pack_camp(tc))
+    st = bk.lm_solve_ref(kind, p2, obsT, maskT, r2, c2, cam_mod.free_mask(tc).float(), 1.0,
+                         optimize_points, bk.LMConfig.of(cfg), max_iterations)
+    p, r, c = (bk.current(x, st) for x in (p2, r2, c2))
+    ref = (r, c[:, 3:5], p.T, st[bk.COST], st[bk.INIT_COST], int(st[bk.ITERS]))
+    res = ba.run(tc, tp, to, tm, optimize_points, cfg)
+    run = (res.cams.rot, res.cams.offset, res.points, res.cost, res.initial_cost,
+           int(res.iterations))
+    return cams, ref, run
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+@pytest.mark.parametrize("optimize_points", [True, False])
+def test_single_step_matches_fused_interpret(kind, optimize_points):
+    rf = _jax_fused(kind, optimize_points, 1)
+    _, ref, run = _port(kind, optimize_points, 1)
+    for rot, offset, points, cost, init_cost, iters in (ref, run):
+        np.testing.assert_allclose(float(init_cost), float(rf.initial_cost), rtol=1e-5)
+        np.testing.assert_allclose(float(cost), float(rf.cost), rtol=1e-3)
+        np.testing.assert_allclose(n(rot), n(rf.cams.rot), rtol=1e-4, atol=2e-6)
+        np.testing.assert_allclose(n(offset), n(rf.cams.offset), atol=1e-5)
+        if optimize_points:
+            np.testing.assert_allclose(n(points), n(rf.points), rtol=1e-3, atol=1e-5)
+        assert iters == int(rf.iterations) == 1
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+def test_full_lm_converges_like_fused_interpret(kind):
+    """Fifteen iterations reach the JAX kernel's reduction (the accept and
+    reject sequences may part once f32 rounding differs, so the reduction
+    ratios are compared, as tests/test_ba_fused.py:75-82 does)."""
+    rf = _jax_fused(kind, True, 15)
+    _, ref, run = _port(kind, True, 15)
+    for _, _, _, cost, init_cost, iters in (ref, run):
+        assert float(cost) < float(init_cost) * 1e-2, kind
+        assert float(cost) < float(rf.cost) * 1.5 + 1e-6
+        assert iters >= 1
+
+
+def test_fixed_cameras_stay_fixed():
+    """Cameras 0 and 3 fixed: they come back bit-identical, in both of the
+    port's solves and in the JAX kernel's."""
+    rf = _jax_fused("quat", True, 3, fixed=True)
+    cams, ref, run = _port("quat", True, 3, fixed=True)
+    for rot, offset in ((ref[0], ref[1]), (run[0], run[1]), (rf.cams.rot, rf.cams.offset)):
+        np.testing.assert_array_equal(n(rot[0]), np.asarray(cams.rot[0]))
+        np.testing.assert_array_equal(n(rot[3]), np.asarray(cams.rot[3]))
+        np.testing.assert_array_equal(n(offset[3]), np.asarray(cams.offset[3]))
+
+
+@pytest.mark.parametrize("views,fits", [(3, True), (37, True), (38, False)])
+def test_fused_gate(views, fits):
+    """lm_solve serves 1 to 37 views (the one-CTA camera solve's limit on
+    the card; the same rule here), whatever the track count."""
+    for tracks in (1, 1024, 50000):
+        assert bk.fused_fits(views, tracks, "cpu") is fits
+    assert kernel_build.resolve_impl("auto", torch.device("cpu"), fused=fits) == "torch"
+    assert kernel_build.resolve_impl("auto", torch.device("cuda"), fused=fits) == (
+        "fused" if fits else "kernel")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "fused"])
+def test_jax_impl_names_run_in_the_port(impl):
+    """A JAX-style BundleAdjustConfig(impl="xla" | "pallas" | "fused") runs
+    in the port: on the CPU each gives the plain route's bits."""
+    cams, points, obs, mask = _problem("euler")
+    args = (cam_mod.from_numpy(cams), t(points), t(obs), t(mask), True)
+    cfg = BundleAdjustConfig(max_iterations=3, function_tolerance=0.0)
+    got = ba.run(*args, dataclasses.replace(cfg, impl=impl))
+    ref = ba.run(*args, dataclasses.replace(cfg, impl="torch"))
+    assert torch.equal(got.points, ref.points) and torch.equal(got.cams.rot, ref.cams.rot)
+    assert float(got.cost) == float(ref.cost) and int(got.iterations) == int(ref.iterations)
+    route = kernel_build.resolve_impl(impl, torch.device("cuda"), fused=True)
+    assert route == {"xla": "torch", "pallas": "kernel", "fused": "fused"}[impl]
+
+
+def test_fused_raises_past_37_views():
+    from orthosfm_torch.testbench.problems import make_problem
+
+    cams, points, obs, mask = make_problem("quat", "cpu", 38, 64)
+    with pytest.raises(ValueError, match="fused"):
+        ba.run(cams, points, obs, mask, True, BundleAdjustConfig(max_iterations=1, impl="fused"))
+    pT, obsT, maskT = ba.prepare(points, obs, mask)
+    p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
+    with pytest.raises(ValueError, match="37 views"):
+        bk.lm_solve("quat", p2, obsT, maskT, r2, c2, cam_mod.free_mask(cams).float(), 1.0, True,
+                    bk.LMConfig.of(BundleAdjustConfig()), 1)
+    # the sharded BA has no fused route: "fused" keeps its per-iteration kernels
+    assert kernel_build.resolve_impl("fused", torch.device("cuda")) == "kernel"
+    with pytest.raises(ValueError, match="impl"):
+        kernel_build.resolve_impl("fast", torch.device("cpu"))

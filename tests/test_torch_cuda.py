@@ -184,8 +184,8 @@ def test_ba_run_kernel_path_converges_like_plain(dev, kind):
     r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
     # three wrapper calls an iteration and one for the initial cost; no
     # separate accept kernel
-    assert counts == {"schur_assemble": 15, "camera_solve": 15, "point_update_cost": 16,
-                      "lm_accept": 0}, counts
+    assert counts == {"lm_solve": 0, "schur_assemble": 15, "camera_solve": 15,
+                      "point_update_cost": 16, "lm_accept": 0}, counts
     np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
     assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
     assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
@@ -429,6 +429,139 @@ def test_wrappers_reject_bad_inputs(dev):
     shifted = torch.empty(S.numel() + 1, device=dev)[1:].view_as(S).copy_(S)
     with pytest.raises(ValueError, match="aligned"):
         bk.camera_solve("quat", shifted, dU, rhs, free, state, r2, c2)
+
+
+# ---------------------------------------------------------------------------
+# lm_fused: the whole LM solve in one cooperative launch
+
+
+def _same_result(a, b):
+    """Two BAResults bit for bit: cameras, points, costs, iterations."""
+    return (torch.equal(a.cams.rot, b.cams.rot) and torch.equal(a.cams.offset, b.cams.offset)
+            and torch.equal(a.cams.scale, b.cams.scale) and torch.equal(a.points, b.points)
+            and float(a.cost) == float(b.cost) and float(a.initial_cost) == float(b.initial_cost)
+            and int(a.iterations) == int(b.iterations))
+
+
+def _rejecting(cams):
+    """Every free camera's scale 2.5 times too large (scale is pinned, so no
+    step repairs it): from lambda_0 = 1e-2 the first LM steps are rejected."""
+    scale = cams.scale.clone()
+    scale[1:] *= 2.5
+    return cams.replace(scale=scale)
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+@pytest.mark.parametrize("optimize_points", [True, False])
+@pytest.mark.parametrize("shape", [(3, 7800), (8, 1000), (16, 3000), (37, 2048)])
+def test_lm_solve_is_the_per_iteration_kernels_bit_for_bit(dev, kind, optimize_points, shape):
+    """ba.run's fused route against its per-iteration kernels, to convergence
+    (the main path's config) and with the first steps rejected: the same
+    work items and sum orders, so the same bits and iteration count."""
+    cams, points, obs, mask = make_problem(kind, dev, *shape)
+    cfg = BundleAdjustConfig()
+    for c, config in ((cams, cfg), (_rejecting(cams), dataclasses.replace(cfg, initial_lambda=1e-2,
+                                                                          max_iterations=8))):
+        bk.reset_launch_counts()
+        r_f = ba.run(c, points, obs, mask, optimize_points, dataclasses.replace(config,
+                                                                                impl="fused"))
+        assert bk.launch_counts() == {"lm_solve": 1, "schur_assemble": 0, "camera_solve": 0,
+                                      "point_update_cost": 0, "lm_accept": 0}
+        r_k = ba.run(c, points, obs, mask, optimize_points, dataclasses.replace(config,
+                                                                                impl="kernel"))
+        assert _same_result(r_f, r_k), (float(r_f.cost), float(r_k.cost), int(r_f.iterations),
+                                        int(r_k.iterations))
+        assert 0 < int(r_f.iterations) <= config.max_iterations
+
+
+def test_lm_solve_rejected_steps_keep_the_start(dev):
+    """Two rejected steps leave the cameras and the cost as they were."""
+    cams, points, obs, mask = make_problem("quat", dev, 8, 1000)
+    cfg = BundleAdjustConfig(initial_lambda=1e-2, max_iterations=2, function_tolerance=0.0,
+                             impl="fused")
+    bad = _rejecting(cams)
+    r = ba.run(bad, points, obs, mask, True, cfg)
+    assert int(r.iterations) == 2 and float(r.cost) == float(r.initial_cost)
+    assert torch.equal(r.cams.rot, bad.rot)
+    r_k = ba.run(bad, points, obs, mask, True, dataclasses.replace(cfg, impl="kernel"))
+    assert _same_result(r, r_k)
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+def test_lm_solve_agrees_with_its_plain_version(dev, kind):
+    """lm_solve against lm_solve_ref: one iteration at the JAX package's
+    tolerances for its fused kernel (tests/test_ba_fused.py), and fifteen
+    converging like the plain version."""
+    cams, points, obs, mask = make_problem(kind, dev, 16, 3000)
+    for iters in (1, 15):
+        cfg = BundleAdjustConfig(max_iterations=iters, function_tolerance=0.0, min_lambda=1e-12)
+        pT, obsT, maskT = ba.prepare(points, obs, mask)
+        free = cam_mod.free_mask(cams).float().contiguous()
+        out = []
+        for solve in (bk.lm_solve, bk.lm_solve_ref):
+            p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
+            st = solve(kind, p2, obsT, maskT, r2, c2, free, 1.0, True, bk.LMConfig.of(cfg), iters)
+            out.append((st, *(bk.current(x, st) for x in (p2, r2, c2))))
+        (s_f, p_f, r_f, c_f), (s_r, p_r, r_r, c_r) = out
+        np.testing.assert_allclose(float(s_f[bk.INIT_COST]), float(s_r[bk.INIT_COST]), rtol=1e-5)
+        assert float(s_f[bk.ITERS]) == float(s_r[bk.ITERS]) == iters
+        if iters == 1:
+            np.testing.assert_allclose(float(s_f[bk.COST]), float(s_r[bk.COST]), rtol=1e-3)
+            torch.testing.assert_close(r_f, r_r, rtol=1e-4, atol=2e-6)
+            torch.testing.assert_close(c_f[:, 3:5], c_r[:, 3:5], rtol=0.0, atol=1e-5)
+            torch.testing.assert_close(p_f, p_r, rtol=1e-3, atol=1e-5)
+        else:
+            assert float(s_f[bk.COST]) < float(s_f[bk.INIT_COST]) * 1e-2
+            assert float(s_f[bk.COST]) < float(s_r[bk.COST]) * 1.5 + 1e-6
+
+
+def test_lm_solve_with_no_iterations_is_the_initial_cost(dev):
+    cams, points, obs, mask = make_problem("quat", dev, 3, 7800)
+    cfg = BundleAdjustConfig(max_iterations=0)
+    r_f = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="fused"))
+    r_k = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="kernel"))
+    assert _same_result(r_f, r_k) and int(r_f.iterations) == 0
+    assert float(r_f.cost) == float(r_f.initial_cost) > 0.0
+
+
+def test_fused_gate_is_the_cards(dev):
+    """The library serves 1 to 37 views (the one-CTA camera solve's limit)
+    with a grid of at least one CTA a SM; the CPU rule says the same."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for views in (1, 3, 5, 6, 16, 32, 33, 37):
+        assert bk._fused_grid(views) >= sms, views
+        assert bk.fused_fits(views, 2048, dev) and bk.fused_fits(views, 2048, "cpu")
+    for views in (38, 64, 200):
+        assert bk._fused_grid(views) == 0, views
+        assert not bk.fused_fits(views, 2048, dev) and not bk.fused_fits(views, 2048, "cpu")
+
+
+def test_ba_run_routes_by_views(dev):
+    """"auto" takes lm_solve, one launch a BA, up to 37 views and the
+    per-iteration kernels from 38; "fused" on 38 views raises, in ba.run and
+    in lm_solve; the JAX package's "pallas" is the per-iteration kernels and
+    "xla" the plain versions."""
+    cfg = BundleAdjustConfig(max_iterations=5, function_tolerance=0.0)
+    small = make_problem("quat", dev, 37, 500)
+    large = make_problem("quat", dev, 38, 500)
+    none = dict.fromkeys(("lm_solve", "schur_assemble", "camera_solve", "point_update_cost",
+                          "lm_accept"), 0)
+    fused = {**none, "lm_solve": 1}
+    per_iteration = {**none, "schur_assemble": 5, "camera_solve": 5, "point_update_cost": 6}
+    for problem, impl, launched in ((small, "auto", fused), (large, "auto", per_iteration),
+                                    (small, "fused", fused), (small, "pallas", per_iteration),
+                                    (small, "xla", none)):
+        bk.reset_launch_counts()
+        ba.run(*problem, True, dataclasses.replace(cfg, impl=impl))
+        assert bk.launch_counts() == launched, (impl, bk.launch_counts())
+    with pytest.raises(ValueError, match="fused"):
+        ba.run(*large, True, dataclasses.replace(cfg, impl="fused"))
+    cams, points, obs, mask = large
+    pT, obsT, maskT = ba.prepare(points, obs, mask)
+    p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
+    with pytest.raises(ValueError, match="37 views"):
+        bk.lm_solve("quat", p2, obsT, maskT, r2, c2, cam_mod.free_mask(cams).float(), 1.0, True,
+                    CFG, 5)
 
 
 # ---------------------------------------------------------------------------
@@ -708,8 +841,8 @@ def test_ba_run_past_shared_memory(dev, num_views):
     r_k = ba.run(cams, points, obs, mask, True, cfg)
     counts = bk.launch_counts()
     r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
-    assert counts == {"schur_assemble": 10, "camera_solve": 10, "point_update_cost": 11,
-                      "lm_accept": 0}, counts
+    assert counts == {"lm_solve": 0, "schur_assemble": 10, "camera_solve": 10,
+                      "point_update_cost": 11, "lm_accept": 0}, counts
     np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
     assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
     assert float(r_k.cost) < float(r_t.cost) * 1.5 + 1e-6
@@ -725,8 +858,8 @@ def test_ba_run_at_2000_views_runs_on_the_grid_route(dev):
     r_k = ba.run(cams, points, obs, mask, True, cfg)
     counts, routes = bk.launch_counts(), bk.route_launches()
     r_t = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
-    assert counts == {"schur_assemble": 10, "camera_solve": 10, "point_update_cost": 11,
-                      "lm_accept": 0}, counts
+    assert counts == {"lm_solve": 0, "schur_assemble": 10, "camera_solve": 10,
+                      "point_update_cost": 11, "lm_accept": 0}, counts
     assert routes["grid"] == 10, routes
     np.testing.assert_allclose(float(r_k.initial_cost), float(r_t.initial_cost), rtol=1e-5)
     assert float(r_k.cost) < float(r_k.initial_cost) * 1e-2
@@ -840,8 +973,8 @@ def test_sharded_ba_of_one_rank_over_nccl_is_ba_run(dev):
         counts = bk.launch_counts()
     finally:
         dist.destroy_process_group()
-    assert counts == {"schur_assemble": 15, "camera_solve": 15, "point_update_cost": 16,
-                      "lm_accept": 16}, counts
+    assert counts == {"lm_solve": 0, "schur_assemble": 15, "camera_solve": 15,
+                      "point_update_cost": 16, "lm_accept": 16}, counts
     assert torch.equal(res.cams.rot, ref.cams.rot) and torch.equal(res.points, ref.points)
     assert float(res.cost) == float(ref.cost) and int(res.iterations) == int(ref.iterations)
 

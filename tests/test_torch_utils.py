@@ -14,6 +14,7 @@ them.
 """
 
 import ast
+import dataclasses
 import json
 import pathlib
 import re
@@ -128,6 +129,47 @@ def test_ba_recorder_counts_the_calls_by_camera_count():
                                  "iterations_worked": worked[2]}}
     assert s["enqueue_ms_per_it"] > 0.0
     assert profiling.ba_recorder() is None
+
+
+def test_ba_recorder_counts_each_route():
+    """The fused route runs the iterations that work and stops, so its
+    launched iterations are those; the per-iteration routes launch
+    max_iterations a call, and only they give the host's time an
+    iteration."""
+    cfg = BundleAdjustConfig()  # converges well inside max_iterations
+    M = cfg.max_iterations
+    problem = make_problem("quat", "cpu", 3, 200)
+    recorder = profiling.BARecorder()
+    with recorder.recording():
+        r_f = ba.run(*problem, True, dataclasses.replace(cfg, impl="fused"))
+        r_t = ba.run(*problem, True, dataclasses.replace(cfg, impl="torch"))
+    s = recorder.summary()
+    worked = int(r_f.iterations)
+    assert int(r_t.iterations) == worked < M
+    assert s["by_route"]["fused"]["iterations_launched"] == worked
+    assert s["by_route"]["torch"]["iterations_launched"] == M
+    assert s["iterations_launched"] == M + worked and s["iterations_worked"] == 2 * worked
+    assert s["by_views"] == {3: {"ba_calls": 2, "iterations_launched": M + worked,
+                                 "iterations_worked": 2 * worked}}
+    assert s["enqueue_ms_per_it"] == pytest.approx(s["by_route"]["torch"]["host_ms"] / M)
+
+
+def test_lm_solve_work_is_the_stages_an_iteration():
+    maskT = torch.zeros((4, 10))
+    maskT[:2, :6] = 1.0  # 12 observations
+    work = roofline.ba_work(maskT, True)
+    stages = ("schur_assemble", "camera_solve", "point_update_cost")
+    flops, nbytes, stages_ms = roofline.lm_solve_work(maskT, True, 7)
+    assert flops == pytest.approx(2 * 18 * 12 + 7 * sum(work[k][0] for k in stages))
+    assert nbytes == 16 * 10 + 12 * 4 * 10 + 72 * 4 + 2 * (16 * 10 + 48 * 4) + 32
+    assert stages_ms == pytest.approx(7 * sum(roofline.bound(*work[k])[0] for k in stages))
+    assert roofline.lm_solve_work(maskT, True, 0)[0] == pytest.approx(2 * 18 * 12)
+    smoke, roof = ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_roofline.py"
+    _, roof_counts = _defined_and_imported(roof, "orthosfm_torch.utils.roofline")
+    _, roof_timing = _defined_and_imported(roof, "orthosfm_torch.utils.kernel_bench")
+    _, smoke_timing = _defined_and_imported(smoke, "orthosfm_torch.utils.kernel_bench")
+    assert "lm_solve_work" in roof_counts
+    assert "time_lm_solve" in roof_timing and "time_lm_solve" in smoke_timing
 
 
 def test_save_match_visualization_writes_the_jax_png_bytes(tmp_path):
