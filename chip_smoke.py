@@ -33,13 +33,15 @@ Phases:
      of 0 and 1 valid rows, against its plain version, a second run and
      the swapped pair table (bit for bit), timed beside its plain version,
      with the host's time a call; then lm_fused, the whole LM solve in one
-     cooperative launch (ba.run's route up to 37 views), against the
+     cooperative launch (ba.run's route up to 119 views; from 38 views in
+     clusters of 8 CTAs, its camera solve on the first), against the
      per-iteration kernels bit for bit (cameras, points, cost, initial
-     cost, iterations) at 3 x 7800, 16 x 8192, 3 x 50 000 and 37 x 2048,
-     both camera kinds, points optimized and fixed, camera 0 fixed, with
-     the main path's BA config and in a run with rejected steps; against
-     lm_solve_ref (one iteration at the JAX package's tolerances for its
-     fused kernel, and to convergence), and all three timed at each shape;
+     cost, iterations) at 3 x 7800, 16 x 8192, 3 x 50 000, 37 x 2048,
+     38 x 2048, 64 x 4096, 119 x 1024 and 64 x 50 000, both camera kinds,
+     points optimized and fixed, camera 0 fixed, with the main path's BA
+     config and in a run with rejected steps; against lm_solve_ref (one
+     iteration at the JAX package's tolerances for its fused kernel, and
+     to convergence), and all three timed at each shape;
   3. pose estimation from tracks (run_pose_estimation with the kernels) on
      the 16-view 2048^2 blob scene (7800 tracks), solvers 0 and 3,
      noise-free (mean angular error < 0.01 deg) and with sigma = 1 px pixel
@@ -48,9 +50,9 @@ Phases:
      iterations run by route, and the port's writers producing cameras.txt,
      sparse_cloud.ply, tracks.txt and time_measurements.txt;
   4. BA iterations/s of the fused route (lm_fused), the per-iteration
-     kernels and the plain PyTorch path on the standard problem, and of the
-     last two on a 64-view problem (64 x 4096 tracks), 30 iterations each,
-     in turns, and the host's time per iteration;
+     kernels and the plain PyTorch path on the standard problem and on a
+     64-view problem (64 x 4096 tracks), 30 iterations each, in turns, and
+     the host's time per iteration;
   5. the image front end at reference scale: 16 sphere views of 2048^2
      rendered on the card (seed 7, a 200 degree ring), then SIFT + SURF,
      pair matching through top2, RANSAC-F, union-find tracks and pose
@@ -93,16 +95,17 @@ Phases:
   9. the many-view reconstruction, the main path of the kernels line
      (testbench/scale_demo.py, the JAX package's scripts/scale_demo.py):
      64 views x 50 000 blob tracks at 1 px through run_pose_estimation
-     with the kernels (62 local BAs of 3 views, one lm_fused launch each,
-     and 21 global BAs over all 64 cameras, K1, K3 by its cluster route and
-     K2 an iteration), every view placed with a mean angular error
-     < 0.05 deg and a max < 0.1 deg, with the launches of lm_fused, K1, K3
-     (by route) and K2, the BAs run by route and their LM
-     iterations, TK's peak device memory and the share of each stage; then
-     profile_matching at 16 x 2048^2 (the front end's stage table, top2's
-     launches). Its counts are the kernels line's launches of lm_fused, K1,
-     K3, K2 and top2 (launches_phase names the phase of each kernel's
-     count).
+     with the kernels (62 local BAs of 3 views and 21 global BAs over all
+     64 cameras, one lm_fused launch each, the global ones on its cluster
+     route, and no launch of K1, K3 or K2), every view placed with a mean
+     angular error < 0.05 deg and a max < 0.1 deg, with the launches of
+     lm_fused, K1, K3 (by route) and K2, the BAs run by route and their
+     LM iterations, TK's peak device memory and the share of each stage;
+     then profile_matching at 16 x 2048^2 (the front end's stage table,
+     top2's launches). Its counts are the kernels line's launches of
+     lm_fused and top2; K1, K3 and K2, which this path runs only inside
+     lm_fused, give phase 8's, where the sharded BA launches them
+     (launches_phase names the phase of each kernel's count).
 
 Phase 2 also runs K3's grid route at 700, 1100 and 2000 views (n = 4200,
 6600, 12000) beside torch.linalg.solve_ex, held to an f64 solve (no further
@@ -152,11 +155,12 @@ SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
 # The unsharded BA (ba.run, phases 3 to 7 and 9) launches lm_fused once a BA
-# of up to 37 views, and K1, K3 and K2 an iteration for larger ones (phase
-# 9's 64-view global BAs); K4 lm_accept's rule runs there in K2's last CTA
-# (and in lm_fused), and as a launch of its own only in the sharded BA
-# (phase 8), whose count the kernels line gives it. The kernels line's
-# launches of lm_fused are the wrapper's, lm_solve.
+# of up to 119 views (every BA of those phases), and K1, K3 and K2 an
+# iteration for larger ones (phase 4's 700 to 2000 views); K4 lm_accept's
+# rule runs there in K2's last CTA (and in lm_fused), and as a launch of its
+# own only in the sharded BA (phase 8), whose count the kernels line gives
+# it, as it gives K1's, K3's and K2's. The kernels line's launches of
+# lm_fused are the wrapper's, lm_solve.
 UNSHARDED_BA = ("schur_assemble", "camera_solve", "point_update_cost")
 LAUNCH_KEY = {"lm_fused": "lm_solve"}
 # K3's grid route (camera_solve_grid in the kernels line): phase 2 at these
@@ -185,11 +189,14 @@ MANY_VIEWS, MANY_TRACKS, MANY_NOISE_PX = 64, 50000, 1.0
 MANY_LIMIT_MEAN_DEG, MANY_LIMIT_MAX_DEG = 0.05, 0.1
 # lm_fused (the whole LM solve in one launch) against the per-iteration
 # kernels, bit for bit, at the local BA (3 views) of phase 3 and of phase 9,
-# the standard problem and the one-CTA camera solve's edge (37 views); and
-# against its plain version after one iteration at the JAX package's
-# tolerances for its fused kernel (tests/test_ba_fused.py:54-72: f32 both,
-# other sum orders and another solve; the cost sits in a sharp valley)
-LM_FUSED_SHAPES = ((3, 7800), (16, 8192), (3, 50000), (37, 2048))
+# the standard problem, the one-CTA camera solve's edge (37 views), the
+# cluster's first (38) and last (119) in shared memory, 64 x 4096 and phase
+# 9's global BA (64 x 50 000); and against its plain version after one
+# iteration at the JAX package's tolerances for its fused kernel
+# (tests/test_ba_fused.py:54-72: f32 both, other sum orders and another
+# solve; the cost sits in a sharp valley)
+LM_FUSED_SHAPES = ((3, 7800), (16, 8192), (3, 50000), (37, 2048), (38, 2048), (64, 4096),
+                   (119, 1024), (MANY_VIEWS, MANY_TRACKS))
 # timed at those and at phase 3's size (16 views x 7800 tracks)
 LM_FUSED_TIMED = (*LM_FUSED_SHAPES, (N_VIEWS, 7800))
 # the rejecting run: every free camera's scale 2.5 times too large (pinned,
@@ -1439,8 +1446,10 @@ def run_many_views(device):
             f"many views: angular error {many['mean_angular_error_deg']} / "
             f"{many['max_angular_error_deg']}")
     require_routes(launches, ba_calls, "phase 9")
-    require(all(launches[name] > 0 for name in UNSHARDED_BA),
-            f"phase 9: the 64-view global BAs did not take the per-iteration kernels: {launches}")
+    require(ba_calls["global_ba_calls"] > 0 and all(launches[name] == 0 for name in UNSHARDED_BA)
+            and ba_calls["iterations_launched"] == ba_calls["iterations_worked"],
+            f"phase 9: the 64-view global BAs did not all run on lm_fused: {launches}, "
+            f"{ba_calls['by_route']}")
 
     mk.top2.launches = 0
     prof = profile_matching.profile_matching(FRONT_VIEWS, FRONT_WIDTH, device=device)
@@ -1600,13 +1609,14 @@ def main() -> int:
     print(f"total wall time {time.perf_counter() - t_all:.2f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: the main path, phase 9 (the many-view run's K1, K3
-    # and K2, profile_matching's top2); lm_accept's own launch and K3's grid
-    # route are not on it, and give phase 8's (the sharded BA). Each
+    # launches: the main path, phase 9 (the many-view run's lm_fused,
+    # profile_matching's top2); K1, K3 and K2 run there only inside
+    # lm_fused, and lm_accept's own launch and K3's grid route are not on
+    # it: they give phase 8's (the sharded BA, which launches them). Each
     # earlier phase's counts are in launches_by_phase.
     def main_path(name):
         key = LAUNCH_KEY.get(name, name)
-        return ("phase9", many_launches[key]) if key in many_launches else (
+        return ("phase9", many_launches[key]) if many_launches.get(key) else (
             "phase8", phase_launches["phase8"][key])
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
@@ -1617,8 +1627,9 @@ def main() -> int:
                for name in REPLACES]
     for k in kernels:
         if k["name"] == "camera_solve":
-            k["routes"] = many_routes
-            k["routes_phase8"] = sharded["camera_solve_routes"]
+            k["routes"] = (many_routes if k["launches_phase"] == "phase9"
+                           else sharded["camera_solve_routes"])
+            k["routes_phase9"] = many_routes
         if k["name"] == "lm_accept":
             k["tail_ms"] = times["lm_accept"]["tail_ms"]
         if k["name"] == "lm_fused":  # phase 9's local BA, and every shape timed

@@ -31,11 +31,13 @@
 // below, and shared by K1 and K2.
 //
 // lm_fused (below K4) runs the whole solve in one cooperative launch for up
-// to 37 views: the initial cost and every iteration of the three stages,
+// to 119 views: the initial cost and every iteration of the three stages,
 // by the same device functions on the same work items, with grid-wide
 // barriers between the stages and the loop's stop on the device (the
-// counterpart of ba_fused.py run_lm). ba.run takes it where it serves and
-// the per-iteration launches elsewhere.
+// counterpart of ba_fused.py run_lm); from 38 views the launch is made in
+// clusters of 8 CTAs and its camera solve is K3's cluster route on the
+// first. ba.run takes it where it serves and the per-iteration launches
+// elsewhere (from 120 views).
 //
 // Scalar LM state: float[STATE_SIZE] = [lambda, cost, iterations, done,
 // initial cost, current half, 0, 0]. Iteration i reads slot i%2 and K2's
@@ -372,8 +374,8 @@ __device__ __forceinline__ void schur_blocks_chunk(
     const int count = sh.count;
     const size_t k0 = cbase + 3 * count, k1 = cbase + 3 * (((count + KTT - 1) / KTT) * KTT);
     for (size_t i = tid; i < (k1 - k0) * ldx; i += BLK_NT) {
-      Xk[k0 * ldx + i] = 0.f;
-      Yk[k0 * ldx + i] = 0.f;
+      __stcs(&Xk[k0 * ldx + i], 0.f);
+      __stcs(&Yk[k0 * ldx + i], 0.f);
     }
   }
 
@@ -445,8 +447,12 @@ __device__ __forceinline__ void schur_blocks_chunk(
           if (s2 < 0 || base + off >= 6 * V) continue;
           for (int q = 0; q < 3; ++q) {
             const size_t at = (cbase + 3 * s2 + q) * ldx + base + off;
-            Xk[at] = sh.stage[warp][q * 192 + e];
-            Yk[at] = sh.stage[warp][(3 + q) * 192 + e];
+            // streaming stores (evict-first in L2): the X, Y scratch (19 MB
+            // at 16 x 8192) is read once more, by the product; kept at the
+            // normal priority it pushes the problem's own inputs out of L2,
+            // which inside lm_fused slowed every later stage (PERF.md)
+            __stcs(&Xk[at], sh.stage[warp][q * 192 + e]);
+            __stcs(&Yk[at], sh.stage[warp][(3 + q) * 192 + e]);
           }
         }
         __syncwarp();
@@ -495,9 +501,15 @@ __global__ void __launch_bounds__(BLK_NT) schur_blocks_kernel(
                      gcams ? nullptr : vpart_c, sh, GroupSync{0, BLK_NT}, tid);
 }
 
+// A 16-byte copy of K1's scratch into shared memory, marked first to leave
+// L2: X and Y are dead once the product has read them (see the block
+// pass's stores).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "l"(policy));
 }
 
 // The k-tile after (c, kt) among the chunks before c_end; false at the end.
@@ -1144,17 +1156,22 @@ __host__ __device__ int cluster_vec_floats(int n) {
   return 6 * round4(n) + round4(PW * DS) + PW + round4(2 + CL_RT);
 }
 
-template <bool G>
-__global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
-    int quat, const float* __restrict__ S, const float* __restrict__ dU,
-    const float* __restrict__ rhs, const float* __restrict__ free,
-    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
-    int V, size_t rows_max, float* gscratch, float* __restrict__ delta) {
+// The cluster solve by the CL_NT threads of each CTA of one cluster of
+// CL_C (tid 0 .. CL_NT - 1), its vectors, diagonal block and (unless G)
+// rows and staged panel in cl_smem (solve_plan(V).smem bytes, at the same
+// offset in every CTA of the cluster), with G in gscratch. CHECK_DONE:
+// return at once on state[DONE] (the per-iteration kernel); lm_fused leaves
+// its loop instead and runs this on its first cluster, its other CTAs
+// waiting at the grid barrier after the stage.
+template <bool G, bool CHECK_DONE>
+__device__ __forceinline__ void camera_solve_cluster(
+    int quat, const float* S, const float* dU, const float* rhs, const float* free,
+    const float* state, float* rot_a, float* rot_b, float* camp_a, float* camp_b, int V,
+    size_t rows_max, float* gscratch, float* delta, float* cl_smem, int tid) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n = 6 * V, N = n + 1, nblk = (N + RB - 1) / RB, npan = (n + PW - 1) / PW;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  extern __shared__ __align__(16) float cl_smem[];
+  const int lane = tid & 31, warp = tid >> 5;
   float* rds = cl_smem;               // [n] 1 / Jacobi scale
   float* fr = rds + round4(n);        // [n] free mask
   float* dmp = fr + round4(n);        // [n] LM damping of the diagonal
@@ -1170,7 +1187,7 @@ __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
   float* pan = G ? gscratch + (size_t)CL_C * rows_max : vec_end;
   float* rows = G ? gscratch + (size_t)rank * rows_max : vec_end + (size_t)(N + 3) * PS;
   const float lam = state[LAM];
-  if (state[DONE] != 0.f) return;  // the same for every CTA of the cluster
+  if (CHECK_DONE && state[DONE] != 0.f) return;  // the same for every CTA of the cluster
   if (tid == 0) ctl[0] = 0;
 
   for (int i = tid; i < n; i += CL_NT) {
@@ -1412,6 +1429,17 @@ __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
   for (int v = tid; v < V; v += CL_NT)
     retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
                    h.camp_c + 8 * v);
+}
+
+template <bool G>
+__global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
+    int quat, const float* __restrict__ S, const float* __restrict__ dU,
+    const float* __restrict__ rhs, const float* __restrict__ free,
+    const float* __restrict__ state, float* rot_a, float* rot_b, float* camp_a, float* camp_b,
+    int V, size_t rows_max, float* gscratch, float* __restrict__ delta) {
+  extern __shared__ __align__(16) float cl_smem[];
+  camera_solve_cluster<G, true>(quat, S, dU, rhs, free, state, rot_a, rot_b, camp_a, camp_b, V,
+                                rows_max, gscratch, delta, cl_smem, threadIdx.x);
 }
 
 // The grid route, for any n: the same Cholesky of the bordered matrix as a
@@ -2236,37 +2264,49 @@ __global__ void lm_accept_kernel(const float* __restrict__ state_in,
 // lm_fused — replaces ba_fused.py run_lm (_make_lm_kernel :229), the whole
 // robust LM solve in one pallas_call: the initial cost, then up to
 // max_iters iterations of K1, K3 and K2 with its accept rule, and the loop
-// with its stop, in one cooperative launch for problems of up to 37 views.
+// with its stop, in one cooperative launch for problems of up to 119 views
+// (fused_plan).
 //
 // Bound: per iteration that works, the K1 + K3 + K2 work above (FMA for
 // K1's Schur term, the dependent chain of K3's pivots, K2's per-observation
 // math); the inputs are read once for the whole solve. What the
-// per-iteration path paid besides that work was the host: ~0.14 ms of
-// enqueue an iteration (five launches from Python) against ~0.08 ms of
+// per-iteration path pays besides that work is the host: ~0.13-0.21 ms of
+// enqueue an iteration (five launches from Python) against 0.08 ms of
 // device work at 16 x 8192, and max_iterations iterations enqueued whether
-// they worked or not. Here one launch runs the loop, and the iterations
-// after convergence are never run. What remains between the stages is a
-// grid-wide barrier (grid.sync(), four or five an iteration).
+// they work or not (phase 9's 64-view global BAs: 2100 enqueued, 126
+// worked). Here one launch runs the loop, and the iterations after
+// convergence are never run. What remains between the stages is a
+// grid-wide barrier (grid.sync(), ~1 us; four or five an iteration).
 //
-// Design: a persistent grid of as many 512-thread CTAs as the occupancy
-// query lets be resident (at most one wave; one a SM: the CTA takes up to
-// 128 registers a thread), every stage the per-iteration kernels' own work
-// items, walked grid-stride, each by the same device function with the
-// same per-item arithmetic and sum order, so that the solve agrees with the
-// per-iteration path bit for bit, iteration count included. How the CTA's
-// 16 warps map onto the per-iteration kernels' CTAs (a group runs one work
-// item; named barrier 1 + g stands in for its __syncthreads, __syncwarp for
-// a group of one warp):
+// Design: a persistent grid of 512-thread CTAs, one a SM (the CTA takes up
+// to 128 registers a thread), as many as the occupancy query lets be
+// resident, every stage the per-iteration kernels' own work items, each by
+// the same device function with the same per-item arithmetic and sum
+// order, so that the solve agrees with the per-iteration path bit for bit,
+// iteration count included. A stage deals its items to the CTAs group by
+// group (item g * gridDim + CTA for the CTA's g-th group), so that a last,
+// partial round of items lands one to a SM rather than filling a few SMs
+// (which item a group takes does not change what the item computes). How
+// the CTA's 16 warps map onto the per-iteration kernels' CTAs (a group runs
+// one work item; named barrier 1 + g stands in for its __syncthreads,
+// __syncwarp for a group of one warp):
 //   K1 blocks   two groups of 8 warps (BLK_NT threads), a chunk each; the
 //               camera tables in shared memory are the CTA's, built once
 //   K1 product  eight groups of 2 warps (PROD_NT threads), an output tile
 //               and split each, each with its own k-tile buffers
 //   K1 reduce   the per-iteration launch's lanes, item * RL + sub, walked by
 //               whole warps (a warp holds 32 consecutive lanes)
-//   K3          CTA 0 alone: warp 0 for the one-warp solve (up to 5 views),
-//               all 512 threads for the one-CTA solve (6 to 37 views; each
-//               entry is one thread's or one warp's work whatever the CTA's
-//               size, so it computes what the 256-thread launch does)
+//   K3          up to 5 views one warp of CTA 0, 6 to 37 the one-CTA solve
+//               on all 512 threads of CTA 0 (each entry is one thread's or
+//               one warp's work whatever the CTA's size, so it computes what
+//               the 256-thread launch does); from 38 views the cluster solve
+//               on CTAs 0-7, the launch then being made in clusters of CL_C
+//               with the cooperative attribute (cudaLaunchKernelEx), its grid
+//               whole clusters (cudaOccupancyMaxActiveClusters: 15 on an H100
+//               SXM at 512 threads and ~200 KB, 120 CTAs); the cluster's own
+//               barriers, its rows in distributed shared memory (up to 119
+//               views) and its panel order inside the stage, the grid
+//               barriers around it, as in its own launch, so the same bits
 //   K2          16 / w groups of w warps (w = the launch's warps a CTA,
 //               ba_kernels.py _k2_warps), 32 tracks each; the per-view
 //               tables are the CTA's, built once
@@ -2277,9 +2317,17 @@ __global__ void lm_accept_kernel(const float* __restrict__ state_in,
 //               on its done flag; CTA 0 writes the final state.
 // Between stages: grid.sync(). No stage returns early on the done flag
 // (every CTA must reach every barrier); the loop stops instead. The stages
-// reuse one dynamic shared buffer, sized for the largest (lm_fused_smem).
+// reuse one dynamic shared buffer, sized for the largest (fused_plan).
 // Data written in the launch is read through plain or L2 loads, never the
 // read-only path (no __restrict__ on what a stage writes).
+// Measured (kernel_bench.lm_fused_split, scripts/torch_lm_fused_variants.py
+// on an H100 SXM at 700 W, PERF.md): with K1's X, Y scratch at the normal
+// L2 priority every later stage ran 20-70% longer inside the launch than
+// in its own (each alone in the launch ran as fast); marked evict-first
+// (the block pass's stores, the product's loads) an iteration at 16 x 8192
+// took 0.091 ms instead of 0.115. A grid barrier costs ~1 us, below what a
+// barrier of its own (one arrival counter, an acquire spin) took (~2 us),
+// so grid.sync stays.
 
 constexpr int FUSED_NT = 512;                          // threads of lm_fused's CTA
 constexpr int FUSED_BLK_GROUPS = FUSED_NT / BLK_NT;    // K1 block-pass groups a CTA
@@ -2297,7 +2345,50 @@ struct FusedArgs {
   int* counts;
   float *vpart, *Ppart, *S, *dU, *rhs, *delta, *cost_part, *state_out;
   LMRule rule;
+  int route;  // the camera solve's: R_WARP, R_CTA or R_CLUSTER
+#ifdef OSFM_FUSED_TIMING
+  unsigned long long* stamps;  // FUSED_STAMP_HEAD + FUSED_STAMP_SLOTS * max_iters, zeroed
+#endif
 };
+
+// The timing build (-DOSFM_FUSED_TIMING; utils/kernel_bench.py
+// lm_fused_split builds it on its own, never the main path's library):
+// %globaltimer stamps at every stage boundary. Per iteration, slot 0 is CTA
+// 0's stamp at its start; barrier b (FUSED_B_*) has slot 1 + 2b, the last
+// CTA's arrival (an atomicMax over every CTA's), and 2 + 2b, CTA 0's stamp
+// on its release; the last slot is CTA 0's stamp after the accept. A
+// barrier the iteration does not take keeps its slots 0. The head: the
+// launch's start, the initial cost's barrier (arrival, release) and the
+// end of its accept.
+enum { FUSED_B_BLOCKS, FUSED_B_PRODUCT, FUSED_B_REDUCE, FUSED_B_SOLVE, FUSED_B_K2, FUSED_NB };
+constexpr int FUSED_STAMP_HEAD = 4;
+constexpr int FUSED_STAMP_SLOTS = 2 + 2 * FUSED_NB;
+
+#ifdef OSFM_FUSED_TIMING
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
+
+// CTA 0's stamp into slot `slot` (the timing build only).
+__device__ __forceinline__ void fused_stamp(const FusedArgs& a, int slot) {
+#ifdef OSFM_FUSED_TIMING
+  if (a.stamps && blockIdx.x == 0 && threadIdx.x == 0) a.stamps[slot] = global_ns();
+#endif
+}
+
+// grid.sync(), with its arrival and release stamped at slots `slot` and
+// slot + 1 in the timing build.
+__device__ __forceinline__ void fused_sync(cg::grid_group& grid, const FusedArgs& a, int slot) {
+#ifdef OSFM_FUSED_TIMING
+  __syncthreads();
+  if (a.stamps && threadIdx.x == 0) atomicMax(a.stamps + slot, global_ns());
+#endif
+  grid.sync();
+  fused_stamp(a, slot + 1);
+}
 
 __host__ __device__ constexpr size_t round16(size_t b) { return (b + 15) & ~(size_t)15; }
 
@@ -2325,8 +2416,7 @@ __device__ __forceinline__ void fused_blocks(const FusedArgs& a, const float* st
   BlocksShared& sh = *reinterpret_cast<BlocksShared*>(base);
   float* usum = reinterpret_cast<float*>(base + sizeof(BlocksShared));
   const GroupSync sync{1 + g, BLK_NT};
-  for (int c = blockIdx.x * FUSED_BLK_GROUPS + g; c < a.n_chunks;
-       c += gridDim.x * FUSED_BLK_GROUPS) {
+  for (int c = g * gridDim.x + blockIdx.x; c < a.n_chunks; c += gridDim.x * FUSED_BLK_GROUPS) {
     sync();  // the group's buffers are free again
     schur_blocks_chunk(a.quat, cur ? a.pT_b : a.pT_a, a.obsT, a.maskT, cams, st[LAM], a.huber,
                        a.opt, a.V, a.T, a.G, a.ldx, c, a.Xk, a.Yk, a.counts, usum,
@@ -2340,29 +2430,38 @@ __device__ __forceinline__ void fused_product(const FusedArgs& a, float* fsm) {
   ProductShared& sh = reinterpret_cast<ProductShared*>(fsm)[g];
   const GroupSync sync{1 + g, PROD_NT};
   const int nt = a.ldx / PT, tiles = nt * (nt + 1) / 2, items = tiles * a.n_split;
-  for (int it = blockIdx.x * FUSED_PROD_GROUPS + g; it < items;
-       it += gridDim.x * FUSED_PROD_GROUPS) {
+  for (int it = g * gridDim.x + blockIdx.x; it < items; it += gridDim.x * FUSED_PROD_GROUPS) {
     sync();
     schur_product_tile(a.ldx, a.n_chunks, a.cps, a.counts, a.Xk, a.Yk, a.Ppart, it % tiles,
                        it / tiles, sh, sync, tid % PROD_NT);
   }
 }
 
-// K1's ordered reduce over every lane of the per-iteration launch.
+// K1's ordered reduce over every lane of the per-iteration launch, a warp's
+// 32 consecutive lanes at a time, dealt to the CTAs warp by warp.
 __device__ __forceinline__ void fused_reduce(const FusedArgs& a) {
   const int n = 6 * a.V;
   const size_t lanes = (((size_t)n * n + 2 * (size_t)n) * RL + 31) & ~(size_t)31;
-  for (size_t vt = (size_t)blockIdx.x * FUSED_NT + threadIdx.x; vt < lanes;
-       vt += (size_t)gridDim.x * FUSED_NT)
+  const size_t w0 = (size_t)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  for (size_t vt = w0 * 32 + (threadIdx.x & 31); vt < lanes; vt += (size_t)gridDim.x * FUSED_NT)
     schur_reduce_lane(vt, a.V, a.ldx, a.opt ? a.n_split : 0, a.n_chunks, a.Ppart, a.vpart, a.S,
                       a.dU, a.rhs);
 }
 
-// K3 in CTA 0: the candidate cameras into the half st[CUR] does not name.
+// K3 in CTA 0 (one warp or the one-CTA solve) or on the first cluster
+// (CTAs 0 .. CL_C - 1): the candidate cameras into the half st[CUR] does not
+// name.
 __device__ __forceinline__ void fused_solve(const FusedArgs& a, const float* st, float* fsm,
                                             int& s_failed) {
   const int tid = threadIdx.x;
-  if (a.V > WARP_SOLVE_V) {
+  if (a.route == R_CLUSTER) {
+    if (blockIdx.x < CL_C)
+      camera_solve_cluster<false, false>(a.quat, a.S, a.dU, a.rhs, a.free, st, a.rot_a, a.rot_b,
+                                         a.camp_a, a.camp_b, a.V, 0, nullptr, a.delta, fsm, tid);
+    return;
+  }
+  if (blockIdx.x != 0) return;
+  if (a.route == R_CTA) {
     camera_solve_cta<FUSED_NT, false>(a.quat, a.S, a.dU, a.rhs, a.free, st, a.rot_a, a.rot_b,
                                       a.camp_a, a.camp_b, a.V, a.delta, fsm, s_failed, tid);
     return;
@@ -2408,7 +2507,7 @@ __device__ __forceinline__ void fused_k2(const FusedArgs& a, const float* st, bo
   const GroupSync sync{1 + g, nw * 32};
   const float* pc = cur ? a.pT_b : a.pT_a;
   const int items = (a.T + K2_TRACKS - 1) / K2_TRACKS;
-  for (int item = blockIdx.x * groups + g; item < items; item += gridDim.x * groups) {
+  for (int item = g * gridDim.x + blockIdx.x; item < items; item += gridDim.x * groups) {
     sync();  // the group's buffers are free again
     const int t = item * K2_TRACKS + lane, tc = t < a.T ? t : a.T - 1;
     float m, ox, oy, p4[4];
@@ -2447,26 +2546,31 @@ __global__ void __launch_bounds__(FUSED_NT, 1) lm_fused_kernel(const FusedArgs a
   const int tid = threadIdx.x;
   if (tid < 2 * STATE_SIZE) st[tid / STATE_SIZE][tid % STATE_SIZE] = 0.f;
   __syncthreads();
+  fused_stamp(a, 0);
   fused_k2(a, st[1], true, fsm);  // the initial cost
-  grid.sync();
+  fused_sync(grid, a, 1);
   fused_accept(a, st[1], true, st[0]);
+  fused_stamp(a, 3);
   int slot = 0;
   for (int it = 0; it < a.max_iters; ++it) {
     const float* s_in = st[it & 1];
     float* s_out = st[(it + 1) & 1];
+    const int base = FUSED_STAMP_HEAD + FUSED_STAMP_SLOTS * it;
+    fused_stamp(a, base);
     fused_blocks(a, s_in, fsm);
-    grid.sync();
+    fused_sync(grid, a, base + 1 + 2 * FUSED_B_BLOCKS);
     if (a.opt) {  // with the points held fixed V^-1 = 0, and S' is blkdiag(U)
       fused_product(a, fsm);
-      grid.sync();
+      fused_sync(grid, a, base + 1 + 2 * FUSED_B_PRODUCT);
     }
     fused_reduce(a);
-    grid.sync();
-    if (blockIdx.x == 0) fused_solve(a, s_in, fsm, s_failed);
-    grid.sync();
+    fused_sync(grid, a, base + 1 + 2 * FUSED_B_REDUCE);
+    fused_solve(a, s_in, fsm, s_failed);
+    fused_sync(grid, a, base + 1 + 2 * FUSED_B_SOLVE);
     fused_k2(a, s_in, false, fsm);
-    grid.sync();
+    fused_sync(grid, a, base + 1 + 2 * FUSED_B_K2);
     fused_accept(a, s_in, false, s_out);
+    fused_stamp(a, base + FUSED_STAMP_SLOTS - 1);
     slot = (it + 1) & 1;
     if (s_out[DONE] != 0.f) break;  // every CTA holds the same state
   }
@@ -2612,40 +2716,65 @@ int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared bytes of lm_fused at V views with K2 in groups of `warps`
-// warps: its largest stage's (the stages reuse one buffer).
-size_t lm_fused_smem(int V, int warps) {
+// How lm_fused runs at V views with K2 in groups of `warps` warps: its
+// camera solve's route, its dynamic shared bytes (its largest stage's: the
+// stages reuse one buffer) and its grid: as many CTAs as the occupancy
+// query lets be resident (one wave; with the cluster, whole clusters of
+// CL_C), or 0 where it cannot serve V views. It serves the camera solve's
+// warp, one-CTA and cluster routes while the cluster's rows fit its shared
+// memory: up to 119 views. Past that the cluster's rows live in a global
+// scratch, where the per-iteration route solved make_problem() faster
+// than lm_fused did with them (PERF.md), and from GRID_MIN_V the solve is
+// the grid route (a chain of launches over the whole card): BA runs an
+// iteration at a time there.
+struct FusedPlan {
+  int route, grid;
+  size_t smem;
+};
+
+FusedPlan fused_plan(int V, int warps) {
+  FusedPlan f = {};
+  if (V < 1 || warps < 1 || warps > K2_MAXW) return f;
+  f.route = solve_route(V, R_AUTO);
+  if (f.route == R_GRID || (f.route == R_CLUSTER && solve_plan(V).global)) return f;
   const int n = 6 * V;
   const size_t blocks =
       round16(sizeof(Cam) * V) + FUSED_BLK_GROUPS * fused_blocks_group_bytes(V);
   const size_t product = FUSED_PROD_GROUPS * sizeof(ProductShared);
   const size_t solve =
-      V <= WARP_SOLVE_V ? sizeof(float) * (n * (n + 1) + 32) : solve_plan(V).smem;
+      f.route == R_WARP ? sizeof(float) * (n * (n + 1) + 32) : solve_plan(V).smem;
   const size_t k2 = sizeof(float) * (round4(V * (TAB_CAND + TAB_CUR)) +
                                      (size_t)(FUSED_NT / 32 / warps) * fused_k2_group_floats(warps));
-  size_t m = blocks > product ? blocks : product;
-  m = solve > m ? solve : m;
-  return k2 > m ? k2 : m;
-}
-
-// The CTAs of lm_fused's cooperative grid at V views (as many as the
-// occupancy query lets be resident: one wave), or 0 where it cannot serve
-// V views: past the one-CTA camera solve's limit (37 views), or a card
-// without cooperative launch. *smem: its dynamic shared bytes.
-int lm_fused_grid(int V, int warps, size_t* smem) {
-  if (V < 1 || warps < 1 || warps > K2_MAXW) return 0;
-  const int route = solve_route(V, R_AUTO);
-  if (route != R_WARP && route != R_CTA) return 0;
-  *smem = lm_fused_smem(V, warps);
+  f.smem = blocks > product ? blocks : product;
+  f.smem = solve > f.smem ? solve : f.smem;
+  f.smem = k2 > f.smem ? k2 : f.smem;
   const void* fn = (const void*)lm_fused_kernel;
-  if (allow_smem(fn) || !fits_smem(fn, *smem)) return 0;
+  if (allow_smem(fn) || !fits_smem(fn, f.smem)) return f;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) || !coop)
-    return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lm_fused_kernel, FUSED_NT, *smem))
-    return 0;
-  return per_sm * sms;
+    return f;
+  if (f.route != R_CLUSTER) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lm_fused_kernel, FUSED_NT, f.smem))
+      return f;
+    f.grid = per_sm * sms;
+    return f;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL_C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL_C);
+  cfg.blockDim = dim3(FUSED_NT);
+  cfg.dynamicSmemBytes = f.smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, lm_fused_kernel, &cfg)) return f;
+  f.grid = clusters * CL_C;
+  return f;
 }
 
 }  // namespace
@@ -2805,12 +2934,19 @@ int osfm_lm_accept(const float* state_in, const float* cost, float* state_out, f
   return (int)cudaGetLastError();
 }
 
+#ifdef OSFM_FUSED_TIMING
+// The timing build's stamp buffer for the next osfm_lm_fused launches:
+// FUSED_STAMP_HEAD + FUSED_STAMP_SLOTS * max_iters zeroed 64-bit words.
+static unsigned long long* fused_stamps = nullptr;
+int osfm_lm_fused_stamps(void* stamps) {
+  fused_stamps = static_cast<unsigned long long*>(stamps);
+  return 0;
+}
+#endif
+
 // The CTAs of lm_fused's grid at V views with K2 in groups of `warps` warps
 // (ba_kernels.py _k2_warps); 0 where lm_fused cannot serve V views.
-int osfm_lm_fused_grid(int V, int warps) {
-  size_t smem = 0;
-  return lm_fused_grid(V, warps, &smem);
-}
+int osfm_lm_fused_grid(int V, int warps) { return fused_plan(V, warps).grid; }
 
 // The whole LM solve in one cooperative launch (lm_fused): the initial cost,
 // then up to max_iters iterations of K1, K3 and K2 with its accept rule on
@@ -2819,8 +2955,10 @@ int osfm_lm_fused_grid(int V, int warps) {
 // floats). K1's geometry (ldx, n_chunks, n_split, cps) and scratch (Xk, Yk,
 // counts, vpart, Ppart), the system (S, dU, rhs), delta (6V) and K2's cost
 // partials (ceil(T / 32)) are as the per-iteration launches take them.
-// Where lm_fused cannot serve V views it returns
-// cudaErrorCooperativeLaunchTooLarge and launches nothing.
+// From 38 views the launch is cooperative and in clusters of CL_C, the
+// camera solve on the first. Where lm_fused cannot serve V views it returns
+// cudaErrorCooperativeLaunchTooLarge and launches nothing; a refused launch
+// returns the runtime's error.
 int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const float* maskT,
                   float* rot_a, float* rot_b, float* camp_a, float* camp_b, const float* free,
                   float huber, int opt, int V, int T, int ldx, int n_chunks, int n_split,
@@ -2829,10 +2967,11 @@ int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const f
                   float* cost_part, float* state_out, float lam0, float func_tol, float lam_up,
                   float lam_down, float min_lam, float max_lam, void* stream) {
   if (T < 1 || max_iters < 0) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  int grid = lm_fused_grid(V, warps, &smem);
-  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // no more CTAs than the stage with the most work items can use
+  const FusedPlan f = fused_plan(V, warps);
+  if (f.grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const bool cluster = f.route == R_CLUSTER;
+  // no more CTAs than the stage with the most work items can use (whole
+  // clusters, and at least the one the camera solve runs on)
   const int n = 6 * V, nt = ldx / PT, items = (T + K2_TRACKS - 1) / K2_TRACKS;
   const size_t lanes = ((size_t)n * n + 2 * (size_t)n) * RL;
   const int groups = (FUSED_NT / 32) / warps;
@@ -2844,17 +2983,41 @@ int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const f
   const int r = (int)((lanes + FUSED_NT - 1) / FUSED_NT), k = (items + groups - 1) / groups;
   need = r > need ? r : need;
   need = k > need ? k : need;
-  grid = need < grid ? need : grid;
+  if (cluster) need = ((need + CL_C - 1) / CL_C) * CL_C;
+  const int grid = need < f.grid ? need : f.grid;
   int G = 1;  // K1's lanes per track, as osfm_schur_assemble's
   while (G < V && G < 32) G *= 2;
   const FusedArgs a = {quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b, free,
                        huber, opt, V, T, G, ldx, n_chunks, n_split, cps, warps, max_iters,
                        Xk, Yk, counts, vpart, Ppart, S, dU, rhs, delta, cost_part, state_out,
-                       {lam0, func_tol, lam_up, lam_down, min_lam, max_lam}};
-  void* args[] = {const_cast<FusedArgs*>(&a)};
-  const int err = (int)cudaLaunchCooperativeKernel((const void*)lm_fused_kernel, dim3(grid),
-                                                   dim3(FUSED_NT), args, smem,
-                                                   static_cast<cudaStream_t>(stream));
+                       {lam0, func_tol, lam_up, lam_down, min_lam, max_lam}, f.route
+#ifdef OSFM_FUSED_TIMING
+                       , fused_stamps
+#endif
+  };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (cluster) {  // a cooperative launch in clusters of CL_C
+    cudaLaunchAttribute attr[2];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL_C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(FUSED_NT);
+    cfg.dynamicSmemBytes = f.smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+    err = (int)cudaLaunchKernelEx(&cfg, lm_fused_kernel, a);
+  } else {
+    void* args[] = {const_cast<FusedArgs*>(&a)};
+    err = (int)cudaLaunchCooperativeKernel((const void*)lm_fused_kernel, dim3(grid),
+                                           dim3(FUSED_NT), args, f.smem, st);
+  }
   if (err) return err;
   return (int)cudaGetLastError();
 }

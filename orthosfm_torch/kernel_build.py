@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -52,7 +53,7 @@ def resolve_impl(impl: str, device, fused=None) -> str:
             return "kernel"
         if not fused:
             raise ValueError("impl 'fused' cannot serve this problem (the whole LM solve in one "
-                             "launch serves up to 37 views)")
+                             "launch serves up to 119 views)")
         return impl
     if impl not in ("torch", "kernel"):
         raise ValueError(f"unknown impl {impl!r} (expected auto|torch|kernel|fused, or the JAX "
@@ -69,37 +70,63 @@ def _compiler(source: Path) -> tuple:
     raise ValueError(f"no compiler for {source.name}")
 
 
-def library_path(source: Path) -> Path:
-    """Where the library of this source and its flags is built."""
+def library_path(source: Path, defines: tuple = ()) -> Path:
+    """Where the library of this source, its flags and `defines` (extra
+    -D flags: another build of the same source) is built."""
     _, flags = _compiler(source)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(source.read_bytes() + " ".join((*flags, *defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
 
-def build(source: Path) -> tuple:
-    """Compile `source` (once per source hash) and return (library path,
-    compiler log). A missing compiler or a failed build raises."""
-    out = library_path(source)
+def build(source: Path, defines: tuple = ()) -> tuple:
+    """Compile `source` with `defines` (once per source hash) and return
+    (library path, compiler log); the log is kept beside the library, so a
+    library built earlier returns it too. A missing compiler or a failed
+    build raises."""
+    out = library_path(source, defines)
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     cc, flags = _compiler(source)
     if not os.path.isfile(cc):
         raise RuntimeError(f"{Path(cc).name} not found at {cc}; {source.name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(source)],
+    proc = subprocess.run([cc, *flags, *defines, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{Path(cc).name} failed to build {source.name}:\n"
                            f"{proc.stdout}{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
 
 
-def load(source: Path, signatures: dict) -> ctypes.CDLL:
-    """Build `source` if needed and load it, declaring each C function of
-    `signatures` ({name: argtypes}) to return int."""
-    path, _ = build(source)
+def ptxas_usage(log: str, entry: str) -> dict:
+    """Registers a thread, bytes of stack frame and of spill stores and
+    loads of the kernel whose mangled name holds `entry`, from a build's
+    -Xptxas -v log (empty where the log does not name it)."""
+    out, lines = {}, log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or entry not in line:
+            continue
+        for nxt in lines[i + 1:i + 5]:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", nxt)
+            if m:
+                out.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", nxt)
+            if m:
+                out["registers"] = int(m[1])
+                break
+        break
+    return out
+
+
+def load(source: Path, signatures: dict, defines: tuple = ()) -> ctypes.CDLL:
+    """Build `source` with `defines` if needed and load it, declaring each C
+    function of `signatures` ({name: argtypes}) to return int."""
+    path, _ = build(source, defines)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -4,7 +4,7 @@ PyTorch version.
 
   stage                 kernel wrapper       plain version          replaces (JAX package)
   the whole LM solve    lm_solve             lm_solve_ref           ba_fused.run_lm (one launch;
-  (up to 37 views)      (lm_fused, one       (the plain stages      the solve, the loop and its
+  (up to 119 views)     (lm_fused, one       (the plain stages      the solve, the loop and its
                         cooperative launch)  in a loop)             stop in one kernel)
   assemble              schur_assemble       normal_eq_schur_ref    ba_pallas.normal_eq_schur,
                                                                     ba_fused.run_lm pass 1
@@ -23,8 +23,11 @@ its accept rule in one cooperative launch (lm_fused), with the same work
 items and sum orders as those kernels launched one iteration at a time
 (lm_iterate), so the two agree bit for bit; it stops at convergence on the
 card. It serves up to FUSED_MAX_VIEWS views (fused_fits): its camera solve
-is K3's one-warp or one-CTA route, in one SM's shared memory. lm_iterate
-runs every size, one iteration at a time.
+is K3's one-warp or one-CTA route up to 37 views and, from 38, K3's cluster
+of 8 CTAs on the first cluster of a launch made in clusters, its rows in the
+cluster's shared memory. From 120 views lm_iterate runs, one iteration at
+a time; it runs every size. kernel_bench.lm_fused_split times
+lm_fused's stages from its timing build (timing_library).
 
 K3 has four routes (CAMERA_SOLVE_ROUTES): one warp, one CTA, a cluster of 8
 CTAs and the grid route over the whole card; camera_solve_route(V) names the
@@ -85,10 +88,14 @@ _K2_VIEWS_PER_WARP = 4  # views each warp of K2 walks, up to _K2_MAXW warps
 # their per-view tables in shared memory up to ~600 and ~990 views and in
 # global memory past that; no kernel has a view limit but the card's memory.
 CAMERA_SOLVE_ROUTES = ("warp", "cta", "cluster", "grid")
-# lm_fused's limit: its camera solve is K3's one-CTA route, whose matrix
-# fills one SM's shared memory at 37 views (the card's library says so
-# itself, osfm_lm_fused_grid; this is the rule where there is no card)
-FUSED_MAX_VIEWS = 37
+# lm_fused's limit: its camera solve is K3's warp, one-CTA or cluster route
+# while the cluster's rows fit its shared memory; from 120 views they leave
+# it for a global scratch, where the per-iteration route solved
+# make_problem() faster (PERF.md), and from 128 K3 is the grid route, a
+# chain of launches: BA runs an iteration at a time there (the card's
+# library says so itself, osfm_lm_fused_grid; this is the rule where there
+# is no card)
+FUSED_MAX_VIEWS = 119
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +314,23 @@ def library() -> ctypes.CDLL:
     """The built kernel library with every C function's signature declared."""
     lib = kernel_build.load(SOURCE, _SIGNATURES)
     lib.osfm_camera_solve_scratch_floats.restype = ctypes.c_longlong  # past 2^31 floats
+    return lib
+
+
+# lm_fused's timing build (kernel_bench.lm_fused_split): the same source
+# with %globaltimer stamps at every stage boundary, a library of its own
+TIMING_DEFINES = ("-DOSFM_FUSED_TIMING",)
+FUSED_STAMP_HEAD, FUSED_STAMP_SLOTS = 4, 12  # as in the CUDA source
+FUSED_BARRIERS = ("blocks", "product", "reduce", "solve", "k2")
+
+
+@functools.lru_cache(maxsize=None)
+def timing_library() -> ctypes.CDLL:
+    """lm_fused's timing build, with osfm_lm_fused_stamps to set the buffer
+    its next launches stamp; never the main path's library."""
+    lib = kernel_build.load(SOURCE, {**_SIGNATURES, "osfm_lm_fused_stamps": [_P]},
+                            TIMING_DEFINES)
+    lib.osfm_camera_solve_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -650,10 +674,10 @@ def _fused_scratch(V: int, T: int, opt: bool) -> list:
 
 def fused_fits(V: int, T: int, device) -> bool:
     """Whether lm_solve serves V views and T tracks on `device`. On the
-    card the library answers (osfm_lm_fused_grid: up to the one-CTA camera
-    solve's 37 views, with a cooperative grid of at least one CTA) and its
-    workspace must fit the card's memory; on the CPU, where lm_solve runs
-    its plain version, the same rule: 1 <= V <= FUSED_MAX_VIEWS."""
+    card the library answers (osfm_lm_fused_grid: up to 119 views, with a
+    cooperative grid of at least one CTA, or from 38 views one cluster) and
+    its workspace must fit the card's memory; on the CPU, where lm_solve
+    runs its plain version, the same rule: 1 <= V <= FUSED_MAX_VIEWS."""
     if V < 1 or T < 1:
         return False
     device = torch.device(device)
@@ -666,13 +690,14 @@ def fused_fits(V: int, T: int, device) -> bool:
 
 
 def lm_solve(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_points,
-             cfg: LMConfig, max_iterations: int):
+             cfg: LMConfig, max_iterations: int, lib=None):
     """lm_fused: the whole LM solve of lm_iterate, in one cooperative launch,
     on the LM buffers pT (2, 4, T), rot (2, V, 4) and camp (2, V, 8) (half
     0 current), stopping at convergence on the device; it agrees with the
     per-iteration kernels bit for bit. Returns the final state (STATE_SIZE,),
     whose CUR names the half that holds the result. Raises where fused_fits
-    refuses the problem. With CPU tensors, lm_solve_ref."""
+    refuses the problem. With CPU tensors, lm_solve_ref. ``lib``: another
+    build of the kernels (timing_library) in place of library()."""
     if pT.device.type == "cpu":
         if not fused_fits(obsT.shape[0], obsT.shape[2], "cpu"):
             raise ValueError(f"lm_solve serves 1 to {FUSED_MAX_VIEWS} views, not {obsT.shape[0]}")
@@ -690,7 +715,7 @@ def lm_solve(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_point
     counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     state = torch.empty((STATE_SIZE,), dtype=torch.float32, device=dev)
     Xk, Yk, vpart, Ppart, S, dU, rhs, delta, parts = ptrs
-    err = library().osfm_lm_fused(
+    err = (lib or library()).osfm_lm_fused(
         int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT), *_halves(rot),
         *_halves(camp), _ptr(free), float(huber_delta), int(opt), V, T, ldx, n_chunks, n_split,
         cps, _k2_warps(V), int(max_iterations), Xk, Yk, _ptr(counts), vpart, Ppart, S, dU, rhs,

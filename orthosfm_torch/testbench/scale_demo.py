@@ -15,8 +15,8 @@ solver) → metrics.pose_errors.
 On the card it first builds the BA kernels, then times `runs`
 reconstructions (the first cold, the rest warm), each to a
 torch.cuda.synchronize(), with the launches of the BA kernels (lm_fused,
-one a BA of up to 37 views; K1, K3 by route and K2 an iteration of the
-larger ones) and the bundle adjustments it ran, by route
+one a BA of up to 119 views, so every BA at 64 views; K1, K3 by route and K2
+an iteration of the larger ones) and the bundle adjustments it ran, by route
 (utils.profiling.BARecorder); then it
 measures Tomasi-Kanade's peak device memory on the first group, and runs
 once more under utils.profiling.collect_stages for the share of the wall time in each

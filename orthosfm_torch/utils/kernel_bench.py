@@ -234,6 +234,77 @@ def time_lm_solve(kind, device, num_views, n_tracks, config=None, opt=True, n=10
     return out
 
 
+def lm_fused_split(kind, device, num_views, n_tracks, config, opt=True, n=5, lib=None):
+    """Where lm_fused's time goes, from its timing build
+    (ba_kernels.timing_library: %globaltimer stamps at every stage
+    boundary): lm_solve on make_problem() at a size with `config`, n runs,
+    and per iteration that worked the mean ms of each stage (K1 blocks,
+    product, reduce, K3 solve, K2: from the previous barrier's release, or
+    the iteration's start, to the last CTA's arrival at the stage's
+    barrier; accept: from the last release to the iteration's end), of each
+    barrier's own wait (the last CTA's arrival to the release) and of the
+    whole iteration. A stage whose barrier the launch does not take is
+    reported as None and its time counts in the next stage's. Also the
+    timing build's and the main build's device ms a solve (the stamps'
+    cost) and the smallest step of the timer seen. ``lib``: another timing
+    build in place of ba_kernels.timing_library()."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    pT, obsT, maskT, rot, camp, free = stage_inputs(kind, device, num_views, n_tracks)
+    p0, r0, c0 = bk.lm_buffers(pT, rot, camp)
+    p2, r2, c2 = p0.clone(), r0.clone(), c0.clone()
+    args = (kind, p2, obsT, maskT, r2, c2, free, float(config.huber_delta), opt,
+            bk.LMConfig.of(config), config.max_iterations)
+    lib = lib or bk.timing_library()
+    stamps = torch.zeros((bk.FUSED_STAMP_HEAD + bk.FUSED_STAMP_SLOTS * config.max_iterations,),
+                         dtype=torch.int64, device=device)
+
+    def run(timed, build=lib):
+        p2.copy_(p0)
+        r2.copy_(r0)
+        c2.copy_(c0)
+        stamps.zero_()
+        lib.osfm_lm_fused_stamps(stamps.data_ptr() if timed else None)
+        return bk.lm_solve(*args, lib=build)
+
+    names = (*bk.FUSED_BARRIERS, "accept")
+    stage = {k: [] for k in names}
+    wait = {k: [] for k in bk.FUSED_BARRIERS}
+    total, steps = [], []
+    iterations = 0
+    run(True)
+    for _ in range(n):
+        iterations = int(run(True)[bk.ITERS])
+        st = stamps.cpu().tolist()
+        for it in range(iterations):
+            b = st[bk.FUSED_STAMP_HEAD + bk.FUSED_STAMP_SLOTS * it:][:bk.FUSED_STAMP_SLOTS]
+            prev = b[0]
+            for k, name in enumerate(bk.FUSED_BARRIERS):
+                arrive, release = b[1 + 2 * k], b[2 + 2 * k]
+                if not arrive:
+                    continue
+                stage[name].append(arrive - prev)
+                wait[name].append(release - arrive)
+                prev = release
+            stage["accept"].append(b[-1] - prev)
+            total.append(b[-1] - b[0])
+        flat = sorted(set(x for x in st if x))
+        steps += [y - x for x, y in zip(flat, flat[1:])]
+
+    def mean_ms(xs):
+        return sum(xs) / len(xs) / 1e6 if xs else None
+
+    # a solve of each build, the buffers' reset included in both
+    timing_ms = cuda_ms(lambda: run(True), n)
+    main_ms = cuda_ms(lambda: run(False, bk.library()), n)
+    return {"views": num_views, "tracks": n_tracks, "iterations": iterations,
+            "stage_ms": {k: mean_ms(v) for k, v in stage.items()},
+            "barrier_wait_ms": {k: mean_ms(v) for k, v in wait.items()},
+            "barriers_per_iteration": sum(len(v) for v in wait.values()) / max(len(total), 1),
+            "iteration_ms": mean_ms(total), "timing_build_ms": timing_ms,
+            "main_build_ms": main_ms, "timer_step_ns": min(steps) if steps else None}
+
+
 def random_top2_set(device, D, n=8192):
     """Random unit descriptors, 11 views x n rows x D, and 8 pairs of them
     (bi, bj, counts i, counts j): exact ties (every database row of view 3

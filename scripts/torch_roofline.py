@@ -18,8 +18,9 @@ bandwidth (3.35 TB/s), and the share of the bound it reaches:
   - top2 on 8 pairs of random unit descriptors, 8192 x 128, both directions
     from one launch;
   - lm_fused, the whole LM solve in one cooperative launch, at
-    FUSED_SHAPES (16 x 8192, and phase 9's local BA, 3 x 50000), 30
-    iterations that all work: its work is the initial cost and K1 + K3 + K2
+    FUSED_SHAPES (16 x 8192, phase 9's local BA 3 x 50000, the one-CTA
+    camera solve's edge 37 x 2048, and on its cluster 64 x 4096 and phase
+    9's global BA 64 x 50000), 30 iterations that all work: its work is the initial cost and K1 + K3 + K2
     an iteration, its bytes the inputs read once and the outputs written
     once (utils/roofline.py lm_solve_work), beside the sum of the three
     stages' own bounds over the iterations.
@@ -27,6 +28,11 @@ The per-stage table of one LM iteration at each BA shape puts K1 + K3 + K2's
 device time beside the host's enqueue time an iteration and ba.run's wall
 time an iteration (30 iterations, function_tolerance 0): whichever is larger
 sets BA's pace; and, where it serves, lm_fused's device time an iteration.
+Last, lm_fused's split at SPLIT_SHAPES (kernel_bench.lm_fused_split, its
+timing build: %globaltimer stamps at every stage boundary, 30 iterations
+that all work): each stage's ms an iteration, each barrier's own wait,
+beside the per-iteration kernels' K1 + K3 + K2 at the same shape, and
+lm_fused's registers, stack and spill from the build's -Xptxas -v log.
 
     python3 scripts/torch_roofline.py [--json OUT]
 
@@ -44,7 +50,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 BA_SHAPES = ((16, 8192), (64, 4096), (64, 50000))
-FUSED_SHAPES = ((16, 8192), (3, 50000))
+FUSED_SHAPES = ((16, 8192), (3, 50000), (37, 2048), (64, 4096), (64, 50000))
+SPLIT_SHAPES = ((16, 8192), (3, 50000), (37, 2048), (64, 4096))
 LM_ITERATIONS = 30
 
 
@@ -83,6 +90,57 @@ def lm_iteration(device, num_views, n_tracks):
     if int(res.iterations) != LM_ITERATIONS:
         raise AssertionError(f"{num_views}x{n_tracks}: {int(res.iterations)} iterations")
     return wall, recorder.summary()["enqueue_ms_per_it"]
+
+
+def lm_fused_split_table(device, ba_rows, cfg):
+    """lm_fused's split (kernel_bench.lm_fused_split) at SPLIT_SHAPES beside
+    the per-iteration kernels' K1 + K3 + K2 device time there (ba_rows'
+    where this run timed that shape), and its registers and spill in both
+    builds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orthosfm_torch import kernel_build
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.utils.kernel_bench import lm_fused_split, stage_inputs, time_ba_kernels
+
+    with ThreadPoolExecutor(2) as pool:
+        logs = list(pool.map(lambda d: kernel_build.build(bk.SOURCE, d)[1],
+                             ((), bk.TIMING_DEFINES)))
+    out = {"ptxas": {name: kernel_build.ptxas_usage(log, "lm_fused_kernel")
+                     for name, log in zip(("main", "timing"), logs)}, "shapes": {}}
+    print(f"lm_fused ptxas: {out['ptxas']}")
+    print("lm_fused split (ms an iteration that worked): blocks, product, reduce, solve, k2, "
+          "accept | barrier waits | iteration | per-iteration K1 + K3 + K2")
+    for num_views, n_tracks in SPLIT_SHAPES:
+        label = f"{num_views}x{n_tracks}"
+        if not bk.fused_fits(num_views, n_tracks, device):
+            out["shapes"][label] = None
+            print(f"  {label:9s} lm_fused does not serve it")
+            continue
+        rows = ba_rows.get(label)
+        if rows is None:
+            times = time_ba_kernels(stage_inputs("quat", device, num_views, n_tracks))
+            per_it = {k: times[k]["ms"] for k in ("schur_assemble", "camera_solve",
+                                                   "point_update_cost")}
+        else:
+            per_it = {r["kernel"]: r["ms"] for r in rows if r["kernel"] != "lm_accept"}
+        t = lm_fused_split("quat", device, num_views, n_tracks, cfg)
+        t["per_iteration_kernels_ms"] = per_it
+        t["per_iteration_sum_ms"] = sum(per_it.values())
+        t["grid_ctas"] = bk._fused_grid(num_views)
+        out["shapes"][label] = t
+
+        def f(x):
+            return "-" if x is None else f"{x:.4f}"
+
+        print(f"  {label:9s} " + " ".join(f(x) for x in t["stage_ms"].values()) + " | "
+              + " ".join(f(x) for x in t["barrier_wait_ms"].values())
+              + f" | {f(t['iteration_ms'])} | {t['per_iteration_sum_ms']:.4f} "
+              f"({t['iterations']} iterations on {t['grid_ctas']} CTAs at most; "
+              f"{t['barriers_per_iteration']:.2f} barriers an "
+              f"iteration; timer step {t['timer_step_ns']} ns; a solve {t['timing_build_ms']:.4f} "
+              f"ms stamped, {t['main_build_ms']:.4f} ms main build)")
+    return out
 
 
 def main() -> int:
@@ -168,6 +226,7 @@ def main() -> int:
         if "lm_fused_ms_per_it" in t:
             print(f"  {label:9s} lm_fused {t['lm_fused_ms_per_it']:.4f} ms an iteration, one "
                   f"launch a solve")
+    out["lm_fused_split"] = lm_fused_split_table(device, out["ba"], cfg)
     print(json.dumps(out))
     if args.json:
         with open(args.json, "w") as f:

@@ -4,10 +4,11 @@ package's fused LM kernel (orthosfm_tpu/solvers/ba_fused.py run_lm) run in
 interpret mode, on the CPU, where lm_solve runs lm_solve_ref.
 
 The problem is the JAX package's own test problem (tests/test_ba_pallas.py
-_problem: 8 views x 1024 tracks) and the tolerances are its own for its
-fused kernel against its XLA path (tests/test_ba_fused.py:54-109): both
-sides are f32 and differ in the order of their sums and in the solve (LU
-here, Gauss-Jordan there). The CUDA kernel itself is held to lm_solve_ref
+_problem: 8 views x 1024 tracks, and 40 views, where the card's camera
+solve is the cluster's) and the tolerances are its own for its fused kernel
+against its XLA path (tests/test_ba_fused.py:54-109): both sides are f32
+and differ in the order of their sums and in the solve (LU here,
+Gauss-Jordan there). The CUDA kernel itself is held to lm_solve_ref
 and, bit for bit, to the per-iteration kernels in tests/test_torch_cuda.py,
 on the card."""
 
@@ -44,10 +45,10 @@ def _fixed_03(cams):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fused(kind, optimize_points, max_iterations, fixed=False):
+def _jax_fused(kind, optimize_points, max_iterations, fixed=False, num_views=8):
     """The JAX package's fused LM kernel in interpret mode on the problem
     (cameras 0 and 3 fixed with `fixed`)."""
-    cams, points, obs, mask = _problem(kind)
+    cams, points, obs, mask = _problem(kind, num_views)
     if fixed:
         cams = _fixed_03(cams)
     cfg = JBAConfig(max_iterations=max_iterations, function_tolerance=0.0, min_lambda=1e-12,
@@ -57,11 +58,11 @@ def _jax_fused(kind, optimize_points, max_iterations, fixed=False):
                           n_tracks=obs.shape[0], interpret=True)
 
 
-def _port(kind, optimize_points, max_iterations, fixed=False):
+def _port(kind, optimize_points, max_iterations, fixed=False, num_views=8):
     """The port's two whole solves on the same problem: lm_solve_ref on the
     LM buffers ba.run builds, as (rot, offset, points, cost, initial cost,
     iterations), and ba.run(impl="fused")."""
-    cams, points, obs, mask = _problem(kind)
+    cams, points, obs, mask = _problem(kind, num_views)
     if fixed:
         cams = _fixed_03(cams)
     tc, tp, to, tm = cam_mod.from_numpy(cams), t(points), t(obs), t(mask)
@@ -95,6 +96,22 @@ def test_single_step_matches_fused_interpret(kind, optimize_points):
 
 
 @pytest.mark.parametrize("kind", ["quat", "euler"])
+def test_many_view_step_matches_fused_interpret(kind):
+    """40 views x 1024 tracks (one tile), past the one-CTA camera solve:
+    on the card lm_fused solves this on its cluster; here its plain
+    version, one iteration against the JAX kernel's."""
+    rf = _jax_fused(kind, True, 1, num_views=40)
+    _, ref, run = _port(kind, True, 1, num_views=40)
+    for rot, offset, points, cost, init_cost, iters in (ref, run):
+        np.testing.assert_allclose(float(init_cost), float(rf.initial_cost), rtol=1e-5)
+        np.testing.assert_allclose(float(cost), float(rf.cost), rtol=1e-3)
+        np.testing.assert_allclose(n(rot), n(rf.cams.rot), rtol=1e-4, atol=2e-6)
+        np.testing.assert_allclose(n(offset), n(rf.cams.offset), atol=1e-5)
+        np.testing.assert_allclose(n(points), n(rf.points), rtol=1e-3, atol=1e-5)
+        assert iters == int(rf.iterations) == 1
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
 def test_full_lm_converges_like_fused_interpret(kind):
     """Fifteen iterations reach the JAX kernel's reduction (the accept and
     reject sequences may part once f32 rounding differs, so the reduction
@@ -118,10 +135,14 @@ def test_fixed_cameras_stay_fixed():
         np.testing.assert_array_equal(n(offset[3]), np.asarray(cams.offset[3]))
 
 
-@pytest.mark.parametrize("views,fits", [(3, True), (37, True), (38, False)])
+@pytest.mark.parametrize("views,fits", [(3, True), (37, True), (38, True), (64, True),
+                                        (119, True), (120, False), (128, False)])
 def test_fused_gate(views, fits):
-    """lm_solve serves 1 to 37 views (the one-CTA camera solve's limit on
-    the card; the same rule here), whatever the track count."""
+    """lm_solve serves 1 to 119 views (on the card its camera solve is one
+    warp, one CTA, or from 38 views the cluster of 8 CTAs while the
+    cluster's rows fit its shared memory; from 120 views BA runs an
+    iteration at a time, and from 128 the camera solve is K3's grid route;
+    the same rule here), whatever the track count."""
     for tracks in (1, 1024, 50000):
         assert bk.fused_fits(views, tracks, "cpu") is fits
     assert kernel_build.resolve_impl("auto", torch.device("cpu"), fused=fits) == "torch"
@@ -145,17 +166,38 @@ def test_jax_impl_names_run_in_the_port(impl):
 
 
 def test_fused_raises_past_37_views():
+    """The fused route's edge, which was 37 views and is now 119: from 120
+    views "fused" raises, in ba.run and in lm_solve."""
     from orthosfm_torch.testbench.problems import make_problem
 
-    cams, points, obs, mask = make_problem("quat", "cpu", 38, 64)
+    cams, points, obs, mask = make_problem("quat", "cpu", 120, 64)
     with pytest.raises(ValueError, match="fused"):
         ba.run(cams, points, obs, mask, True, BundleAdjustConfig(max_iterations=1, impl="fused"))
     pT, obsT, maskT = ba.prepare(points, obs, mask)
     p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
-    with pytest.raises(ValueError, match="37 views"):
+    with pytest.raises(ValueError, match="119 views"):
         bk.lm_solve("quat", p2, obsT, maskT, r2, c2, cam_mod.free_mask(cams).float(), 1.0, True,
                     bk.LMConfig.of(BundleAdjustConfig()), 1)
     # the sharded BA has no fused route: "fused" keeps its per-iteration kernels
     assert kernel_build.resolve_impl("fused", torch.device("cuda")) == "kernel"
     with pytest.raises(ValueError, match="impl"):
         kernel_build.resolve_impl("fast", torch.device("cpu"))
+
+
+def test_fused_launch_failure_raises_and_runs_nothing_else(monkeypatch):
+    """A refused or failed fused launch raises out of ba.run: no path runs
+    the per-iteration loop or the plain solve in its place."""
+    cams, points, obs, mask = _problem("quat")
+    args = (cam_mod.from_numpy(cams), t(points), t(obs), t(mask), True,
+            BundleAdjustConfig(max_iterations=2, impl="fused"))
+    ran = []
+
+    def refused(*a, **k):
+        bk._raise_on(720, "lm_solve")  # cudaErrorCooperativeLaunchTooLarge
+
+    monkeypatch.setattr(bk, "lm_solve", refused)
+    monkeypatch.setattr(bk, "lm_iterate", lambda *a, **k: ran.append("lm_iterate"))
+    monkeypatch.setattr(bk, "lm_solve_ref", lambda *a, **k: ran.append("lm_solve_ref"))
+    with pytest.raises(RuntimeError, match="lm_solve: CUDA error 720"):
+        ba.run(*args)
+    assert ran == []

@@ -453,11 +453,14 @@ def _rejecting(cams):
 
 @pytest.mark.parametrize("kind", ["quat", "euler"])
 @pytest.mark.parametrize("optimize_points", [True, False])
-@pytest.mark.parametrize("shape", [(3, 7800), (8, 1000), (16, 3000), (37, 2048)])
+@pytest.mark.parametrize("shape", [(3, 7800), (8, 1000), (16, 3000), (37, 2048), (38, 2048),
+                                   (64, 4096), (119, 1024), (64, 50000)])
 def test_lm_solve_is_the_per_iteration_kernels_bit_for_bit(dev, kind, optimize_points, shape):
     """ba.run's fused route against its per-iteration kernels, to convergence
     (the main path's config) and with the first steps rejected: the same
-    work items and sum orders, so the same bits and iteration count."""
+    work items and sum orders, so the same bits and iteration count. From
+    38 views the camera solve runs on the launch's first cluster; 64 x
+    50 000 is phase 9's global BA."""
     cams, points, obs, mask = make_problem(kind, dev, *shape)
     cfg = BundleAdjustConfig()
     for c, config in ((cams, cfg), (_rejecting(cams), dataclasses.replace(cfg, initial_lambda=1e-2,
@@ -525,30 +528,37 @@ def test_lm_solve_with_no_iterations_is_the_initial_cost(dev):
 
 
 def test_fused_gate_is_the_cards(dev):
-    """The library serves 1 to 37 views (the one-CTA camera solve's limit)
-    with a grid of at least one CTA a SM; the CPU rule says the same."""
+    """The library serves 1 to 119 views: up to 37 with a grid of at least
+    one CTA a SM, from 38 (the cluster's camera solve) with whole clusters of
+    8; from 120 (the cluster's rows past its shared memory) nothing. The
+    CPU rule says the same."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for views in (1, 3, 5, 6, 16, 32, 33, 37):
         assert bk._fused_grid(views) >= sms, views
         assert bk.fused_fits(views, 2048, dev) and bk.fused_fits(views, 2048, "cpu")
-    for views in (38, 64, 200):
+    for views in (38, 64, 119):
+        grid = bk._fused_grid(views)
+        assert grid >= 8 and grid % 8 == 0, (views, grid)
+        assert bk.fused_fits(views, 2048, dev) and bk.fused_fits(views, 2048, "cpu")
+    for views in (120, 127, 128, 200):
         assert bk._fused_grid(views) == 0, views
         assert not bk.fused_fits(views, 2048, dev) and not bk.fused_fits(views, 2048, "cpu")
 
 
 def test_ba_run_routes_by_views(dev):
-    """"auto" takes lm_solve, one launch a BA, up to 37 views and the
-    per-iteration kernels from 38; "fused" on 38 views raises, in ba.run and
-    in lm_solve; the JAX package's "pallas" is the per-iteration kernels and
-    "xla" the plain versions."""
+    """"auto" takes lm_solve, one launch a BA, up to 119 views (64: phase 9's
+    global BA) and the per-iteration kernels from 120; "fused" on 120 views
+    raises, in ba.run and in lm_solve; the JAX package's "pallas" is the
+    per-iteration kernels and "xla" the plain versions."""
     cfg = BundleAdjustConfig(max_iterations=5, function_tolerance=0.0)
-    small = make_problem("quat", dev, 37, 500)
-    large = make_problem("quat", dev, 38, 500)
+    small = make_problem("quat", dev, 119, 500)
+    large = make_problem("quat", dev, 120, 500)
     none = dict.fromkeys(("lm_solve", "schur_assemble", "camera_solve", "point_update_cost",
                           "lm_accept"), 0)
     fused = {**none, "lm_solve": 1}
     per_iteration = {**none, "schur_assemble": 5, "camera_solve": 5, "point_update_cost": 6}
     for problem, impl, launched in ((small, "auto", fused), (large, "auto", per_iteration),
+                                    (make_problem("quat", dev, 64, 2000), "auto", fused),
                                     (small, "fused", fused), (small, "pallas", per_iteration),
                                     (small, "xla", none)):
         bk.reset_launch_counts()
@@ -559,9 +569,32 @@ def test_ba_run_routes_by_views(dev):
     cams, points, obs, mask = large
     pT, obsT, maskT = ba.prepare(points, obs, mask)
     p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
-    with pytest.raises(ValueError, match="37 views"):
+    with pytest.raises(ValueError, match="119 views"):
         bk.lm_solve("quat", p2, obsT, maskT, r2, c2, cam_mod.free_mask(cams).float(), 1.0, True,
                     CFG, 5)
+
+
+@pytest.mark.parametrize("views", [16, 64])
+def test_lm_solve_refused_launch_raises(dev, monkeypatch, views):
+    """A launch the runtime refuses (here the library answers 720,
+    cudaErrorCooperativeLaunchTooLarge, as for a grid that cannot be
+    resident) raises out of lm_solve and ba.run: nothing runs the
+    per-iteration kernels or the plain version in its place."""
+    real = bk.library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def osfm_lm_fused(self, *args):
+            return 720
+
+    problem = make_problem("quat", dev, views, 1000)
+    monkeypatch.setattr(bk, "library", lambda: Refusing())
+    bk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="lm_solve: CUDA error 720"):
+        ba.run(*problem, True, BundleAdjustConfig(max_iterations=5))
+    assert bk.launch_counts() == dict.fromkeys(bk.launch_counts(), 0)
 
 
 # ---------------------------------------------------------------------------
