@@ -49,10 +49,16 @@ Phases:
      phase (one lm_fused launch a BA, no per-iteration kernel), the LM
      iterations run by route, and the port's writers producing cameras.txt,
      sparse_cloud.ply, tracks.txt and time_measurements.txt;
-  4. BA iterations/s of the fused route (lm_fused), the per-iteration
-     kernels and the plain PyTorch path on the standard problem and on a
-     64-view problem (64 x 4096 tracks), 30 iterations each, in turns, and
-     the host's time per iteration;
+  4. the BA bench (orthosfm_torch/bench.py, the JAX system's bench.py) on
+     the standard problem: its JSON line, with vs_baseline (the same solver
+     on the host CPU, one repeat of 2 calls), every repeat's rates, and
+     the checks that every route ran 30 iterations, that value lies at or
+     under the device bound (30 over one 30-iteration lm_fused solve's
+     device time, by CUDA events), and that the "auto" calls launched
+     lm_fused only and the "pallas" calls K1, K3 and K2 only; then BA
+     iterations/s of the fused route, the per-iteration kernels and the
+     plain PyTorch path on a 64-view problem (64 x 4096 tracks), 30
+     iterations each, in turns, and the host's time per iteration;
   5. the image front end at reference scale: 16 sphere views of 2048^2
      rendered on the card (seed 7, a 200 degree ring), then SIFT + SURF,
      pair matching through top2, RANSAC-F, union-find tracks and pose
@@ -105,7 +111,13 @@ Phases:
      top2's launches). Its counts are the kernels line's launches of
      lm_fused and top2; K1, K3 and K2, which this path runs only inside
      lm_fused, give phase 8's, where the sharded BA launches them
-     (launches_phase names the phase of each kernel's count).
+     (launches_phase names the phase of each kernel's count);
+ 10. the single-device entry point (orthosfm_torch/entry.py, the JAX
+     system's __graft_entry__.entry()): fn(*example_args) twice on the card
+     (16 views x 2048 tracks, 5 iterations), bit for bit, one lm_fused
+     launch a call and no K1, K3 or K2, held against the same fn on the
+     plain route (impl="torch") on the card at the tolerances of lm_fused
+     against its plain version, each call timed to a synchronize.
 
 Phase 2 also runs K3's grid route at 700, 1100 and 2000 views (n = 4200,
 6600, 12000) beside torch.linalg.solve_ex, held to an f64 solve (no further
@@ -181,7 +193,9 @@ TOL_SOLVE_REL = 1e-5      # max |delta - delta_ref| / max |delta_ref|
 SOLVE_LAMBDAS = (1e-3, 1.0)
 # K2 takes the plain step of each: lambda 1e-3 is the size of step the main
 # path takes (from lambda_0 = 1e-4 downward), lambda 1 a damped one
-BA_SHAPES = ((N_VIEWS, N_TRACKS), (64, 4096))
+# Phase 4: the bench (orthosfm_torch/bench.py) runs the standard problem;
+# the routes run in turns here
+BA_SHAPES = ((64, 4096),)
 # Phase 9: the JAX package's many-view run (scripts/scale_demo.py, its
 # docs/scale_demo.json: 64/64 views at 0.007 / 0.013 deg), held to these
 # bars; then the front end's stage profile at phase 5's scale
@@ -208,6 +222,12 @@ TOL_LM_COST_REL = 1e-3
 TOL_LM_ROT_REL, TOL_LM_ROT_ABS = 1e-4, 2e-6
 TOL_LM_OFFSET_ABS = 1e-5
 TOL_LM_POINTS_REL, TOL_LM_POINTS_ABS = 1e-3, 1e-5
+# Phase 10: after entry()'s 5 iterations the cost sits at its f32 floor,
+# where every residual is the rounding of a pixel coordinate below 2048
+# (half an f32 ulp, 1.2e-4 px); two sum orders part by tens of percent
+# there, so the cost is held to TOL_LM_COST_REL beside that floor,
+# 0.5 * 2 * observations * (1.2e-4)^2, under which both must lie
+ENTRY_FLOOR_PX = float(np.spacing(np.float32(WIDTH))) / 2
 # K1, K3 and K2 are checked and timed at the main paths' shapes: the local
 # BA of a 3-view group (n = 18) at phase 3's 7800 tracks and at phase 9's
 # 50 000, the global BA (make_problem(), n = 96), and many views (n = 384)
@@ -785,6 +805,87 @@ def ba_rate(device, num_views, n_tracks, iterations=30):
     out = {k: float(np.mean(v)) for k, v in rates.items()}
     out.update({f"{k}_enqueue_ms_per_it": float(np.mean(v)) for k, v in enqueue.items()})
     return out
+
+
+def run_bench(device):
+    """Phase 4's bench: orthosfm_torch.bench.measure() on the card (the JAX
+    system's bench.py by its method), its JSON line printed, then the checks
+    on its routes: 30 iterations each, value at or under the device bound,
+    and each route's kernel launches over all its calls."""
+    from orthosfm_torch import bench
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    line, detail = bench.measure(device)
+    for key, d in detail.items():
+        print(f"  {key}: {json.dumps(d)}")
+    print(json.dumps(line))
+    for key in ("value", "pallas_iter_per_s", "xla_iter_per_s", "euler_iter_per_s",
+                "cpu_baseline"):
+        require(detail[key]["iterations"] == bench.ITERATIONS,
+                f"bench {key}: {detail[key]['iterations']} iterations")
+    bound = detail["device_bound"]
+    print(f"  value {line['value']} it/s; device bound {bound['iter_per_s']:.1f} it/s "
+          f"({bound['solve_ms']:.4f} ms a 30-iteration lm_fused solve)")
+    require(bound["value_within"],
+            f"bench value {line['value']} it/s above its device bound {bound['iter_per_s']} it/s")
+    none = dict.fromkeys(bk.launch_counts(), 0)
+    it = bench.ITERATIONS
+    for key, per_call in (
+            ("value", {**none, "lm_solve": 1}), ("euler_iter_per_s", {**none, "lm_solve": 1}),
+            ("pallas_iter_per_s", {**none, "schur_assemble": it, "camera_solve": it,
+                                   "point_update_cost": it + 1}),
+            ("xla_iter_per_s", none), ("cpu_baseline", none)):
+        want = {k: v * detail[key]["calls"] for k, v in per_call.items()}
+        require(detail[key]["launches"] == want,
+                f"bench {key}: launches {detail[key]['launches']}, not {want}")
+    return {"line": line, "detail": detail}
+
+
+def run_entry(device):
+    """Phase 10: entry()'s fn on its example_args twice (bit for bit, one
+    lm_fused launch a call, each timed to a synchronize), then against the
+    same fn on the plain route on the card. Returns (launches, results)."""
+    import torch
+
+    from orthosfm_torch import entry as entry_mod
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    fn, args = entry_mod.entry()
+    plain, _ = entry_mod.entry(device, impl="torch")
+
+    def timed(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    bk.reset_launch_counts()
+    (a, a_ms), (b, b_ms) = timed(fn), timed(fn)
+    launches = bk.launch_counts()
+    print(f"  launches {launches}; calls {a_ms:.3f} ms and {b_ms:.3f} ms to a synchronize "
+          "(the first builds nothing: phase 1 built the kernels)")
+    require(launches == {**dict.fromkeys(launches, 0), "lm_solve": 2},
+            f"entry(): launches {launches} over two calls, not one lm_fused each")
+    require(all(torch.equal(x, y) for x, y in zip(a, b)), "entry(): two calls differ")
+    ref, plain_ms = timed(plain)
+    floor = 0.5 * 2 * int(args[3].sum()) * ENTRY_FLOOR_PX ** 2
+    cost, ref_cost = float(a[0]), float(ref[0])
+    rot_err, pts_err = max_err(a[1], ref[1]), max_err(a[2], ref[2])
+    print(f"  cost {cost:.6e} (plain route {ref_cost:.6e}, f32 floor {floor:.3e}); max |rot - "
+          f"plain| {rot_err:.3e}, max |points - plain| {pts_err:.3e}; plain route {plain_ms:.3f} "
+          "ms to a synchronize")
+    require(0.0 < cost < floor and 0.0 < ref_cost < floor,
+            f"entry(): costs {cost}, {ref_cost} not under the f32 floor {floor}")
+    require(abs(cost - ref_cost) <= TOL_LM_COST_REL * abs(ref_cost) + floor,
+            f"entry(): cost {cost} against the plain route's {ref_cost}")
+    for x, y, rtol, atol, what in ((a[1], ref[1], TOL_LM_ROT_REL, TOL_LM_ROT_ABS, "rotations"),
+                                   (a[2], ref[2], TOL_LM_POINTS_REL, TOL_LM_POINTS_ABS, "points")):
+        require(bool(((x - y).abs() <= atol + rtol * y.abs()).all()),
+                f"entry(): {what} against the plain route")
+    return launches, {"call_ms": [a_ms, b_ms], "plain_call_ms": plain_ms, "cost": cost,
+                      "plain_cost": ref_cost, "cost_floor": floor, "max_abs_err_rot": rot_err,
+                      "max_abs_err_points": pts_err}
 
 
 def top2_pairs(device, counts):
@@ -1532,16 +1633,15 @@ def main() -> int:
     require_routes(launches, slice_ba, "phase 3")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
 
-    print("== phase 4: BA iterations/s (quat)")
+    print("== phase 4: the BA bench (orthosfm_torch/bench.py), then BA iterations/s (quat)")
     t0 = time.perf_counter()
-    rates = {}
+    rates = {f"{N_VIEWS}x{N_TRACKS}": run_bench(device)}
     for num_views, n_tracks in BA_SHAPES:
         print(f"  {num_views} views x {n_tracks} tracks")
         r = ba_rate(device, num_views, n_tracks)
         rates[f"{num_views}x{n_tracks}"] = r
         print(f"  fused {r['fused']:.1f} it/s, kernel path {r['kernel']:.1f} it/s, plain torch "
-              f"path {r['torch']:.1f} it/s" if "fused" in r else
-              f"  kernel path {r['kernel']:.1f} it/s, plain torch path {r['torch']:.1f} it/s")
+              f"path {r['torch']:.1f} it/s")
     for num_views, n_tracks in BA_RUN_SHAPES_MANY:
         print(f"  {num_views} views x {n_tracks} tracks, {BA_RUN_ITERATIONS_MANY} iterations "
               "(past shared memory)")
@@ -1603,6 +1703,10 @@ def main() -> int:
     many_launches, many_routes, many_views = run_many_views(device)
     phase_launches["phase9"] = {**many_launches, "camera_solve_routes": many_routes}
     print(f"  phase 9 wall time {time.perf_counter() - t0:.2f} s")
+    print("== phase 10: the single-device entry point (orthosfm_torch/entry.py)")
+    t0 = time.perf_counter()
+    phase_launches["phase10"], entry_run = run_entry(device)
+    print(f"  phase 10 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
@@ -1646,7 +1750,7 @@ def main() -> int:
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}, "testbench": testbench,
                       "homography": homography, "sharded": sharded,
-                      "many_views": many_views}))
+                      "many_views": many_views, "entry": entry_run}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

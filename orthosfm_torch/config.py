@@ -11,8 +11,7 @@ config, so a config written for it runs here unchanged, and differs in
 BundleAdjustConfig.impl, which takes the port's "torch" and "kernel" beside
 the JAX package's "xla", "pallas" and "fused". Some fields are
 accepted and not read, as each says: the Ceres gradient and parameter
-tolerances (unread in the JAX package too), `use_pallas` (`impl` picks the
-kernels here), ReconstructionConfig.camera_distance
+tolerances (unread in the JAX package too), ReconstructionConfig.camera_distance
 (core.cameras.CAMERA_DISTANCE is the constant in both packages) and
 MatchingConfig's SIFT constants (ops/sift.py holds them in both packages).
 """
@@ -108,14 +107,15 @@ class BundleAdjustConfig:
     lambda_down: float = 0.5
     min_lambda: float = 1e-12
     max_lambda: float = 1e8
-    # Accepted for the JAX package's configs (which pick their Pallas kernels
-    # by it), not read: `impl` picks the CUDA kernels here
+    # As in the JAX package: False turns "auto" into the plain route ("torch",
+    # the JAX package's "xla") on every device; an explicit `impl` wins
     use_pallas: bool = True
     # LM implementation (solvers/ba_kernels.py): "fused" runs the whole solve
     # in one cooperative CUDA launch (up to 119 views; raises above), "kernel"
     # the hand-written CUDA kernels one iteration at a time, "torch" their
     # plain PyTorch versions; "auto" picks "fused" for CUDA tensors where it
-    # serves, else "kernel", and "torch" for CPU tensors. The JAX package's
+    # serves, else "kernel", and "torch" for CPU tensors or with use_pallas
+    # false. The JAX package's
     # "xla" is "torch" here and its "pallas" "kernel".
     impl: str = "auto"  # "auto" | "torch" | "kernel" | "fused" | "xla" | "pallas"
 

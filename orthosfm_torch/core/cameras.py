@@ -323,8 +323,13 @@ def free_mask(cams: CameraSet):
         (OrthographicCamera.h:133-134).
       - a fully `fixed` camera freezes everything (gauge anchor,
         reconstruct.cpp:215).
+
+    The free slots are a prefix of the six, so the mask is built on the
+    device from their count: a copy of a host list would synchronize the
+    host with the card.
     """
-    base = torch.tensor(_base_free(cams), device=cams.device)
+    n_free = sum(_base_free(cams))
+    base = torch.arange(CAMERA_TANGENT_DIM, device=cams.device) < n_free
     mask = torch.broadcast_to(base, (len(cams), CAMERA_TANGENT_DIM))
     return mask & ~cams.fixed[:, None]
 

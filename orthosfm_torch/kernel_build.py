@@ -33,18 +33,20 @@ CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 IMPL_ALIASES = {"xla": "torch", "pallas": "kernel"}
 
 
-def resolve_impl(impl: str, device, fused=None) -> str:
+def resolve_impl(impl: str, device, fused=None, use_pallas: bool = True) -> str:
     """A kernel wrapper's route: "torch" (the plain PyTorch version),
     "kernel" (the hand-written kernels) or "fused" (ba.run's whole LM solve
     in one launch). The JAX package's names map onto them: "xla" is
     "torch", "pallas" "kernel" (its per-iteration kernels) and "fused"
     "fused". `fused` says whether the caller's fused route serves this
     problem (None: the caller has none, and "fused" takes its kernels).
-    "auto" gives "torch" for CPU tensors and, for CUDA tensors, "fused"
-    where that serves and "kernel" elsewhere; an explicit "fused" that does
-    not serve raises."""
+    "auto" gives "torch" for CPU tensors, and with `use_pallas` false
+    (BundleAdjustConfig.use_pallas, which turns the JAX package's "auto"
+    into XLA on every backend) on every device; else, for CUDA tensors,
+    "fused" where that serves and "kernel" elsewhere. An explicit impl wins
+    over `use_pallas`; an explicit "fused" that does not serve raises."""
     if impl == "auto":
-        if device.type != "cuda":
+        if device.type != "cuda" or not use_pallas:
             return "torch"
         return "fused" if fused else "kernel"
     impl = IMPL_ALIASES.get(impl, impl)

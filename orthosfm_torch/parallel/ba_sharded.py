@@ -40,10 +40,13 @@ def make_sharded_ba(mesh: Mesh, optimize_points: bool = True,
     no card, the plain versions. The sharded BA has no whole-solve launch
     (its cost and system are summed over the ranks every iteration), so
     "fused" and "auto" run the per-iteration kernels on the card, as the
-    JAX package's sharded BA keeps its two kernels."""
+    JAX package's sharded BA keeps its two kernels; "auto" with
+    config.use_pallas false runs the plain versions there, as the JAX
+    package's runs XLA."""
 
     def run(cams: cam_mod.CameraSet, points4, obs, mask) -> ba.BAResult:
-        route = resolve_impl(config.impl if impl is None else impl, obs.device)
+        route = resolve_impl(config.impl if impl is None else impl, obs.device,
+                             use_pallas=config.use_pallas)
         plain = route == "torch"
         kind = cams.kind
         T = obs.shape[0]

@@ -91,13 +91,17 @@ def init_distributed(init_method: str = "env://", world_size: Optional[int] = No
                      rank: Optional[int] = None, backend: Optional[str] = None,
                      device=None) -> Mesh:
     """Joins the process group and returns the mesh: the counterpart of
-    jax.distributed.initialize. backend None: NCCL where a card is present,
-    gloo on the CPU. init_method "env://" (torchrun, and multi-host
+    jax.distributed.initialize. backend None is NCCL, which needs a card:
+    without one it raises rather than join over the CPU unasked (pass
+    backend="gloo" for CPU ranks). init_method "env://" (torchrun, and multi-host
     launches) reads MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK; with
     "tcp://host:port" give world_size and rank. device: the rank's device
     (default: cuda:LOCAL_RANK under NCCL, the CPU under gloo)."""
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device is available for NCCL; pass backend="gloo" to '
+                               "join the process group over the CPU")
+        backend = "nccl"
     kwargs = {}
     if world_size is not None:
         kwargs["world_size"] = world_size

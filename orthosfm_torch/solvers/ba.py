@@ -36,7 +36,9 @@ one of three routes (config.impl, kernel_build.resolve_impl):
     turns the converged ones into no-ops.
   - "torch": their plain PyTorch versions in the same loop ("auto" on the
     CPU, where reading `done` syncs nothing and the loop stops there).
-The JAX package's "xla" and "pallas" name the "torch" and "kernel" routes.
+The JAX package's "xla" and "pallas" name the "torch" and "kernel" routes,
+and as there, "auto" with config.use_pallas false is the plain route on
+every device.
 Nothing falls back: a route that cannot serve a problem raises. The points
 and cameras live in LM buffers of two halves; the scalar state names the
 current one, and an accepted step flips it.
@@ -385,12 +387,14 @@ class BAResult(NamedTuple):
 def prepare(points4, obs, mask):
     """Padding and safe-point handling of the JAX package's ba._run_jit:
     unit-normalized (4, T) points, with a safe unit point [0,0,0,1] for
-    tracks without a valid observation; obsT (V, 2, T); maskT (V, T) f32."""
+    tracks without a valid observation; obsT (V, 2, T); maskT (V, T) f32.
+    The safe point is made on the device (a copy from the host would
+    synchronize the host with the card)."""
     p_hat = points4 / torch.clamp(torch.linalg.vector_norm(points4, dim=-1, keepdim=True),
                                   min=1e-20)
     track_valid = torch.any(mask, dim=1)
     mask = mask & track_valid[:, None]
-    safe = points4.new_tensor([0.0, 0.0, 0.0, 1.0])
+    safe = (torch.arange(4, device=points4.device) == 3).to(points4.dtype)
     p_hat = torch.where(track_valid[:, None], p_hat, safe)
     pT = p_hat.T.contiguous()
     obsT = obs.permute(1, 2, 0).contiguous()
@@ -419,8 +423,9 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     t0 = time.perf_counter()
     kind = cams.kind
     T, V = obs.shape[0], len(cams)
-    fits = config.impl in ("auto", "fused") and bk.fused_fits(V, T, obs.device)
-    route = resolve_impl(config.impl, obs.device, fused=fits)
+    wants_fused = config.impl == "fused" or (config.impl == "auto" and config.use_pallas)
+    fits = wants_fused and bk.fused_fits(V, T, obs.device)
+    route = resolve_impl(config.impl, obs.device, fused=fits, use_pallas=config.use_pallas)
     pT, obsT, maskT = prepare(points4, obs.to(torch.float32), mask)
     free = cam_mod.free_mask(cams).to(torch.float32).contiguous()
     pT2, rot2, camp2 = bk.lm_buffers(pT, cams.rot.to(torch.float32), pack_camp(cams))

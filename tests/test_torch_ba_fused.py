@@ -201,3 +201,51 @@ def test_fused_launch_failure_raises_and_runs_nothing_else(monkeypatch):
     with pytest.raises(RuntimeError, match="lm_solve: CUDA error 720"):
         ba.run(*args)
     assert ran == []
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_false_makes_auto_the_plain_route(use_pallas):
+    """BundleAdjustConfig.use_pallas=False turns "auto" into the plain route
+    on every device, as it turns the JAX package's "auto" into XLA
+    (orthosfm_tpu/solvers/ba.py:541-546, parallel/ba_sharded.py:44-47); an
+    explicit impl wins over it."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for fits in (True, False):
+        assert kernel_build.resolve_impl("auto", cuda, fused=fits, use_pallas=use_pallas) == (
+            ("fused" if fits else "kernel") if use_pallas else "torch")
+        assert kernel_build.resolve_impl("auto", cpu, fused=fits, use_pallas=use_pallas) == "torch"
+    # the sharded BA (no fused route)
+    assert kernel_build.resolve_impl("auto", cuda, use_pallas=use_pallas) == (
+        "kernel" if use_pallas else "torch")
+    for impl, route in (("kernel", "kernel"), ("pallas", "kernel"), ("torch", "torch"),
+                        ("xla", "torch"), ("fused", "fused")):
+        assert kernel_build.resolve_impl(impl, cuda, fused=True, use_pallas=use_pallas) == route
+    assert kernel_build.resolve_impl("fused", cuda, use_pallas=use_pallas) == "kernel"
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_ba_run_and_the_sharded_ba_route_by_use_pallas(monkeypatch, use_pallas):
+    """ba.run and the sharded BA hand config.use_pallas to resolve_impl: the
+    route each would take for CUDA tensors is recorded beside the CPU run
+    (with use_pallas false neither asks whether the fused route fits)."""
+    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod
+
+    real = kernel_build.resolve_impl
+    on_card = []
+
+    def spy(impl, device, fused=None, use_pallas=True):
+        on_card.append(real(impl, torch.device("cuda"), fused=fused, use_pallas=use_pallas))
+        return real(impl, device, fused=fused, use_pallas=use_pallas)
+
+    fits = []
+    real_fits = bk.fused_fits
+    monkeypatch.setattr(ba, "resolve_impl", spy)
+    monkeypatch.setattr(ba_sharded, "resolve_impl", spy)
+    monkeypatch.setattr(bk, "fused_fits", lambda *a: fits.append(a) or real_fits(*a))
+    cams, points, obs, mask = _problem("quat")
+    args = (cam_mod.from_numpy(cams), t(points), t(obs), t(mask))
+    cfg = BundleAdjustConfig(max_iterations=2, use_pallas=use_pallas)
+    ba.run(*args, True, cfg)
+    ba_sharded.make_sharded_ba(mesh_mod.make_mesh(1, device="cpu"), True, cfg)(*args)
+    assert on_card == (["fused", "kernel"] if use_pallas else ["torch", "torch"])
+    assert len(fits) == int(use_pallas)

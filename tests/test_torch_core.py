@@ -261,3 +261,16 @@ def test_tracks_and_cameras_io_match(tmp_path):
     assert [c.image_name for c in got] == [c.image_name for c in ref]
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.transform, b.transform, atol=2e-6)
+
+
+@pytest.mark.parametrize("solver", [0, 1, 2, 3])
+def test_free_mask_matches_jax_for_every_solver(solver):
+    """free_mask, built on the device from the count of free slots (a
+    prefix of the six), is the JAX package's mask for every solver, with
+    fixed cameras frozen."""
+    basis = np.stack([np.eye(3, dtype=np.float32)] * 4)
+    je = jcam.from_basis(basis, np.arange(4), 2048.0, 2048.0, JSolver(solver))
+    je = je.replace(fixed=jnp.asarray([True, False, True, False]))
+    te = cam_mod.from_numpy(je)
+    np.testing.assert_array_equal(n(cam_mod.free_mask(te)), n(jcam.free_mask(je)))
+    assert int(n(cam_mod.free_mask(te))[1].sum()) == {0: 5, 1: 1, 2: 2, 3: 5}[solver]

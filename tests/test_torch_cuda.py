@@ -16,9 +16,14 @@ within 1e-5 absolute in both directions (the kernel's FMA chain and
 cuBLAS's GEMM sum in different orders) and the same index except on rows
 whose best and second d2 lie within 1e-5 of each other; the kernel against
 itself (a swapped pair table, a second run) bit for bit.
+
+The last tests run the BA bench's routes (orthosfm_torch/bench.py) by their
+launches, entry() at its real size, and ba.run's host side: no call that
+waits on the card, and no kernel with use_pallas=False.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1094,3 +1099,112 @@ def test_full_pipeline_dataset_on_the_card(tmp_path, dev):
     assert [r.config for r in res] == ["Quaternion", "EulerAllDoF"]
     for r in res:
         assert r.mean_angular_error < 1.0, r
+
+
+# ---------------------------------------------------------------------------
+# The BA bench (orthosfm_torch/bench.py), entry() and use_pallas=False
+
+NO_LAUNCH = dict.fromkeys(("lm_solve", "schur_assemble", "camera_solve", "point_update_cost",
+                           "lm_accept"), 0)
+
+
+def test_bench_routes_launch_their_kernels(dev):
+    """time_ba's routes by their launches over every call: "auto" one
+    lm_fused a solve, "pallas" K1, K3 and K2 an iteration (K2 once more for
+    the initial cost), "xla" nothing; the Euler key "auto" too."""
+    from orthosfm_torch import bench
+
+    iters = 5
+    cams, points, obs, mask = bench.make_problem(dev, 16, 2048)
+    for c, impl, per_call in (
+            (cams, "auto", {**NO_LAUNCH, "lm_solve": 1}),
+            (cams, "pallas", {**NO_LAUNCH, "schur_assemble": iters, "camera_solve": iters,
+                              "point_update_cost": iters + 1}),
+            (cams, "xla", NO_LAUNCH),
+            (bench.euler_cameras(cams), "auto", {**NO_LAUNCH, "lm_solve": 1})):
+        t = bench.time_ba(dev, c, points, obs, mask, iters=iters, repeats=1, impl=impl, calls=3)
+        assert t.iterations == iters and t.calls == 5
+        assert t.launches == {k: v * t.calls for k, v in per_call.items()}, (impl, t.launches)
+        assert t.iter_per_s > 0 and t.synced_iter_per_s > 0
+
+
+def test_bench_value_is_under_its_device_bound(dev):
+    """The pipelined "auto" rate at the bench's size cannot exceed the
+    iterations over one lm_fused solve's device time."""
+    from orthosfm_torch import bench
+
+    problem = bench.make_problem(dev)
+    t = bench.time_ba(dev, *problem, repeats=2, calls=10)
+    bound = bench.device_bound(*problem)
+    assert t.iterations == 30 and 0 < t.iter_per_s <= bound["iter_per_s"], (t, bound)
+
+
+def test_entry_on_the_card(dev):
+    """entry() at its real size (16 views x 2048 tracks, 5 iterations): one
+    lm_fused launch a call, two calls bit for bit, and within
+    test_lm_solve_agrees_with_its_plain_version's tolerances of the plain
+    route on the card (the cost, at the f32 floor after 5 iterations, within
+    the floor tests/test_torch_graft_entry.py derives)."""
+    from orthosfm_torch import entry as entry_mod
+
+    fn, args = entry_mod.entry()
+    assert args[1].device.type == "cuda"
+    bk.reset_launch_counts()
+    a = fn(*args)
+    b = fn(*args)
+    assert bk.launch_counts() == {**NO_LAUNCH, "lm_solve": 2}
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    plain, _ = entry_mod.entry(dev, impl="torch")
+    bk.reset_launch_counts()
+    ref = plain(*args)
+    assert bk.launch_counts() == NO_LAUNCH
+    floor = 0.5 * 2 * int(args[3].sum()) * (float(np.spacing(np.float32(2048.0))) / 2) ** 2
+    assert 0.0 < float(a[0]) < floor and 0.0 < float(ref[0]) < floor
+    np.testing.assert_allclose(float(a[0]), float(ref[0]), rtol=1e-3, atol=floor)
+    torch.testing.assert_close(a[1], ref[1], rtol=1e-4, atol=2e-6)
+    torch.testing.assert_close(a[2], ref[2], rtol=1e-3, atol=1e-5)
+
+
+def test_use_pallas_false_launches_no_kernel(dev):
+    """With use_pallas=False, "auto" is the plain route on the card: ba.run
+    and the sharded BA (a mesh of one device) launch nothing and give the
+    bits of impl="torch"; an explicit impl still launches its kernels."""
+    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod
+
+    cams, points, obs, mask = make_problem("quat", dev, 16, 2048)
+    cfg = BundleAdjustConfig(max_iterations=5, function_tolerance=0.0, use_pallas=False)
+    sharded = ba_sharded.make_sharded_ba(mesh_mod.make_mesh(1, device=dev), True, cfg)
+    bk.reset_launch_counts()
+    r = ba.run(cams, points, obs, mask, True, cfg)
+    s = sharded(cams, points, obs, mask)
+    assert bk.launch_counts() == NO_LAUNCH
+    ref = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
+    assert _same_result(r, ref)
+    assert int(s.iterations) == 5 and float(s.cost) < float(s.initial_cost)
+    ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="fused"))
+    assert bk.launch_counts() == {**NO_LAUNCH, "lm_solve": 1}
+
+
+@pytest.mark.parametrize("kind", ["quat", "euler"])
+def test_ba_run_does_not_synchronize_the_host(dev, kind):
+    """ba.run enqueues its whole solve: no call in it waits on the card
+    (torch.cuda.set_sync_debug_mode("error") raises on one), on the fused,
+    the per-iteration and the sharded route, so back-to-back calls pipeline
+    as the bench's method assumes."""
+    from orthosfm_torch.parallel import ba_sharded, mesh as mesh_mod
+
+    cams, points, obs, mask = make_problem(kind, dev, 16, 2048)
+    cfg = BundleAdjustConfig(max_iterations=5, function_tolerance=0.0)
+    runs = [functools.partial(ba.run, cams, points, obs, mask, True,
+                              dataclasses.replace(cfg, impl=impl)) for impl in ("fused", "kernel")]
+    runs.append(functools.partial(ba_sharded.make_sharded_ba(mesh_mod.make_mesh(1, device=dev),
+                                                             True, cfg), cams, points, obs, mask))
+    for run in runs:
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(r.iterations) == 5

@@ -244,6 +244,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = [*sorted((root / "orthosfm_torch").rglob("*.py")), root / "chip_smoke.py",
              *sorted((root / "scripts").glob("torch_*.py"))]
     assert len(files) > 30
+    assert {root / "orthosfm_torch" / name for name in ("bench.py", "entry.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)

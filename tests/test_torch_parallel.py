@@ -160,6 +160,19 @@ def test_sharded_ba_of_one_device_is_ba_run(problem, one_device_ba):
     assert int(res.iterations) == int(one_device_ba.iterations)
 
 
+def test_init_distributed_without_a_backend_needs_a_card(monkeypatch):
+    """backend None is NCCL: on a host without a card init_distributed
+    raises, naming backend="gloo", before it joins any process group."""
+    import torch.distributed as dist
+
+    joined = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **k: joined.append((a, k)))
+    with pytest.raises(RuntimeError, match='backend="gloo"'):
+        mesh_mod.init_distributed("tcp://localhost:1", 1, 0)
+    assert joined == [] and not dist.is_initialized()
+
+
 def test_sharded_tk_matches_unsharded(ranks):
     """241 hypotheses over 3 ranks (padded to 243, the copies masked to
     −inf) against robust_factorization on the same draws."""
