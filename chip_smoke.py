@@ -117,14 +117,28 @@ Phases:
      (16 views x 2048 tracks, 5 iterations), bit for bit, one lm_fused
      launch a call and no K1, K3 or K2, held against the same fn on the
      plain route (impl="torch") on the card at the tolerances of lm_fused
-     against its plain version, each call timed to a synchronize.
+     against its plain version, each call timed to a synchronize;
+ 11. the main path past 119 views: testbench/scale_demo.py at 192 views x
+     4096 blob tracks, 1 px, through run_pose_estimation with the kernels:
+     its BAs of up to 119 views one lm_fused launch each, its larger global
+     BAs and its final BA K1, K3 and K2 an iteration, K3 by its grid route; 192/192 views placed at a mean angular error under
+     0.25 deg (the repo's bar at 1 px), with the global-BA stage time, the
+     BAs and their working iterations by route, and the grid route's
+     launches, which are the kernels line's launches of camera_solve_grid
+     (most return at once on state[DONE]: the per-iteration route enqueues
+     max_iterations; its launches_working counts the solves that work).
 
-Phase 2 also runs K3's grid route at 700, 1100 and 2000 views (n = 4200,
-6600, 12000) beside torch.linalg.solve_ex, held to an f64 solve (no further
-from it than twice the plain f32 LU is), with its bound, and the cluster
-against the grid route at the crossover (128 views); phase 4 also runs
-ba.run both ways at 700, 1100 and 2000 views x 2000 tracks, 10 iterations,
-with each stage's time there.
+Phase 2 also runs K3's grid route at 128, 192 (phase 11's shape, n =
+1152: the kernels line's times for the grid route), 700, 1100 and 2000
+views (n = 4200, 6600, 12000) and the cluster against it at GRID_MIN_V
+(120 views), beside the library's Cholesky (cholesky_ex + cholesky_solve,
+the kernels line's library_ms for the grid route) and
+torch.linalg.solve_ex, held to an f64 solve (no further from it than
+twice the plain f32 LU is), with its bound (its 3xTF32 products on the
+tensor cores), its three floors (f32 FMA, 3xTF32, the panels' bytes) and
+its kernel launches a solve (at most 10); phase 4 also runs ba.run both ways at
+700, 1100 and 2000 views x 2000 tracks, 10 iterations, with each stage's
+time there.
 
 With --parent DIR (a checkout of the parent commit), top2 is also timed in
 turns against DIR's by scripts/torch_top2_turns.py.
@@ -175,13 +189,21 @@ BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept"
 # lm_fused are the wrapper's, lm_solve.
 UNSHARDED_BA = ("schur_assemble", "camera_solve", "point_update_cost")
 LAUNCH_KEY = {"lm_fused": "lm_solve"}
+# Phase 11: the main path past 119 views (testbench/scale_demo.py at 192
+# views): its BAs of 120 views or more (the global BAs over all 192 cameras
+# and the final BA) run an iteration at a time, K3 by its grid route; the
+# repo's bar at 1 px
+GRID_PATH_VIEWS, GRID_PATH_TRACKS, GRID_PATH_NOISE_PX = 192, 4096, 1.0
+GRID_PATH_LIMIT_MEAN_DEG = 0.25
 # K3's grid route (camera_solve_grid in the kernels line): phase 2 at these
-# views of K3_TRACKS tracks, timed at K3_GRID_TIMED; the crossover with the
-# cluster (GRID_MIN_V in the CUDA source)
-K3_GRID_VIEWS = (700, 1100, 2000)
-K3_GRID_TIMED = 1100
-K3_CROSSOVER_VIEWS = 128
+# views of K3_TRACKS tracks, the kernels line's times at K3_GRID_TIMED,
+# phase 11's shape (n = 1152); the crossover with the cluster (GRID_MIN_V
+# in the CUDA source)
+K3_GRID_VIEWS = (128, GRID_PATH_VIEWS, 700, 1100, 2000)
+K3_GRID_TIMED = GRID_PATH_VIEWS
+K3_CROSSOVER_VIEWS = 120
 K3_TRACKS = 300
+K3_GRID_MAX_LAUNCHES = 10  # a solve: grid_init, one cooperative grid_solve, grid_finish
 # Kernel vs plain version on the same inputs. Sums over 8192 tracks run in
 # another order on the card (per-CTA partials) than in the CPU-style plain
 # path, and a Cholesky factorization replaces an LU solve: f32 rounding of
@@ -626,15 +648,21 @@ def k3_system(device, num_views):
 def check_k3_routes(device, errs, rels):
     """K3's grid route at K3_GRID_VIEWS and the cluster against it at the
     crossover: each held to the f64 solve (no further from it than twice
-    the plain f32 LU is, plus 1e-6) and timed beside the plain version,
-    torch.linalg.solve_ex on the same prepared system and the bound
-    (n^3 / 6 + n^2 FMA). Returns {views: {route: times}}."""
+    the plain f32 LU is, plus 1e-6) and timed beside the plain version, the
+    library's Cholesky (torch.linalg.cholesky_ex then torch.cholesky_solve:
+    the call that computes the same function) and torch.linalg.solve_ex on
+    the same prepared system, and each route's bound: the cluster's n^3 / 6
+    + n^2 FMA on the f32 CUDA cores, the grid route's its 3xTF32 products on
+    the tensor cores (grid_route_bound), with its three floors (f32 FMA,
+    3xTF32, its panels' bytes) and its kernel launches a solve
+    (torch.profiler). Returns {views: {route: times}}."""
     import torch
 
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
-    from orthosfm_torch.utils.kernel_bench import camera_step, cuda_ms
-    from orthosfm_torch.utils.roofline import bound, camera_solve_work
+    from orthosfm_torch.utils.kernel_bench import camera_step, cuda_ms, kernel_launches
+    from orthosfm_torch.utils.roofline import (bound, camera_solve_work, grid_route_bound,
+                                               grid_route_bounds)
 
     out = {}
     for num_views in (K3_CROSSOVER_VIEWS, *K3_GRID_VIEWS):
@@ -649,23 +677,42 @@ def check_k3_routes(device, errs, rels):
         delta_r, rot_cr, camp_cr = camera_step(bk.camera_solve_ref, "quat", S, dU, rhs, free, 1e-3,
                                                rot, camp)
         S_s, b, _ = ba.prepare_camera_system(S, dU, rhs, free, state[bk.LAM])
-        n_time = 10 if num_views <= K3_GRID_TIMED else 5
+        n_time = 10 if num_views <= 1100 else 5
+
+        def cholesky():
+            L, _ = torch.linalg.cholesky_ex(S_s)
+            return torch.cholesky_solve(b[:, None], L)
+
         shared = {"solve_ex_ms": cuda_ms(lambda: torch.linalg.solve_ex(S_s, b), n_time),
+                  "cholesky_ms": cuda_ms(cholesky, n_time),
                   "plain_rel_err_f64": rel64(delta_r)}
         if num_views == K3_GRID_TIMED:
             shared["plain_ms"] = cuda_ms(lambda: bk.camera_solve_ref("quat", *sargs), n_time)
-        b_ms, b_by = bound(*camera_solve_work(num_views))
-        out[num_views] = {"bound_ms": b_ms, "bound_by": b_by, **shared}
+        out[num_views] = {"grid_bounds_ms": grid_route_bounds(num_views), **shared}
         for route in (("cluster", "grid") if num_views == K3_CROSSOVER_VIEWS else ("grid",)):
             solve = lambda *a, r=route: bk.camera_solve(*a, route=r)  # noqa: E731
             delta, rot_c, camp_c = camera_step(solve, "quat", S, dU, rhs, free, 1e-3, rot, camp)
             e64 = rel64(delta)
             ms = cuda_ms(lambda: solve("quat", *sargs), n_time)
-            out[num_views][route] = {"ms": ms, "rel_err_f64": e64,
-                                     "rel_err_plain": rel_err(delta, delta_r)}
+            b_ms, b_by = (grid_route_bound(num_views) if route == "grid"
+                          else bound(*camera_solve_work(num_views)))
+            out[num_views][route] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                                     "rel_err_f64": e64, "rel_err_plain": rel_err(delta, delta_r)}
             print(f"  camera_solve {route:7s} {num_views}x{K3_TRACKS} (n = {n}): {ms:.4f} ms, "
-                  f"solve_ex {shared['solve_ex_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                  f"rel err to f64 {e64:.3e} (plain LU {shared['plain_rel_err_f64']:.3e})")
+                  f"Cholesky {shared['cholesky_ms']:.4f} ms, solve_ex {shared['solve_ex_ms']:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}); rel err to f64 {e64:.3e} (plain LU "
+                  f"{shared['plain_rel_err_f64']:.3e})")
+            if route == "grid":
+                kernels = kernel_launches(lambda: solve("quat", *sargs))
+                per_solve = {k: d["launches"] for k, d in kernels.items() if "grid_" in k}
+                out[num_views][route]["launches_per_solve"] = sum(per_solve.values())
+                floors = out[num_views]["grid_bounds_ms"]
+                print(f"    {sum(per_solve.values()):g} launches a solve ("
+                      + ", ".join(f"{re.search(r'grid_[a-z_]+', k).group(0)} {v:g}"
+                                  for k, v in per_solve.items())
+                      + "); floors " + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
+                require(0 < sum(per_solve.values()) <= K3_GRID_MAX_LAUNCHES,
+                        f"grid route at {num_views} views: {per_solve} launches a solve")
             require(e64 <= 2.0 * shared["plain_rel_err_f64"] + 1e-6,
                     f"camera_solve {route} at {num_views} views: {e64} from the f64 solve")
             if route == "grid":
@@ -712,10 +759,11 @@ def check_kernels(device):
     shapes["near_fit"] = near_fit_witness(device)
     shapes["k3_routes"] = check_k3_routes(device, errs, rels)
     times = dict(shapes[f"{N_VIEWS}x{N_TRACKS}"])
-    grid = shapes["k3_routes"][K3_GRID_TIMED]
+    grid = shapes["k3_routes"][K3_GRID_TIMED]  # phase 11's shape
     times["camera_solve_grid"] = {"ms": grid["grid"]["ms"], "plain_ms": grid["plain_ms"],
-                                  "library_ms": grid["solve_ex_ms"], "bound_ms": grid["bound_ms"],
-                                  "bound_by": grid["bound_by"]}
+                                  "library_ms": grid["cholesky_ms"],
+                                  "bound_ms": grid["grid"]["bound_ms"],
+                                  "bound_by": grid["grid"]["bound_by"]}
     return errs, rels, times, shapes
 
 
@@ -1562,6 +1610,54 @@ def run_many_views(device):
     return launches, routes, {"scale_demo": many, "matching_profile": prof}
 
 
+def run_grid_path(device):
+    """Phase 11: the main path past 119 views, testbench.scale_demo's
+    reconstruction at GRID_PATH_VIEWS x GRID_PATH_TRACKS with
+    GRID_PATH_NOISE_PX of noise (one timed run, with the BA kernels'
+    launches, then a run under the stage barriers): every view placed, the
+    mean angular error under GRID_PATH_LIMIT_MEAN_DEG, the BAs of up to
+    FUSED_MAX_VIEWS views on lm_fused and the larger ones an iteration at a
+    time, K3 by its grid route. Returns (launches, K3's launches by route,
+    results)."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.testbench import scale_demo
+
+    t0 = time.perf_counter()
+    out = scale_demo.run_scale_demo(GRID_PATH_VIEWS, GRID_PATH_TRACKS,
+                                    noise_px=GRID_PATH_NOISE_PX, runs=1, device=device)
+    out["phase_s"] = time.perf_counter() - t0
+    launches, routes, ba_calls = dict(out["launches"]), out["camera_solve_routes"], out["ba"]
+    big = {int(v): r for v, r in ba_calls["by_views"].items() if int(v) > bk.FUSED_MAX_VIEWS}
+    global_s = {k: v for k, v in out["stages_s"].items() if "global" in k}
+    print(f"  {GRID_PATH_VIEWS} views x {GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px: pose "
+          f"estimation {out['wall_s']:.3f} s (under the stage barriers "
+          f"{out['staged_wall_s']:.3f} s); views placed {out['views_placed']}/{GRID_PATH_VIEWS}, "
+          f"angular error mean {out['mean_angular_error_deg']:.6f} max "
+          f"{out['max_angular_error_deg']:.6f} deg (limit {GRID_PATH_LIMIT_MEAN_DEG})")
+    print("  global BA stage " + ", ".join(f"{k} {v:.3f} s" for k, v in global_s.items())
+          + f"; BA: {ba_calls['ba_calls']} calls, {ba_calls['iterations_worked']} of "
+          f"{ba_calls['iterations_launched']} LM iterations did work; by route "
+          + ", ".join(f"{r}: {d['ba_calls']} calls, {d['iterations_worked']} of "
+                      f"{d['iterations_launched']} iterations worked"
+                      for r, d in ba_calls["by_route"].items()))
+    # the per-iteration route enqueues max_iterations: an iteration after
+    # convergence launches K1, K3 and K2, which return at once on
+    # state[DONE], so the grid route's working solves are these BAs'
+    # working iterations
+    out["grid_solves_working"] = sum(r["iterations_worked"] for r in big.values())
+    print(f"  BAs past {bk.FUSED_MAX_VIEWS} views: {sum(r['ba_calls'] for r in big.values())} calls at "
+          f"{sorted(big)} views; launches {launches}, camera_solve by route {routes} "
+          f"(grid route {routes['grid']}, of them {out['grid_solves_working']} working solves, "
+          f"the rest returning at once on state[DONE])")
+    print("  stage shares: " + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_shares"].items()))
+    require(out["views_placed"] == GRID_PATH_VIEWS, f"phase 11: {out['views_placed']} placed")
+    require(out["mean_angular_error_deg"] < GRID_PATH_LIMIT_MEAN_DEG,
+            f"phase 11: mean angular error {out['mean_angular_error_deg']}")
+    require(big and routes["grid"] > 0, f"phase 11: no grid-route solve ({routes}, {sorted(big)})")
+    require_routes(launches, ba_calls, "phase 11")
+    return launches, routes, out
+
+
 def main() -> int:
     import argparse
 
@@ -1707,6 +1803,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_launches["phase10"], entry_run = run_entry(device)
     print(f"  phase 10 wall time {time.perf_counter() - t0:.2f} s")
+    print(f"== phase 11: the main path past 119 views ({GRID_PATH_VIEWS} views x "
+          f"{GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px): global BAs on K3's grid route")
+    t0 = time.perf_counter()
+    grid_launches, grid_routes, grid_path = run_grid_path(device)
+    phase_launches["phase11"] = {**grid_launches, "camera_solve_routes": grid_routes}
+    print(f"  phase 11 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
@@ -1715,9 +1817,10 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: the main path, phase 9 (the many-view run's lm_fused,
     # profile_matching's top2); K1, K3 and K2 run there only inside
-    # lm_fused, and lm_accept's own launch and K3's grid route are not on
-    # it: they give phase 8's (the sharded BA, which launches them). Each
-    # earlier phase's counts are in launches_by_phase.
+    # lm_fused, and lm_accept's own launch is not on it: they give phase
+    # 8's (the sharded BA, which launches them). K3's grid route gives
+    # phase 11's, the main path past 119 views. Each earlier phase's counts
+    # are in launches_by_phase.
     def main_path(name):
         key = LAUNCH_KEY.get(name, name)
         return ("phase9", many_launches[key]) if many_launches.get(key) else (
@@ -1730,6 +1833,9 @@ def main() -> int:
                 **{k: times[name][k] for k in keys}}
                for name in REPLACES]
     for k in kernels:
+        if k["name"] == "camera_solve_grid":  # the main path past 119 views
+            k["launches"], k["launches_phase"] = grid_routes["grid"], "phase11"
+            k["launches_working"] = grid_path["grid_solves_working"]
         if k["name"] == "camera_solve":
             k["routes"] = (many_routes if k["launches_phase"] == "phase9"
                            else sharded["camera_solve_routes"])
@@ -1750,7 +1856,7 @@ def main() -> int:
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}, "testbench": testbench,
                       "homography": homography, "sharded": sharded,
-                      "many_views": many_views, "entry": entry_run}))
+                      "many_views": many_views, "entry": entry_run, "grid_path": grid_path}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

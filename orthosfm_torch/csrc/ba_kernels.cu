@@ -16,7 +16,8 @@
 //                            blocked one-CTA factorization up to 37, the
 //                            same panels on a cluster of 8 CTAs above, and
 //                            from GRID_MIN_V views a blocked factorization
-//                            over the whole card (the grid route, any n)
+//                            over the whole card in one cooperative launch
+//                            (the grid route, any n)
 //   K2 point_update_cost  <- ba_pallas.py point_update_cost (+ ba_fused.py pass 2)
 //                            and, in its last CTA, ba_fused.py accept /
 //                            lambda / done (:457-474), the rule of K4
@@ -25,7 +26,9 @@
 //                            own on the cost summed over the shards
 //                            (parallel/ba_sharded.py)
 //
-// The arithmetic is f32 SIMT FMA throughout: no tensor cores, so no TF32.
+// The arithmetic is f32 SIMT FMA throughout, but for K3's grid route, whose
+// products run on the tensor cores in 3xTF32 (f32 accuracy; one TF32 pass
+// would keep three decimal digits).
 // The per-observation math (ba_pallas.py _tile_blocks, _point_block_inv,
 // _couplings, _inv3x3_rows) is written once, as the __device__ functions
 // below, and shared by K1 and K2.
@@ -1444,48 +1447,75 @@ __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
 
 // The grid route, for any n: the same Cholesky of the bordered matrix as a
 // blocked right-looking factorization whose matrix lives in a global
-// scratch, each panel's work spread over the whole card instead of one
-// cluster. Per panel of GB = 64 columns, two launches:
-//   grid_panel: every CTA factors the 64 x 64 diagonal block in shared
-//     memory (in 16-column sub-panels, one warp a sub-panel's triangle, as
-//     the one-CTA kernel does; every CTA the same arithmetic, so the same
-//     bits) and solves its 256 rows below against it, one thread a row
-//     (TRSM); CTA 0 keeps the factor and its inverse diagonal in the
-//     scratch for the back substitution;
-//   grid_update: the rank-64 update of the trailing lower triangle, over
-//     128 x 128 output tiles on or below the diagonal only, 256 threads with
-//     an 8 x 8 register tile each (rows ty + 16i, columns tx + 16j: the
-//     16-byte shared loads of a quarter-warp hit distinct banks), the
-//     panel's rows staged once in shared memory: 64 FMA for every four
-//     16-byte shared loads.
+// scratch, spread over the whole card. Three launches a solve: grid_init
+// builds the damped, pinned, Jacobi-scaled system from S; grid_solve, one
+// cooperative launch of a persistent grid (one 512-thread CTA an SM),
+// factors it and substitutes back, with grid.sync() between its stages;
+// grid_finish forms delta and retracts the cameras. Panels are GB = 128
+// columns wide. For panel p, with its diagonal block's factor L_pp
+// already inverted in the scratch (Linv_p):
+//   trsm: the rows below, l_i = a_i L_pp^-T = a_i Linv_p^T, a product of
+//     128-row blocks by Linv_p, one block a CTA;
+//   update: the rank-128 update of the trailing lower triangle, one 128 x
+//     128 output tile (on or below the diagonal) a CTA. CTA 0 takes tile
+//     (0, 0), which is panel p + 1's diagonal block, first, and then factors
+//     it and forms its inverse (look-ahead) while the other CTAs take the
+//     other tiles: the block is factored once, not by every CTA.
+// Both products run on the tensor cores in 3xTF32 (wgmma m64n64k8, four
+// warpgroups a 128 x 128 tile: each f32 operand split into a TF32 high
+// part, rounded to nearest, and its remainder, hi*hi + hi*lo + lo*hi summed
+// in f32; see tile_product), which keeps the f32 accuracy that one TF32
+// pass (three decimal digits) loses. The update sums the panel's 128
+// products and then subtracts once: a subtraction a product rounds the
+// entry n times, and left the solve ~10x further from an f64 one than the
+// plain LU at n = 6600.
+// The diagonal block (one CTA, in shared memory; grid_diag): 16-column
+// sub-panels, one warp factoring each one's triangle while the other warps
+// finish the previous sub-panel's update; then the factor's inverse, its
+// block columns side by side.
 // The bordered last row (b^T) is a row below every panel, so it ends as
-// y = L^-1 b. The back substitution L^T x = y is one launch a panel from
-// the end (grid_backsub): every CTA solves the panel's 64-wide triangle
-// (one warp) and takes the panel's x out of its chunk of y above it, in
-// panel order (no float atomics: the result is bit-stable). grid_init
-// builds the damped, pinned, Jacobi-scaled system from S first, and
-// grid_finish forms delta and retracts the cameras last. Every launch
+// y = L^-1 b. The back substitution L^T x = y then runs panel by panel from
+// the last: every CTA forms x_p = Linv_p^T y_p (the same bits in each) and
+// takes the panel's x out of its own chunk of y above it, one grid barrier a
+// panel. No float atomics: two solves give the same bits. Every launch
 // returns at once on state[DONE]; a pivot that is not positive sets a flag
 // in the scratch and grid_finish makes all of delta NaN, as the other
-// routes do. Launches per solve: 1 + 3 * ceil(n / 64) (313 at n = 6600).
-// Bound: n^3 / 6 FMA for the factorization (1.43 ms at n = 6600 on the
-// card's f32 peak); the trailing update reads and writes each lower
-// element once a panel, 4 n^3 / (3 * 64) bytes in all (1.8 ms at n = 6600
-// at the HBM rate), which the 64-wide panels keep near the FMA time.
+// routes do. Barriers a solve: 3 ceil(n / 128) (282 at n = 12000).
+// Bound: n^3 / 6 FMA for the factorization; on the tensor cores in 3xTF32
+// that is 3 n^3 / 6 FMA at 495 TFLOP/s (3.49 ms at n = 12000); the trailing
+// update reads and writes each lower element once a panel, 4 n^3 / (3 *
+// 128) bytes in all (5.37 ms at n = 12000 at the HBM rate, the larger).
+// What holds it above that (PERF.md): a 128 x 128 x 128 tile takes
+// ~10 us where its products alone would take ~3, its chunks' loads, its
+// tensor-core steps and their waits running one after the other in each
+// CTA, with 128 registers a thread at 512 threads (every attempt to keep
+// more in flight spilled and ran slower); and at small n each panel waits
+// on its diagonal block, ~30 us on one CTA.
 
-constexpr int GB = 64;         // panel width of the grid route
-constexpr int GDS = GB + 1;    // row stride of its diagonal block in shared memory
-constexpr int G_NT = 256;      // threads of its kernels (but grid_finish)
-constexpr int GT = 128;        // edge of the trailing update's output tiles
-constexpr int GLD = GB + 4;    // row stride of the staged panel rows (16-byte aligned)
+constexpr int GB = 128;        // panel width of the grid route, and its tiles' edge
+constexpr int GDS = GB + 1;    // row stride of the diagonal block in shared memory
+constexpr int GLV = GB + 4;    // row stride of its inverse (16-byte rows)
+constexpr int G_NT = 256;      // threads of grid_init
+constexpr int GS_NT = 512;     // threads of grid_solve (one CTA an SM)
+constexpr int GKC = 32;        // columns of a chunk of a tile product's operands (128 bytes)
+constexpr int GCS = GB + 4;    // row stride of an update tile's entries in shared memory
+constexpr int GSUB = GB / PW;  // sub-panels of the diagonal block
 constexpr int GI_T = 64;       // edge of grid_init's tiles
 constexpr int GF_NT = 1024;    // threads of grid_finish
+// grid_solve's dynamic shared memory, in floats: the larger of a tile
+// product's two buffers of split operands with an update tile's entries,
+// and the diagonal block's factor, its inverse and their temporaries
+constexpr int G_PROD_FLOATS = 2 * 4 * GB * GKC + GB * GCS;
+constexpr int G_DIAG_FLOATS = GB * GDS + GB * GLV + GB + GSUB * PW * PW + 4;
+constexpr size_t G_SMEM =  // and 1 KB to align the start to the operands' 1024-byte atoms
+    sizeof(float) * (G_PROD_FLOATS > G_DIAG_FLOATS ? G_PROD_FLOATS : G_DIAG_FLOATS) + 1024;
 
 // The grid route's scratch (offsets in floats): the failure flag (an int),
-// x, the panels' diagonal factors and inverse diagonals, then the bordered
-// matrix A (N rows of lda floats; only its lower triangle is used).
+// x, the panels' inverted diagonal factors (GB x GB each, lower, the
+// identity past the matrix), then the bordered matrix A (N rows of lda
+// floats; only its lower triangle is used).
 struct GridLayout {
-  size_t x, lkk, dinv, a, total;
+  size_t x, linv, a, total;
   int lda, npan;
 };
 
@@ -1495,9 +1525,8 @@ __host__ __device__ __forceinline__ GridLayout grid_layout(int V) {
   g.lda = round4(n + 1);
   g.npan = (n + GB - 1) / GB;
   g.x = 4;
-  g.lkk = g.x + round4(n);
-  g.dinv = g.lkk + (size_t)g.npan * GB * GB;
-  g.a = g.dinv + (size_t)g.npan * GB;
+  g.linv = g.x + round4(n);
+  g.a = g.linv + (size_t)g.npan * GB * GB;
   g.total = g.a + (size_t)(n + 1) * g.lda;
   return g;
 }
@@ -1556,226 +1585,534 @@ __global__ void __launch_bounds__(G_NT) grid_init_kernel(
   }
 }
 
-// Panel p: the diagonal block's Cholesky in shared memory, then this CTA's
-// rows below: l_i = a_i L_pp^-T, one thread a row.
-__global__ void __launch_bounds__(G_NT) grid_panel_kernel(const float* __restrict__ state, int n,
-                                                          int p, float* __restrict__ scratch) {
-  if (state[DONE] != 0.f) return;
-  const GridLayout g = grid_layout(n / 6);
-  float* A = scratch + g.a;
-  const int N = n + 1, k0 = p * GB, kb = min(GB, n - k0), b0 = k0 + kb;
-  __shared__ float D[GB][GDS];
-  __shared__ float dinv[GB];
-  __shared__ int bad;
+// A 16-byte copy into shared memory of the first `bytes` bytes at src (the
+// rest zero-filled; src is read only where bytes > 0), cached in L2 only
+// and marked first to leave it: the trailing matrix's tiles are read once
+// a panel (4 n^3 / (3 GB) bytes in all) and would push the panel's rows,
+// which every tile reads, out of the 50 MB L2.
+__device__ __forceinline__ void cp_async16_evict_first(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(s),
+               "l"(src), "r"(bytes), "l"(policy));
+}
+
+// x as a TF32 high part, rounded to nearest (ties away, as cvt.rna.tf32.f32,
+// by two integer operations, which issue at a higher rate than the
+// conversion), and the remainder, exact in f32, which the tensor cores read
+// as TF32 by dropping its low 13 bits.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// The accumulators of a 128 x 128 tile a CTA, on the tensor cores' warpgroup
+// layout: warpgroup wg (four warps) holds rows 64 (wg >> 1) .. + 64 and
+// columns 64 (wg & 1) .. + 64 as one m64n64 wgmma accumulator; element
+// [mi][ni][2h + e] of a thread is row 64 (wg >> 1) + 16 (warp % 4) +
+// lane / 4 + 8 h, column 64 (wg & 1) + 32 mi + 8 ni + 2 (lane % 4) + e.
+struct TileAcc {
+  float c[2][4][4];
+};
+
+// The matrix descriptor of a K-major tile of 32-bit elements in shared
+// memory with the 128-byte swizzle: rows of 128 bytes (32 elements), eight
+// rows a 1024-byte atom, 16-byte chunk c of row r stored at chunk c ^ (r % 8).
+__device__ __forceinline__ unsigned long long wg_desc(const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  return (unsigned long long)((a & 0x3ffff) >> 4) | (1ull << 16) |
+         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d = A B^T (+ d where acc) for this warpgroup's 64 x 64 tile, k 8 deep, A
+// and B from shared memory by their descriptors (TF32: the low 13 bits of
+// each element are dropped).
+template <int acc>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[2][4][4], unsigned long long da,
+                                           unsigned long long db) {
+  float* x = &d[0][0][0];
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3]), "+f"(x[4]), "+f"(x[5]), "+f"(x[6]),
+        "+f"(x[7]), "+f"(x[8]), "+f"(x[9]), "+f"(x[10]), "+f"(x[11]), "+f"(x[12]), "+f"(x[13]),
+        "+f"(x[14]), "+f"(x[15]), "+f"(x[16]), "+f"(x[17]), "+f"(x[18]), "+f"(x[19]),
+        "+f"(x[20]), "+f"(x[21]), "+f"(x[22]), "+f"(x[23]), "+f"(x[24]), "+f"(x[25]),
+        "+f"(x[26]), "+f"(x[27]), "+f"(x[28]), "+f"(x[29]), "+f"(x[30]), "+f"(x[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// acc = sum over k < kb of Ra[r][k] Rb[c][k] for the tile's rows r and
+// columns c, in 3xTF32 on the tensor cores by wgmma: Ra's row r at
+// ra + r * lda (zero from ra_rows), Rb's row c at rb + c * ldb (zero from
+// rb_rows); columns past kb read as zeros. Each GKC-column chunk is loaded
+// into registers (through L2, kept there as the panel's rows) while the
+// tensor cores work on the chunk before it, split into its TF32 high parts
+// (rounded to nearest) and remainders, and stored as four swizzled K-major
+// tiles (A hi, A lo, B hi, B lo) in one of two buffers of `sm` (4 GB GKC
+// floats each, 1024-byte aligned). The tensor cores round their sums toward zero,
+// so a long chain of products summed in one accumulator drifts (48
+// roundings a tile left the solve ~10x further from the f64 one than the
+// plain LU): each 8-deep step's three products are summed on the tensor
+// cores from zero and then added to acc in f32, rounded to nearest. Where
+// cs is set, the call also copies the entries of the tile at c (rows of ldc
+// floats, c_rows of them; columns c_cols) into cs (GB rows of GCS floats),
+// evict-first, by cp.async while the product runs. Each call ends with a
+// barrier, so the buffers are free after it.
+__device__ __forceinline__ void tile_product(const float* ra, size_t lda, int ra_rows,
+                                             const float* rb, size_t ldb, int rb_rows, int kb,
+                                             float* sm, TileAcc& acc, const float* c = nullptr,
+                                             size_t ldc = 0, int c_rows = 0, int c_cols = 0,
+                                             float* cs = nullptr) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = 64 * (wg >> 1), n0 = 64 * (wg & 1);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc.c[mi][ni][e] = 0.f;
+  if (cs) {
+#pragma unroll
+    for (int u = 0; u < GB * (GB / 4) / GS_NT; ++u) {
+      const int e = tid + u * GS_NT, r = e / (GB / 4), col = (e % (GB / 4)) * 4;
+      const int valid = r < c_rows ? min(max(c_cols - col, 0), 4) : 0;
+      cp_async16_evict_first(cs + r * GCS + col, valid ? c + (size_t)r * ldc + col : c,
+                             4 * valid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  const int nk = (kb + GKC - 1) / GKC;
+  constexpr int UNITS = 2 * GB * (GKC / 4) / GS_NT;  // 16-byte units of a chunk a thread
+  float4 v[UNITS];
+  auto load = [&](int q) {
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int e = tid + u * GS_NT, which = e / (GB * (GKC / 4)), rem = e % (GB * (GKC / 4));
+      const int r = rem / (GKC / 4), k = q * GKC + (rem % (GKC / 4)) * 4;
+      const float* src = (which ? rb + (size_t)r * ldb : ra + (size_t)r * lda) + k;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < (which ? rb_rows : ra_rows)) {
+        if (k + 3 < kb) {
+          v[u] = __ldcg(reinterpret_cast<const float4*>(src));
+        } else {
+          v[u].x = k < kb ? __ldcg(src) : 0.f;
+          v[u].y = k + 1 < kb ? __ldcg(src + 1) : 0.f;
+          v[u].z = k + 2 < kb ? __ldcg(src + 2) : 0.f;
+        }
+      }
+    }
+  };
+  auto store = [&](int buf) {
+    float* base = sm + buf * (4 * GB * GKC);
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int e = tid + u * GS_NT, which = e / (GB * (GKC / 4)), rem = e % (GB * (GKC / 4));
+      const int r = rem / (GKC / 4), c16 = rem % (GKC / 4);
+      const int off = r * GKC + ((c16 ^ (r & 7)) << 2);
+      float* hi = base + which * 2 * GB * GKC;
+      const float xs[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      float h[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned hb, lb;
+        split_tf32(xs[j], hb, lb);
+        h[j] = __uint_as_float(hb);
+        l[j] = __uint_as_float(lb);
+      }
+      *reinterpret_cast<float4*>(hi + off) = make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<float4*>(hi + GB * GKC + off) = make_float4(l[0], l[1], l[2], l[3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int q = 0; q < nk; ++q) {
+    if (q + 1 < nk) load(q + 1);
+    const float* base = sm + (q & 1) * (4 * GB * GKC);
+    const float* ah = base + m0 * GKC;
+    const float* al = ah + GB * GKC;
+    const float* bh = base + 2 * GB * GKC + n0 * GKC;
+    const float* bl = bh + GB * GKC;
+#pragma unroll
+    for (int kk = 0; kk < GKC; kk += 8) {
+      float s[2][4][4];
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_tf32<0>(s, wg_desc(al + kk), wg_desc(bh + kk));
+      wgmma_tf32<1>(s, wg_desc(ah + kk), wg_desc(bl + kk));
+      wgmma_tf32<1>(s, wg_desc(ah + kk), wg_desc(bh + kk));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc.c[mi][ni][e] += s[mi][ni][e];
+    }
+    if (q + 1 < nk) store((q + 1) & 1);
+    __syncthreads();
+  }
+  if (cs) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  }
+}
+
+// grid_solve's stamps, in the timing build only (-DOSFM_FUSED_TIMING;
+// scripts/torch_k3_routes.py --split): where that library was given a
+// buffer (osfm_grid_solve_stamps), CTA 0 appends (kind, %globaltimer) after
+// each grid barrier: 0 the first diagonal block, 1 a panel's row solve, 2
+// its update, 3 a panel of the back substitution; and inside the first
+// diagonal block, 4 after its first sub-panel and 5 after the rest of its
+// factor and inverse. In the main path's build it compiles to nothing.
+#ifdef OSFM_FUSED_TIMING
+__device__ unsigned long long* grid_stamps;  // null: none
+#endif
+__device__ __forceinline__ void grid_stamp(int kind) {
+#ifdef OSFM_FUSED_TIMING
+  unsigned long long* stamps = grid_stamps;
+  if (!stamps || blockIdx.x != 0 || threadIdx.x != 0) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  const unsigned long long k = stamps[0];
+  stamps[1 + 2 * k] = (unsigned long long)kind;
+  stamps[2 + 2 * k] = t;
+  stamps[0] = k + 1;
+#endif
+}
+
+// The diagonal block's update by the 16 columns q0 .. q0 + 15 of its factor:
+// D[i][j] -= sum_c D[i][q0 + c] D[j][q0 + c] for j0 <= j < j1, j <= i < GB,
+// in 4 x 4 blocks of entries, one a thread of the `nt` threads (this one
+// `o`): each block's 16 sums from eight loads a column.
+__device__ __forceinline__ void diag_block_update(float* D, int q0, int j0, int j1, int o,
+                                                  int nt) {
+  const int mi = (GB - j0) / 4, mj = (j1 - j0) / 4;
+  for (int e = o; e < mi * mj; e += nt) {
+    const int a = e / mj, bj = e % mj, i = j0 + 4 * a, j = j0 + 4 * bj;
+    if (j > i + 3) continue;
+    float v[4][4] = {};
+#pragma unroll
+    for (int c = 0; c < PW; ++c) {
+      float x[4], y[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        x[u] = D[(i + u) * GDS + q0 + c];
+        y[u] = D[(j + u) * GDS + q0 + c];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) v[u][w] = fmaf(x[u], y[w], v[u][w]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (j + w <= i + u) D[(i + u) * GDS + j + w] -= v[u][w];
+  }
+}
+
+// Panel p's diagonal block, by one CTA: its Cholesky factor L in shared
+// memory (the identity past the matrix), then L's inverse, written to the
+// scratch as Linv_p; a pivot that is not positive sets the scratch's flag.
+// The factor: right-looking over 16-column sub-panels; warp 0 factors
+// sub-panel q's triangle in registers while the other warps finish the rest
+// of sub-panel q - 1's trailing update (the columns past the strip that
+// sub-panel q needs first), then all threads solve the rows below sub-panel
+// q by substitution and update that strip. Each update sums a sub-panel's
+// 16 products and then subtracts once. The inverse: each 16 x 16 diagonal
+// block's (thread c of its 16 solving for column c), then each block column
+// j of L^-1 by two warps of its own, block row by block row down from the
+// diagonal, X_i = -Linv_ii sum_{k = j .. i-1} L_ik X_k (the block columns
+// are independent). `sm`: G_DIAG_FLOATS floats, free on return.
+__device__ __forceinline__ void grid_diag(float* __restrict__ scratch, GridLayout g, int n, int p,
+                                          float* sm) {
+  const float* A = scratch + g.a;
+  const int k0 = p * GB, kb = min(GB, n - k0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) bad = 0;
-  for (int e = tid; e < GB * GB; e += G_NT) {  // identity past kb
-    const int r = e / GB, c = e % GB;
-    D[r][c] = (r < kb && c < kb) ? (c <= r ? A[(size_t)(k0 + r) * g.lda + k0 + c] : 0.f)
-                                 : (r == c ? 1.f : 0.f);
+  float* D = sm;                    // [GB][GDS]: the block, then its factor
+  float* Lv = D + GB * GDS;         // [GB][GLV]: the factor's inverse (lower triangle)
+  float* dinv = Lv + GB * GLV;      // [GB]: 1 / the factor's diagonal
+  float* T = dinv + GB;             // [GSUB][PW * PW]: each block column's sums
+  int* bad = reinterpret_cast<int*>(T + GSUB * PW * PW);
+  if (tid == 0) *bad = 0;
+  for (int e0 = 0; e0 < GB * GB; e0 += 8 * GS_NT) {  // eight loads in flight a thread
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * GS_NT + tid, r = e / GB, c = e % GB;
+      v[u] = (r < kb && c < kb)
+                 ? (c <= r ? __ldcg(A + (size_t)(k0 + r) * g.lda + k0 + c) : 0.f)
+                 : (r == c ? 1.f : 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * GS_NT + tid;
+      D[(e / GB) * GDS + e % GB] = v[u];
+    }
   }
   __syncthreads();
-  for (int s = 0; s < GB; s += PW) {
+  for (int sp = 0; sp <= GSUB; ++sp) {
+    const int s = sp * PW;
     if (warp == 0) {
-      // lane r holds row s + r of the sub-panel's triangle (identity past PW)
-      float a[PW];
-#pragma unroll
-      for (int c = 0; c < PW; ++c)
-        a[c] = (lane < PW && c <= lane) ? D[s + lane][s + c] : (c == lane ? 1.f : 0.f);
-      bool bd = false;
-      float il_own = 1.f;
-#pragma unroll
-      for (int c = 0; c < PW; ++c) {
-        const float piv = __shfl_sync(FULL, a[c], c);
-        bd |= !(piv > 0.f);
-        const float il = rsqrtf(piv);
-        a[c] = lane == c ? piv * il : (lane > c ? a[c] * il : a[c]);
-        il_own = lane == c ? il : il_own;
-        float lc[PW];
-#pragma unroll
-        for (int c2 = c + 1; c2 < PW; ++c2) lc[c2] = __shfl_sync(FULL, a[c], c2);
-#pragma unroll
-        for (int c2 = c + 1; c2 < PW; ++c2)
-          if (lane >= c2) a[c2] -= a[c] * lc[c2];
-      }
-      if (lane < PW) {
-        dinv[s + lane] = il_own;
+      if (sp < GSUB) {
+        // lane r holds row s + r of the sub-panel's triangle (the identity past PW)
+        float a[PW];
 #pragma unroll
         for (int c = 0; c < PW; ++c)
-          if (c <= lane) D[s + lane][s + c] = a[c];
+          a[c] = (lane < PW && c <= lane) ? D[(s + lane) * GDS + s + c] : (c == lane ? 1.f : 0.f);
+        bool bd = false;
+        float il_own = 1.f;
+#pragma unroll
+        for (int c = 0; c < PW; ++c) {
+          const float piv = __shfl_sync(FULL, a[c], c);
+          bd |= !(piv > 0.f);
+          const float il = rsqrtf(piv);
+          a[c] = lane == c ? piv * il : (lane > c ? a[c] * il : a[c]);
+          il_own = lane == c ? il : il_own;
+          float lc[PW];
+#pragma unroll
+          for (int c2 = c + 1; c2 < PW; ++c2) lc[c2] = __shfl_sync(FULL, a[c], c2);
+#pragma unroll
+          for (int c2 = c + 1; c2 < PW; ++c2)
+            if (lane >= c2) a[c2] -= a[c] * lc[c2];
+        }
+        if (lane < PW) {
+          dinv[s + lane] = il_own;
+#pragma unroll
+          for (int c = 0; c < PW; ++c)
+            if (c <= lane) D[(s + lane) * GDS + s + c] = a[c];
+        }
+        if (bd && lane == 0) *bad = 1;
       }
-      if (bd && lane == 0) bad = 1;
+    } else if (sp > 0 && s + PW < GB) {  // the rest of sub-panel sp - 1's update
+      diag_block_update(D, s - PW, s + PW, GB, tid - 32, GS_NT - 32);
     }
     __syncthreads();
-    for (int i = s + PW + tid; i < GB; i += G_NT) {  // the block's rows below the sub-panel
+    if (sp == GSUB) break;
+    // the block's rows below the sub-panel by substitution, one thread a row
+    for (int i = s + PW + tid; i < GB; i += GS_NT) {
       float x[PW];
 #pragma unroll
-      for (int c = 0; c < PW; ++c) x[c] = D[i][s + c];
+      for (int c = 0; c < PW; ++c) x[c] = D[i * GDS + s + c];
 #pragma unroll
       for (int c = 0; c < PW; ++c) {
         float v = 0.f;
 #pragma unroll
-        for (int c2 = 0; c2 < c; ++c2) v = fmaf(x[c2], D[s + c][s + c2], v);
+        for (int c2 = 0; c2 < c; ++c2) v = fmaf(x[c2], D[(s + c) * GDS + s + c2], v);
         x[c] = (x[c] - v) * dinv[s + c];
       }
 #pragma unroll
-      for (int c = 0; c < PW; ++c) D[i][s + c] = x[c];
+      for (int c = 0; c < PW; ++c) D[i * GDS + s + c] = x[c];
     }
     __syncthreads();
-    const int m = GB - s - PW;  // the block's trailing lower triangle
-    for (int e = tid; e < m * m; e += G_NT) {
-      const int i = s + PW + e / m, j = s + PW + e % m;
-      if (j > i) continue;
-      float v = 0.f;
-#pragma unroll
-      for (int c = 0; c < PW; ++c) v = fmaf(D[i][s + c], D[j][s + c], v);
-      D[i][j] -= v;
-    }
+    // the strip the next sub-panel needs first: s + PW <= j < s + 2 PW, j <= i
+    if (s + PW < GB) diag_block_update(D, s, s + PW, s + 2 * PW, tid, GS_NT);
     __syncthreads();
+    if (p == 0 && sp == 0) grid_stamp(4);
   }
-  const int i = b0 + blockIdx.x * G_NT + tid;
-  if (i < N) {
-    float* row = A + (size_t)i * g.lda + k0;
-    float x[GB];
+  // Linv_jj, block j = tid / 16, column c = tid % 16:
+  // x_r = (e_c - sum_{k<r} L_rk x_k) / L_rr
+  if (tid < GB) {
+    const int j0 = tid & ~(PW - 1), c = tid & (PW - 1);
+    float x[PW];
 #pragma unroll
-    for (int c = 0; c < GB; ++c) x[c] = c < kb ? row[c] : 0.f;
+    for (int r = 0; r < PW; ++r) {
+      float v = r == c ? 1.f : 0.f;
 #pragma unroll
-    for (int c = 0; c < GB; ++c) {
-      float v = 0.f;
-#pragma unroll
-      for (int c2 = 0; c2 < c; ++c2) v = fmaf(x[c2], D[c][c2], v);
-      x[c] = (x[c] - v) * dinv[c];
+      for (int k = 0; k < r; ++k) v -= D[(j0 + r) * GDS + j0 + k] * x[k];
+      x[r] = v * dinv[j0 + r];
     }
 #pragma unroll
-    for (int c = 0; c < GB; ++c)
-      if (c < kb) row[c] = x[c];
+    for (int r = 0; r < PW; ++r) Lv[(j0 + r) * GLV + j0 + c] = c <= r ? x[r] : 0.f;
   }
-  if (blockIdx.x != 0) return;
-  float* L = scratch + g.lkk + (size_t)p * GB * GB;
-  for (int e = tid; e < GB * GB; e += G_NT) L[e] = D[e / GB][e % GB];
-  if (tid < GB) scratch[g.dinv + (size_t)p * GB + tid] = dinv[tid];
-  if (tid == 0 && bad) reinterpret_cast<int*>(scratch)[0] = 1;
+  __syncthreads();
+  {  // block column j by warps 2j and 2j + 1; thread o a row r and four columns
+    const int j = warp >> 1, o = tid & 63, r = o >> 2, c4 = 4 * (o & 3), j0 = j * PW;
+    float* Tj = T + j * PW * PW;
+    for (int i = j + 1; i < GSUB; ++i) {
+      const int i0 = i * PW;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = j0; k < i0; ++k) {
+        const float l = D[(i0 + r) * GDS + k];
+        const float4 x = *reinterpret_cast<const float4*>(Lv + k * GLV + j0 + c4);
+        v[0] = fmaf(l, x.x, v[0]);
+        v[1] = fmaf(l, x.y, v[1]);
+        v[2] = fmaf(l, x.z, v[2]);
+        v[3] = fmaf(l, x.w, v[3]);
+      }
+      *reinterpret_cast<float4*>(Tj + r * PW + c4) = make_float4(v[0], v[1], v[2], v[3]);
+      asm volatile("bar.sync %0, 64;" ::"r"(1 + j) : "memory");
+      float w[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < PW; ++t) {
+        const float l = Lv[(i0 + r) * GLV + i0 + t];
+        const float4 x = *reinterpret_cast<const float4*>(Tj + t * PW + c4);
+        w[0] = fmaf(l, x.x, w[0]);
+        w[1] = fmaf(l, x.y, w[1]);
+        w[2] = fmaf(l, x.z, w[2]);
+        w[3] = fmaf(l, x.w, w[3]);
+      }
+      *reinterpret_cast<float4*>(Lv + (i0 + r) * GLV + j0 + c4) =
+          make_float4(-w[0], -w[1], -w[2], -w[3]);
+      asm volatile("bar.sync %0, 64;" ::"r"(1 + j) : "memory");
+    }
+  }
+  __syncthreads();
+  if (p == 0) grid_stamp(5);
+  float* L = scratch + g.linv + (size_t)p * GB * GB;
+  for (int e = tid; e < GB * GB; e += GS_NT) {
+    const int r = e / GB, c = e % GB;
+    L[e] = c <= r ? Lv[r * GLV + c] : 0.f;
+  }
+  if (tid == 0 && *bad) reinterpret_cast<int*>(scratch)[0] = 1;
+  __syncthreads();
 }
 
-// The rank-64 update of panel p: A[i][j] -= sum_c L[i][k0 + c] L[j][k0 + c]
-// for b0 <= j <= i < N, one 128 x 128 tile (ti, tj), tj <= ti, a CTA.
-__global__ void __launch_bounds__(G_NT, 2) grid_update_kernel(const float* __restrict__ state,
-                                                              int n, int p,
-                                                              float* __restrict__ scratch) {
+// The factorization and the back substitution, one cooperative launch.
+__global__ void __launch_bounds__(GS_NT, 1) grid_solve_kernel(const float* __restrict__ state,
+                                                              int n, float* __restrict__ scratch) {
   if (state[DONE] != 0.f) return;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float gsm_raw[];
+  float* gsm = gsm_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(gsm_raw) & 1023)) & 1023) / 4;
   const GridLayout g = grid_layout(n / 6);
   float* A = scratch + g.a;
-  const int N = n + 1, k0 = p * GB, kb = min(GB, n - k0), b0 = k0 + kb;
-  const int t = blockIdx.x, tid = threadIdx.x;
-  int ti = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);  // from an approximate root, then exact
-  while (ti * (ti + 1) / 2 > t) --ti;
-  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  const int tj = t - ti * (ti + 1) / 2;
-  const int r0 = b0 + ti * GT, c0 = b0 + tj * GT;
-  extern __shared__ __align__(16) float gsm[];
-  float* Rs = gsm;             // [GT][GLD]: the panel columns of rows r0 ..
-  float* Cs = gsm + GT * GLD;  // [GT][GLD]: ... and of rows c0 ..
-  for (int q = tid; q < 2 * GT * (GB / 4); q += G_NT) {
-    const int which = q / (GT * (GB / 4)), rem = q % (GT * (GB / 4));
-    const int r = rem / (GB / 4), c = (rem % (GB / 4)) * 4, row = (which ? c0 : r0) + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < N) {
-      const float* src = A + (size_t)row * g.lda + k0 + c;
-      if (c + 3 < kb) {
-        v = *reinterpret_cast<const float4*>(src);
-      } else {
-        v.x = c < kb ? src[0] : 0.f;
-        v.y = c + 1 < kb ? src[1] : 0.f;
-        v.z = c + 2 < kb ? src[2] : 0.f;
+  const int N = n + 1, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = gridDim.x, b = blockIdx.x;
+  // this thread's accumulator rows and columns (TileAcc): row wr + 8 h,
+  // column wc + 32 mi + 8 ni
+  const int wr = 64 * (warp >> 3) + 16 * (warp & 3) + (lane >> 2);
+  const int wc = 64 * ((warp >> 2) & 1) + 2 * (lane & 3);
+  grid_stamp(0);
+  if (b == 0) grid_diag(scratch, g, n, 0, gsm);
+  grid.sync();
+  grid_stamp(0);
+  TileAcc acc;
+  for (int p = 0; p < g.npan; ++p) {
+    const int k0 = p * GB, kb = min(GB, n - k0), b0 = k0 + kb;
+    const float* Linv = scratch + g.linv + (size_t)p * GB * GB;
+    for (int it = b; it < (N - b0 + GB - 1) / GB; it += G) {  // the rows below, 128 a block
+      const int r0 = b0 + it * GB;
+      tile_product(A + (size_t)r0 * g.lda + k0, g.lda, min(GB, N - r0), Linv, GB, kb, kb, gsm,
+                   acc);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = r0 + wr + 8 * h;
+          if (i >= N) continue;
+          float* row = A + (size_t)i * g.lda + k0;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int c = wc + 32 * mi + 8 * ni;
+            if (c + 1 < kb) {
+              *reinterpret_cast<float2*>(row + c) =
+                  make_float2(acc.c[mi][ni][2 * h], acc.c[mi][ni][2 * h + 1]);
+            } else if (c < kb) {
+              row[c] = acc.c[mi][ni][2 * h];
+            }
+          }
+        }
+    }
+    grid.sync();
+    grid_stamp(1);
+    if (b0 >= n) break;  // the last panel leaves only A[n][n], which nothing reads
+    // The trailing update: tile t = (ti, tj), tj <= ti, of the 128-aligned
+    // grid from b0; tile 0 (panel p + 1's diagonal block) by CTA 0, which
+    // then factors it, the others over the other CTAs (with one CTA, all
+    // of them, the diagonal block after tile 0).
+    const int nt = (N - b0 + GB - 1) / GB, tiles = nt * (nt + 1) / 2;
+    for (int tt = b; tt < tiles; tt += G == 1 ? 1 : (b == 0 ? tiles : G - 1)) {
+      int ti = (int)((sqrtf(8.f * tt + 1.f) - 1.f) * 0.5f);  // from an approximate root, then exact
+      while (ti * (ti + 1) / 2 > tt) --ti;
+      while ((ti + 1) * (ti + 2) / 2 <= tt) ++ti;
+      const int tj = tt - ti * (ti + 1) / 2, r0 = b0 + ti * GB, c0 = b0 + tj * GB;
+      float* cs = gsm + 2 * 4 * GB * GKC;  // the tile's entries, copied during the product
+      tile_product(A + (size_t)r0 * g.lda + k0, g.lda, min(GB, N - r0),
+                   A + (size_t)c0 * g.lda + k0, g.lda, min(GB, N - c0), GB, gsm, acc,
+                   A + (size_t)r0 * g.lda + c0, g.lda, min(GB, N - r0), N - c0, cs);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int il = wr + 8 * h, i = r0 + il;
+          if (i >= N) continue;
+          float* row = A + (size_t)i * g.lda;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int jl = wc + 32 * mi + 8 * ni, j = c0 + jl;
+            const float2 v = *reinterpret_cast<const float2*>(cs + il * GCS + jl);
+            if (j + 1 <= i) {  // evict-first: read again only at the next panel
+              __stcs(reinterpret_cast<float2*>(row + j),
+                     make_float2(v.x - acc.c[mi][ni][2 * h], v.y - acc.c[mi][ni][2 * h + 1]));
+            } else if (j <= i) {
+              __stcs(row + j, v.x - acc.c[mi][ni][2 * h]);
+            }
+          }
+        }
+      __syncthreads();  // cs is read; the next tile copies into it
+      if (tt == 0) {
+        __syncthreads();  // the block's new entries, before the look-ahead reads them
+        grid_diag(scratch, g, n, p + 1, gsm);
       }
     }
-    *reinterpret_cast<float4*>((which ? Cs : Rs) + r * GLD + c) = v;
+    grid.sync();
+    grid_stamp(2);
   }
-  const int tx = tid & 15, ty = tid >> 4;
-  // The panel's sum, then one subtraction: subtracting each product from the
-  // running entry rounds it 64 times a panel, n times in all, and left the
-  // solve ~10x further from an f64 one than the plain LU at n = 6600.
-  float acc[8][8];
+  // The back substitution, panel p from the last: x_p = Linv_p^T y_p (four
+  // partial sums over 32 rows each, added in order: the same bits in every
+  // CTA), then y_j -= sum_c L[k0 + c][j] x_c for this CTA's j < k0.
+  float* y = A + (size_t)n * g.lda;
+  float* ys = gsm;                    // y_p
+  float* xh = gsm + GB;               // the four partial sums of x_p
+  float* xs = gsm + (1 + GS_NT / GB) * GB;  // x_p
+  for (int p = g.npan - 1; p >= 0; --p) {
+    const int k0 = p * GB, kb = min(GB, n - k0);
+    const float* Linv = scratch + g.linv + (size_t)p * GB * GB;
+    if (tid < GB) ys[tid] = tid < kb ? __ldcg(y + k0 + tid) : 0.f;
+    __syncthreads();
+    {
+      const int c = tid % GB, part = tid / GB, r0 = part * (GB * GB / GS_NT);
+      float a[GB * GB / GS_NT], v = 0.f;  // every load in flight, then the sum in order
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+      for (int u = 0; u < GB * GB / GS_NT; ++u) a[u] = __ldcg(Linv + (size_t)(r0 + u) * GB + c);
 #pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-  __syncthreads();
-#pragma unroll 2
-  for (int c = 0; c < GB; c += 4) {
-    float4 ra[8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-      ra[a] = *reinterpret_cast<const float4*>(Rs + (ty + 16 * a) * GLD + c);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const float4 cb = *reinterpret_cast<const float4*>(Cs + (tx + 16 * b) * GLD + c);
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        acc[a][b] = fmaf(ra[a].x, cb.x, acc[a][b]);
-        acc[a][b] = fmaf(ra[a].y, cb.y, acc[a][b]);
-        acc[a][b] = fmaf(ra[a].z, cb.z, acc[a][b]);
-        acc[a][b] = fmaf(ra[a].w, cb.w, acc[a][b]);
-      }
+      for (int u = 0; u < GB * GB / GS_NT; ++u) v = fmaf(a[u], ys[r0 + u], v);
+      xh[part * GB + c] = v;
     }
-  }
-  // The tile's entries, four rows' loads in flight before their stores
+    __syncthreads();
+    if (tid < GB) {
+      float v = xh[tid];
 #pragma unroll
-  for (int a0 = 0; a0 < 8; a0 += 4) {
-    float cur[4][8];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int i = r0 + ty + 16 * (a0 + a), j = c0 + tx + 16 * b;
-        cur[a][b] = (i < N && j <= i) ? A[(size_t)i * g.lda + j] : 0.f;
-      }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int i = r0 + ty + 16 * (a0 + a), j = c0 + tx + 16 * b;
-        if (i < N && j <= i) A[(size_t)i * g.lda + j] = cur[a][b] - acc[a0 + a][b];
-      }
-  }
-}
-
-// Back substitution of panel p: x_p = L_pp^-T y_p (one warp of every CTA),
-// then y_j -= sum_c L[k0 + c][j] x_c for this CTA's j < k0. y is row n of A.
-__global__ void __launch_bounds__(G_NT) grid_backsub_kernel(const float* __restrict__ state,
-                                                            int n, int p,
-                                                            float* __restrict__ scratch) {
-  if (state[DONE] != 0.f) return;
-  const GridLayout g = grid_layout(n / 6);
-  const float* A = scratch + g.a;
-  float* y = scratch + g.a + (size_t)n * g.lda;
-  const float* L = scratch + g.lkk + (size_t)p * GB * GB;
-  const int k0 = p * GB, kb = min(GB, n - k0), tid = threadIdx.x, lane = tid & 31;
-  __shared__ float Ls[GB][GDS];
-  __shared__ float xs[GB], dv[GB];
-  for (int e = tid; e < GB * GB; e += G_NT) Ls[e / GB][e % GB] = L[e];
-  if (tid < GB) {
-    xs[tid] = tid < kb ? y[k0 + tid] : 0.f;
-    dv[tid] = scratch[g.dinv + (size_t)p * GB + tid];
-  }
-  __syncthreads();
-  if (tid < 32) {
-    for (int c = kb - 1; c >= 0; --c) {
-      const float xc = xs[c] * dv[c];
-      __syncwarp();
-      if (lane < c) xs[lane] -= Ls[c][lane] * xc;
-      if (lane + 32 < c) xs[lane + 32] -= Ls[c][lane + 32] * xc;
-      if (lane == 0) xs[c] = xc;
-      __syncwarp();
+      for (int q = 1; q < GS_NT / GB; ++q) v += xh[q * GB + tid];
+      xs[tid] = v;
     }
+    __syncthreads();
+    if (b == 0 && tid < kb) scratch[g.x + k0 + tid] = xs[tid];
+    for (int j = b * GS_NT + tid; j < k0; j += G * GS_NT) {
+      float v = 0.f;
+      int c = 0;
+      for (; c + 32 <= kb; c += 32) {  // 32 loads in flight, then the sum in order
+        float a[32];
+#pragma unroll
+        for (int u = 0; u < 32; ++u) a[u] = __ldcg(A + (size_t)(k0 + c + u) * g.lda + j);
+#pragma unroll
+        for (int u = 0; u < 32; ++u) v = fmaf(a[u], xs[c + u], v);
+      }
+      for (; c < kb; ++c) v = fmaf(__ldcg(A + (size_t)(k0 + c) * g.lda + j), xs[c], v);
+      y[j] = __ldcg(y + j) - v;
+    }
+    grid.sync();
+    grid_stamp(3);
   }
-  __syncthreads();
-  if (blockIdx.x == 0 && tid < kb) scratch[g.x + k0 + tid] = xs[tid];
-  const int j = blockIdx.x * G_NT + tid;
-  if (j >= k0) return;
-  float v = 0.f;
-  for (int c = 0; c < kb; ++c) v = fmaf(A[(size_t)(k0 + c) * g.lda + j], xs[c], v);
-  y[j] -= v;
 }
 
 // delta from x (NaN throughout if a pivot was not positive or a free
@@ -1817,11 +2154,15 @@ enum Route { R_AUTO = -1, R_WARP = 0, R_CTA = 1, R_CLUSTER = 2, R_GRID = 3 };
 constexpr int CL_MAX_V = 1365;
 // GRID_MIN_V: where the grid route overtakes the cluster. Cluster / grid ms
 // a solve (scripts/torch_k3_routes.py, both routes in one run on an H100
-// 80GB HBM3 at 700 W): 64 views 0.1743 / 0.3251, 96 0.3485 / 0.5215,
-// 128 0.7434 / 0.7232, 160 1.1904 / 0.9266, 256 3.6075 / 1.5437,
-// 512 26.9336 / 3.4889, 700 76.9249 / 5.7035, 1100 323.3833 / 13.2348
-// (torch.linalg.solve_ex 25.8677 there).
-constexpr int GRID_MIN_V = 128;
+// 80GB HBM3 at 700 W): 96 views 0.3490 / 0.3479, 104 0.4050 / 0.3595,
+// 112 0.4678 / 0.4154, 120 0.6617 / 0.4250, 128 0.7456 / 0.4336,
+// 160 1.1937 / 0.5715, 192 1.7937 / 0.6600 (the library's Cholesky 0.2880
+// at 96 views, 0.5573 at 192). The grid route is the faster from ~100
+// views, but lm_fused, which serves up to 119 and has no grid route, takes
+// its route from this rule (fused_plan): a lower GRID_MIN_V would take it
+// off those views, and a rule of its own would break its bit-for-bit
+// parity with the per-iteration route there (PERF.md).
+constexpr int GRID_MIN_V = 120;
 
 struct SolvePlan {
   bool cluster, global;
@@ -2663,31 +3004,37 @@ int launch_cluster_solve(const SolvePlan& p, cudaStream_t st, const SolveArgs& a
   return (int)cudaGetLastError();
 }
 
-// The grid route: grid_init, two launches a panel, one a panel back, and
-// grid_finish, all on one stream.
+// The grid route: grid_init, grid_solve (one cooperative launch of as many
+// CTAs as are resident, up to the most work a stage has) and grid_finish,
+// all on one stream. A cooperative launch the card refuses returns its
+// error after grid_init has run, and nothing else runs.
 int launch_grid_solve(cudaStream_t st, const SolveArgs& a, float* scratch) {
-  const int n = 6 * a.V, N = n + 1;
-  const GridLayout g = grid_layout(a.V);
-  int err = allow_smem((const void*)grid_update_kernel);
+  int n = 6 * a.V;
+  const int N = n + 1;
+  const void* fn = (const void*)grid_solve_kernel;
+  int err = allow_smem(fn);
   if (err) return err;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = (int)cudaGetDevice(&dev)) ||
+      (err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
+      (err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) ||
+      (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_solve_kernel, GS_NT,
+                                                                G_SMEM)))
+    return err;
+  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int it = (N + GI_T - 1) / GI_T;
   grid_init_kernel<<<dim3(it, it), G_NT, 0, st>>>(a.S, a.dU, a.rhs, a.free, a.state, n, scratch);
   if ((err = (int)cudaGetLastError())) return err;
-  const size_t usm = sizeof(float) * 2 * GT * GLD;
-  for (int p = 0; p < g.npan; ++p) {
-    const int b0 = p * GB + GB < n ? p * GB + GB : n;
-    grid_panel_kernel<<<(N - b0 + G_NT - 1) / G_NT, G_NT, 0, st>>>(a.state, n, p, scratch);
-    if ((err = (int)cudaGetLastError())) return err;
-    if (b0 == n) continue;  // the last panel leaves only A[n][n], which nothing reads
-    const int nt = (N - b0 + GT - 1) / GT;
-    grid_update_kernel<<<nt * (nt + 1) / 2, G_NT, usm, st>>>(a.state, n, p, scratch);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
-  for (int p = g.npan - 1; p >= 0; --p) {
-    const int ctas = p ? (p * GB + G_NT - 1) / G_NT : 1;  // j < p * GB, and the triangle
-    grid_backsub_kernel<<<ctas, G_NT, 0, st>>>(a.state, n, p, scratch);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
+  // no more CTAs than the first update's tiles or the back substitution's rows
+  const int nt = (N - 1) / GB, need_u = nt * (nt + 1) / 2, need_b = (n + GS_NT - 1) / GS_NT;
+  int grid = per_sm * sms;
+  const int need = need_u > need_b ? need_u : need_b;
+  grid = need < grid ? (need > 1 ? need : 1) : grid;
+  const float* state = a.state;
+  void* args[] = {(void*)&state, (void*)&n, (void*)&scratch};
+  err = (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(GS_NT), args, G_SMEM, st);
+  if (err) return err;
+  if ((err = (int)cudaGetLastError())) return err;
   grid_finish_kernel<<<1, GF_NT, 0, st>>>(a.quat, a.S, a.dU, a.free, a.state, a.rot_a, a.rot_b,
                                           a.camp_a, a.camp_b, a.V, scratch, a.delta);
   return (int)cudaGetLastError();
@@ -2725,8 +3072,7 @@ int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
 // memory: up to 119 views. Past that the cluster's rows live in a global
 // scratch, where the per-iteration route solved make_problem() faster
 // than lm_fused did with them (PERF.md), and from GRID_MIN_V the solve is
-// the grid route (a chain of launches over the whole card): BA runs an
-// iteration at a time there.
+// the grid route: BA runs an iteration at a time there.
 struct FusedPlan {
   int route, grid;
   size_t smem;
@@ -2793,6 +3139,16 @@ long long osfm_camera_solve_scratch_floats(int V, int route) {
   if (route == R_GRID) return (long long)grid_layout(V).total;
   return route == R_CLUSTER ? (long long)solve_plan(V).scratch : 0;
 }
+
+#ifdef OSFM_FUSED_TIMING
+// The timing build's buffer for the grid route's next grid_solve launches
+// to stamp (null: none): a count, then (kind, %globaltimer) pairs of 64-bit
+// words, 4 + 6 ceil(6V / 128) words at V views (scripts/torch_k3_routes.py
+// --split).
+int osfm_grid_solve_stamps(void* stamps) {
+  return (int)cudaMemcpyToSymbol(grid_stamps, &stamps, sizeof(stamps));
+}
+#endif
 
 // Floats of the global camera tables K1's block pass needs for V cameras (0
 // when its tables and sums fit in shared memory).

@@ -91,10 +91,9 @@ CAMERA_SOLVE_ROUTES = ("warp", "cta", "cluster", "grid")
 # lm_fused's limit: its camera solve is K3's warp, one-CTA or cluster route
 # while the cluster's rows fit its shared memory; from 120 views they leave
 # it for a global scratch, where the per-iteration route solved
-# make_problem() faster (PERF.md), and from 128 K3 is the grid route, a
-# chain of launches: BA runs an iteration at a time there (the card's
-# library says so itself, osfm_lm_fused_grid; this is the rule where there
-# is no card)
+# make_problem() faster (PERF.md): BA runs an iteration at a time there, K3
+# by its grid route (the card's library says so itself, osfm_lm_fused_grid;
+# this is the rule where there is no card)
 FUSED_MAX_VIEWS = 119
 
 
@@ -317,8 +316,9 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-# lm_fused's timing build (kernel_bench.lm_fused_split): the same source
-# with %globaltimer stamps at every stage boundary, a library of its own
+# The timing build (kernel_bench.lm_fused_split, scripts/torch_k3_routes.py
+# --split): the same source with %globaltimer stamps at lm_fused's stage
+# boundaries and the grid route's barriers, a library of its own
 TIMING_DEFINES = ("-DOSFM_FUSED_TIMING",)
 FUSED_STAMP_HEAD, FUSED_STAMP_SLOTS = 4, 12  # as in the CUDA source
 FUSED_BARRIERS = ("blocks", "product", "reduce", "solve", "k2")
@@ -326,10 +326,11 @@ FUSED_BARRIERS = ("blocks", "product", "reduce", "solve", "k2")
 
 @functools.lru_cache(maxsize=None)
 def timing_library() -> ctypes.CDLL:
-    """lm_fused's timing build, with osfm_lm_fused_stamps to set the buffer
-    its next launches stamp; never the main path's library."""
-    lib = kernel_build.load(SOURCE, {**_SIGNATURES, "osfm_lm_fused_stamps": [_P]},
-                            TIMING_DEFINES)
+    """The timing build, with osfm_lm_fused_stamps and osfm_grid_solve_stamps
+    to set the buffer the next lm_fused or grid_solve launches stamp; never
+    the main path's library."""
+    lib = kernel_build.load(SOURCE, {**_SIGNATURES, "osfm_lm_fused_stamps": [_P],
+                                     "osfm_grid_solve_stamps": [_P]}, TIMING_DEFINES)
     lib.osfm_camera_solve_scratch_floats.restype = ctypes.c_longlong
     return lib
 
@@ -482,14 +483,15 @@ def camera_solve_route(V: int, route=None) -> str:
     return CAMERA_SOLVE_ROUTES[got]
 
 
-def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp, route=None):
+def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp, route=None, lib=None):
     """K3: camera_solve_ref on the card, by a Cholesky factorization: returns
     delta (V, 6) and writes the candidate cameras into the half of the LM
     buffers rot and camp that state_in[CUR] does not name. Where it meets a
     pivot that is not positive (an indefinite system) every entry of delta
     is NaN, so the LM step is rejected; the plain version's LU solves such a
     system. ``route`` forces one of CAMERA_SOLVE_ROUTES (None: the automatic
-    choice, camera_solve_route)."""
+    choice, camera_solve_route). ``lib``: another build of the kernels
+    (timing_library) in place of library()."""
     if S.device.type == "cpu":
         return camera_solve_ref(kind, S, dU, rhs, free, state_in, rot, camp)
     _check_kind(kind)
@@ -505,7 +507,7 @@ def camera_solve(kind, S, dU, rhs, free, state_in, rot, camp, route=None):
     _check_buffer("camp", camp, (V, 8), dev)
     if S.data_ptr() % 16:
         raise ValueError("S must be 16-byte aligned (the kernel reads it as float4)")
-    lib = library()
+    lib = lib or library()
     name = camera_solve_route(V, route)
     code = CAMERA_SOLVE_ROUTES.index(name)
     n_scratch = lib.osfm_camera_solve_scratch_floats(V, code)

@@ -46,6 +46,27 @@ def cuda_ms(fn, n=20):
     return start.elapsed_time(end) / n
 
 
+def kernel_launches(fn, n=3):
+    """{kernel name: {"launches", "ms"}} a call of fn(): the kernels the card
+    ran over n calls and their device time (torch.profiler's CUDA events),
+    divided by n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        if e.count:
+            out[e.key] = {"launches": e.count / n, "ms": us / 1e3 / n}
+    return out
+
+
 def host_ms(fn, n=20):
     """Mean host time of fn() over n calls, none of which waits on the card:
     the enqueue."""

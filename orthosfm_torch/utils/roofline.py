@@ -13,6 +13,7 @@ from __future__ import annotations
 
 F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+TF32_FLOPS = 495e12  # dense, on the tensor cores
 # FMA per observation besides the Schur term, counted from the plain
 # versions' formulas: K1 projection and Jacobians (~60), the point block and
 # gradient (18), U's upper triangle (42), W = w Jc^T Jp (36), W V^-1 (54) and
@@ -35,6 +36,28 @@ def camera_solve_work(num_views: int):
     state and the cameras' rot, camp and free read or written once."""
     n = 6 * num_views
     return 2 * (n ** 3 / 6 + n * n), 4 * (n * n + 3 * n) + 32 + 4 * (6 + 4 + 8) * num_views
+
+
+def grid_route_bounds(num_views: int, panel: int = 128) -> dict:
+    """K3's grid route at V views, three floors in ms: its n^3 / 6 FMA on
+    the f32 CUDA cores ("f32"), the same work three times over on the TF32
+    tensor cores, as its 3xTF32 products run it ("tf32x3"), and the bytes
+    its right-looking trailing update moves at this panel width, each lower
+    entry read and written once a panel, 4 n^3 / (3 panel) ("bytes")."""
+    n = 6 * num_views
+    fma = n ** 3 / 6
+    return {"f32": 2 * fma / F32_FLOPS * 1e3, "tf32x3": 3 * 2 * fma / TF32_FLOPS * 1e3,
+            "bytes": 4 * n ** 3 / (3 * panel) / HBM_BYTES * 1e3}
+
+
+def grid_route_bound(num_views: int):
+    """(bound_ms, bound_by) of K3's grid route at V views: its products run
+    on the TF32 tensor cores in 3xTF32, so its operations' floor is
+    grid_route_bounds' "tf32x3", set against the bytes the function must
+    move (camera_solve_work's)."""
+    t_ops = grid_route_bounds(num_views)["tf32x3"]
+    t_bytes = camera_solve_work(num_views)[1] / HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def ba_work(maskT, opt):

@@ -5,11 +5,9 @@ turns, on one GPU.
 
     python3 scripts/torch_ba_kernel_turns.py TREE [TREE ...] [--json OUT]
 
-Each TREE is a checkout of this repository (for example the parent commit
-unpacked with `git archive` into a directory that .gitignore lists, then
-`.`, `.`, and the parent again). Every tree runs in a process of its own,
-which imports that tree's orthosfm_torch, builds its kernels from its own
-csrc/ and times them with CUDA events (mean over many launches) at the
+Each TREE is a checkout of this repository, timed in a process of its own
+(scripts/torch_turns.py), which imports that tree's orthosfm_torch, builds
+its kernels from its own csrc/ and times them with CUDA events (mean over many launches) at the
 three shapes of the main path: 3 views x 7800 tracks (the local BA,
 n = 18), 16 x 8192 (the global BA and make_problem(), n = 96) and
 64 x 4096 (n = 384), quaternion cameras, points optimized, lambda 1e-3.
@@ -22,26 +20,14 @@ table; needs CUDA.
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import re
-import subprocess
 import sys
 
+import torch_turns
+
 SHAPES = ((3, 7800), (16, 8192), (64, 4096))
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _bench():
-    """This checkout's orthosfm_torch/utils/kernel_bench.py (its timer),
-    whichever tree is being timed, loaded by its path: an older tree may
-    not have it."""
-    path = os.path.join(REPO, "orthosfm_torch", "utils", "kernel_bench.py")
-    spec = importlib.util.spec_from_file_location("kernel_bench", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def _stage_calls(bk, pT, obsT, maskT, rot, camp, free, state):
@@ -95,7 +81,7 @@ def time_tree(tree):
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda:0")
     bk.library()
-    cuda_ms = _bench().cuda_ms
+    cuda_ms = torch_turns.bench().cuda_ms
 
     def profile(fn, n):
         """Device microseconds per call of each kernel fn launches
@@ -147,24 +133,18 @@ def time_tree(tree):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("trees", nargs="+")
+    p.add_argument("trees", nargs="*")
     p.add_argument("--json", default="")
-    p.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--one", default="", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.one:
-        time_tree(args.trees[0])
+        time_tree(args.one)
         return 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
-    runs = []
-    for tree in args.trees:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    if not args.trees:
+        p.error("give at least one TREE")
+    card = torch_turns.card()
+    print(card)
+    runs = torch_turns.run_turns(__file__, args.trees)
     for V, T in SHAPES:
         key = f"{V}x{T}"
         for r in runs:
@@ -175,7 +155,7 @@ def main():
                   f"K2 alone {t['point_update_cost_no_tail_ms']:.4f} ms")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"nvidia_smi": smi.stdout.strip(), "runs": runs}, f, indent=1)
+            json.dump({"nvidia_smi": card, "runs": runs}, f, indent=1)
     return 0
 
 

@@ -4,16 +4,14 @@ of several source trees in turns, on one GPU.
 
     python3 scripts/torch_top2_turns.py TREE [TREE ...] [--json OUT]
 
-Each TREE is a checkout of this repository (for example the parent commit
-unpacked with `git archive` into a directory that .gitignore lists, then
-`.`, `.`, and the parent again). This process makes the inputs once with
-this checkout's code, on the card: the real SIFT (D = 128) and SURF (64)
+Each TREE is a checkout of this repository. This process makes the inputs
+once with this checkout's code, on the card: the real SIFT (D = 128) and SURF (64)
 descriptor stacks of chip_smoke.py's phase 5 (16 sphere views of 2048^2,
 seed 7, all 120 pairs) and phase 2's random sets (8 pairs x 8192 rows, D =
 128 and 64, with duplicated rows, a repeated view and databases of 0 and
-1 rows). Every tree then runs in a process of its own, which imports that
-tree's orthosfm_torch, builds its kernels from its own csrc/ and times
-both directions of every pair:
+1 rows). Every tree then runs in a process of its own
+(scripts/torch_turns.py), which imports that tree's orthosfm_torch, builds
+its kernels from its own csrc/ and times both directions of every pair:
   - a tree whose top2 returns both directions (six outputs): one call,
     by CUDA events over many calls (the host never waits on the card);
   - an older tree (three outputs, one direction, a host sync a call): two
@@ -29,28 +27,18 @@ import importlib.util
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_turns
+from torch_turns import REPO
+
 CASES = ("sift", "surf", "random_128", "random_64")
 
 
 def _smoke():
     """This checkout's chip_smoke module (phase 5's scene)."""
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def _bench():
-    """This checkout's orthosfm_torch/utils/kernel_bench.py (its timer and
-    the random sets), whichever tree is being timed, loaded by its path: an
-    older tree may not have it."""
-    path = os.path.join(REPO, "orthosfm_torch", "utils", "kernel_bench.py")
-    spec = importlib.util.spec_from_file_location("kernel_bench", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -67,7 +55,7 @@ def make_inputs(path):
     for kind, (stack, cols) in smoke.front_end_stacks(dev).items():
         cases[kind] = (stack, *cols)
     for D in (128, 64):
-        stack, cols = _bench().random_top2_set(dev, D)
+        stack, cols = torch_turns.bench().random_top2_set(dev, D)
         cases[f"random_{D}"] = (stack, *cols)
     torch.save({k: [t.cpu() for t in v] for k, v in cases.items()}, path)
 
@@ -105,7 +93,7 @@ def time_tree(tree, inputs):
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda:0")
     mk.library()
-    cuda_ms = _bench().cuda_ms
+    cuda_ms = torch_turns.bench().cuda_ms
     data = torch.load(inputs)
     out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
     for case in CASES:
@@ -128,27 +116,22 @@ def time_tree(tree, inputs):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("trees", nargs="+")
+    p.add_argument("trees", nargs="*")
     p.add_argument("--json", default="")
+    p.add_argument("--inputs", default="", help=argparse.SUPPRESS)
     p.add_argument("--one", default="", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.one:
-        time_tree(args.trees[0], args.one)
+        time_tree(args.one, args.inputs)
         return 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
-    runs = []
+    if not args.trees:
+        p.error("give at least one TREE")
+    card = torch_turns.card()
+    print(card)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "top2_inputs.pt")
         make_inputs(inputs)
-        for tree in args.trees:
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", inputs,
-                                   tree], capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                print(proc.stdout + proc.stderr, file=sys.stderr)
-                return proc.returncode
-            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        runs = torch_turns.run_turns(__file__, args.trees, ["--inputs", inputs])
     for case in CASES:
         for r in runs:
             t = r[case]
@@ -158,7 +141,7 @@ def main():
                   f"bmm {t['bmm_ms']:.4f} ms   {t['device_us']}")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"nvidia_smi": smi.stdout.strip(), "runs": runs}, f, indent=1)
+            json.dump({"nvidia_smi": card, "runs": runs}, f, indent=1)
     return 0
 
 

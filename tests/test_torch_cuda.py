@@ -915,12 +915,13 @@ def _solve_inputs(dev, num_views, n_tracks=300):
     return (S, dU, rhs, free, 1e-3, rot, camp), d64
 
 
-@pytest.mark.parametrize("num_views", [700, 1100, 2000])
+@pytest.mark.parametrize("num_views", [192, 700, 1100, 2000])
 def test_camera_solve_grid_route_against_f64(dev, num_views):
     """K3's grid route no further from the f64 solve than twice the plain
     f32 LU is (the bound PR 6 held the cluster to), its candidate cameras
     within 1e-6 of the retraction of the plain step, and two solves bit for
-    bit (no float atomics)."""
+    bit (no float atomics); 192 views is the main path's shape past 119
+    views (chip_smoke.py phase 11)."""
     sargs, d64 = _solve_inputs(dev, num_views)
     assert bk.camera_solve_route(num_views) == "grid"
     solve = lambda *a: bk.camera_solve(*a, route="grid")  # noqa: E731
@@ -932,20 +933,97 @@ def test_camera_solve_grid_route_against_f64(dev, num_views):
     assert torch.isfinite(delta).all()
 
 
+@pytest.mark.parametrize("num_views", [130, 1001])
+def test_camera_solve_grid_route_on_ragged_panels_against_f64(dev, num_views):
+    """n = 6V not a multiple of the 128-wide panels (780 and 6006: a last
+    panel of 12 and of 118 columns): within the bound of
+    test_camera_solve_grid_route_against_f64, and finite."""
+    sargs, d64 = _solve_inputs(dev, num_views)
+    solve = lambda *a: bk.camera_solve(*a, route="grid")  # noqa: E731
+    delta, _, _ = _camera_step("quat", solve, *sargs)
+    delta_r, _, _ = _camera_step("quat", bk.camera_solve_ref, *sargs)
+    assert torch.isfinite(delta).all()
+    assert _rel(delta.double(), d64) <= 2.0 * _rel(delta_r.double(), d64) + 1e-6
+
+
+@pytest.mark.parametrize("num_views", [128, 700])
+def test_camera_solve_grid_route_on_an_indefinite_system(dev, num_views):
+    """-S' is indefinite: the grid route meets a pivot that is not positive
+    and gives an all-NaN delta, as the other routes do; with state[DONE] set
+    it writes no candidate camera."""
+    (S, dU, rhs, free, lam, rot, camp), _ = _solve_inputs(dev, num_views)
+    solve = lambda *a: bk.camera_solve(*a, route="grid")  # noqa: E731
+    delta, _, _ = _camera_step("quat", solve, -S, dU, rhs, free, lam, rot, camp)
+    assert torch.isnan(delta).all()
+    r2, c2 = bk.lm_buffers(rot, camp)
+    r2[1].fill_(7.0)
+    done = bk.new_state(lam, dev)
+    done[bk.DONE] = 1.0
+    bk.camera_solve("quat", S, dU, rhs, free, done, r2, c2, route="grid")
+    assert bool((r2[1] == 7.0).all())
+
+
+def test_camera_solve_grid_route_bit_for_bit_in_three_launches(dev):
+    """At 2000 views (n = 12000) two solves give the same bits, delta and
+    candidate cameras (no float atomics, one summation order), and a solve
+    is three launches: grid_init, the cooperative grid_solve, grid_finish."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sargs, _ = _solve_inputs(dev, 2000)
+    solve = lambda *a: bk.camera_solve(*a, route="grid")  # noqa: E731
+    first = _camera_step("quat", solve, *sargs)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = _camera_step("quat", solve, *sargs)
+        torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    names = [e.key for e in prof.key_averages() for _ in range(e.count) if "grid_" in e.key]
+    assert len(names) == 3, names
+    assert sum("grid_solve" in k for k in names) == 1, names
+
+
+def test_grid_solve_stamps_only_in_the_timing_build(dev):
+    """The grid route's barrier stamps (scripts/torch_k3_routes.py --split)
+    are compiled into the timing build alone: the main path's library has
+    no osfm_grid_solve_stamps. The timing build's grid_solve stamps its
+    barriers in order (kinds 0 to 5, the timer never going back) and solves
+    as the main build does."""
+    assert not hasattr(bk.library(), "osfm_grid_solve_stamps")
+    lib = bk.timing_library()
+    sargs, _ = _solve_inputs(dev, 192)
+    main = _camera_step("quat", lambda *a: bk.camera_solve(*a, route="grid"), *sargs)
+    stamps = torch.zeros(4096, dtype=torch.int64, device=dev)
+    lib.osfm_grid_solve_stamps(stamps.data_ptr())
+    try:
+        timed = _camera_step("quat", lambda *a: bk.camera_solve(*a, route="grid", lib=lib),
+                             *sargs)
+        torch.cuda.synchronize()
+    finally:
+        lib.osfm_grid_solve_stamps(None)
+    for a, b in zip(main, timed):
+        assert _rel(b.double(), a.double()) < 1e-6
+    s = stamps.cpu().tolist()
+    count, kinds, times = s[0], s[1:1 + 2 * s[0]:2], s[2:2 + 2 * s[0]:2]
+    assert count > 2 * 9, count  # 9 panels at n = 1152: a row solve and an update each
+    assert set(kinds) <= set(range(6)) and {1, 2, 3} <= set(kinds), kinds
+    assert times == sorted(times)
+
+
 def test_camera_solve_route_crossover(dev):
     """The automatic route: one warp up to 5 views, one CTA up to 37, the
-    cluster below GRID_MIN_V (128, the crossover measured on the card) and
-    the grid route from there; the cluster refuses past 1365 views, the
-    grid route serves every size. At the crossover the cluster and the grid
-    route solve the same system alike."""
+    cluster below GRID_MIN_V (120: the grid route is the faster from ~100
+    views on the card, but up to 119 the route is lm_fused's, whose bits the
+    per-iteration kernels keep) and the grid route from there; the cluster
+    refuses past 1365 views, the grid route serves every size. At the
+    crossover the cluster and the grid route solve the same system alike."""
     route = bk.camera_solve_route
-    assert [route(v) for v in (1, 5, 6, 37, 38, 127, 128, 1365, 5000)] == [
+    assert [route(v) for v in (1, 5, 6, 37, 38, 119, 120, 1365, 5000)] == [
         "warp", "warp", "cta", "cta", "cluster", "cluster", "grid", "grid", "grid"]
     assert route(1365, "cluster") == "cluster" and route(3, "grid") == "grid"
     for v, r in ((1366, "cluster"), (6, "warp"), (64, "cta"), (5, "cta")):
         with pytest.raises(ValueError, match=f"{r} route cannot serve {v} views"):
             route(v, r)
-    sargs, d64 = _solve_inputs(dev, 128)
+    sargs, d64 = _solve_inputs(dev, 120)
     steps = {r: _camera_step("quat", lambda *a, r=r: bk.camera_solve(*a, route=r), *sargs)
              for r in ("cluster", "grid")}
     delta_r, _, _ = _camera_step("quat", bk.camera_solve_ref, *sargs)
