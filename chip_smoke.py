@@ -33,15 +33,19 @@ Phases:
      of 0 and 1 valid rows, against its plain version, a second run and
      the swapped pair table (bit for bit), timed beside its plain version,
      with the host's time a call; then lm_fused, the whole LM solve in one
-     cooperative launch (ba.run's route up to 119 views; from 38 views in
-     clusters of 8 CTAs, its camera solve on the first), against the
-     per-iteration kernels bit for bit (cameras, points, cost, initial
-     cost, iterations) at 3 x 7800, 16 x 8192, 3 x 50 000, 37 x 2048,
-     38 x 2048, 64 x 4096, 119 x 1024 and 64 x 50 000, both camera kinds,
-     points optimized and fixed, camera 0 fixed, with the main path's BA
-     config and in a run with rejected steps; against lm_solve_ref (one
-     iteration at the JAX package's tolerances for its fused kernel, and
-     to convergence), and all three timed at each shape;
+     cooperative launch (ba.run's route up to FUSED_MAX_VIEWS views; from
+     38 views in clusters of 8 CTAs, its camera solve on the first; from
+     the crossover, GRID_MIN_V in the CUDA source, its camera solve K3's
+     grid route on every CTA), against the per-iteration kernels bit for
+     bit (cameras, points, cost, initial cost, iterations) at 3 x 7800,
+     16 x 8192, 3 x 50 000, 37 x 2048, 38 x 2048, 64 x 4096, 119 x 1024,
+     64 x 50 000, 120 x 1024, 128 x 1024, 192 x 4096 (phase 11's shape) and
+     FUSED_MAX_VIEWS x 2000, both camera kinds, points optimized and fixed,
+     camera 0 fixed, with the main path's BA config and in a run with
+     rejected steps; against lm_solve_ref (one iteration at the JAX
+     package's tolerances for its fused kernel, and to convergence), and
+     all three timed to convergence at each shape, with the ms of a working
+     iteration of lm_fused and of the per-iteration kernels;
   3. pose estimation from tracks (run_pose_estimation with the kernels) on
      the 16-view 2048^2 blob scene (7800 tracks), solvers 0 and 3,
      noise-free (mean angular error < 0.01 deg) and with sigma = 1 px pixel
@@ -110,7 +114,8 @@ Phases:
      then profile_matching at 16 x 2048^2 (the front end's stage table,
      top2's launches). Its counts are the kernels line's launches of
      lm_fused and top2; K1, K3 and K2, which this path runs only inside
-     lm_fused, give phase 8's, where the sharded BA launches them
+     lm_fused, give phase 8's, where the sharded BA launches them, and so
+     does K3's grid route, which phase 11 runs only inside lm_fused
      (launches_phase names the phase of each kernel's count);
  10. the single-device entry point (orthosfm_torch/entry.py, the JAX
      system's __graft_entry__.entry()): fn(*example_args) twice on the card
@@ -120,18 +125,19 @@ Phases:
      against its plain version, each call timed to a synchronize;
  11. the main path past 119 views: testbench/scale_demo.py at 192 views x
      4096 blob tracks, 1 px, through run_pose_estimation with the kernels:
-     its BAs of up to 119 views one lm_fused launch each, its larger global
-     BAs and its final BA K1, K3 and K2 an iteration, K3 by its grid route; 192/192 views placed at a mean angular error under
-     0.25 deg (the repo's bar at 1 px), with the global-BA stage time, the
-     BAs and their working iterations by route, and the grid route's
-     launches, which are the kernels line's launches of camera_solve_grid
-     (most return at once on state[DONE]: the per-iteration route enqueues
-     max_iterations; its launches_working counts the solves that work).
+     every BA one lm_fused launch (254 of them; PR 12 ran 190 so and its
+     64 global BAs over all 192 cameras an iteration at a time), those of
+     GRID_MIN_V views or more with K3's grid route inside the launch, no
+     launch of K1, K3 or K2, and the LM iterations launched equal to those
+     that worked; 192/192 views placed at a mean angular error under
+     0.25 deg (the repo's bar at 1 px), with the global-BA stage time
+     beside PR 12's 1.150 s, and the BAs and their working iterations by
+     route.
 
 Phase 2 also runs K3's grid route at 128, 192 (phase 11's shape, n =
 1152: the kernels line's times for the grid route), 700, 1100 and 2000
-views (n = 4200, 6600, 12000) and the cluster against it at GRID_MIN_V
-(120 views), beside the library's Cholesky (cholesky_ex + cholesky_solve,
+views (n = 4200, 6600, 12000) and the cluster against it at the
+crossover (GRID_MIN_V), beside the library's Cholesky (cholesky_ex + cholesky_solve,
 the kernels line's library_ms for the grid route) and
 torch.linalg.solve_ex, held to an f64 solve (no further from it than
 twice the plain f32 LU is), with its bound (its 3xTF32 products on the
@@ -180,21 +186,24 @@ REPLACES = {
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
-# The unsharded BA (ba.run, phases 3 to 7 and 9) launches lm_fused once a BA
-# of up to 119 views (every BA of those phases), and K1, K3 and K2 an
-# iteration for larger ones (phase 4's 700 to 2000 views); K4 lm_accept's
-# rule runs there in K2's last CTA (and in lm_fused), and as a launch of its
-# own only in the sharded BA (phase 8), whose count the kernels line gives
-# it, as it gives K1's, K3's and K2's. The kernels line's launches of
-# lm_fused are the wrapper's, lm_solve.
+# The unsharded BA (ba.run, phases 3 to 7, 9 and 11) launches lm_fused once
+# a BA of up to FUSED_MAX_VIEWS views (every BA of those phases), and K1, K3
+# and K2 an iteration for larger ones (phase 4's 700 to 2000 views); K4
+# lm_accept's rule runs there in K2's last CTA (and in lm_fused), and as a
+# launch of its own only in the sharded BA (phase 8), whose count the
+# kernels line gives it, as it gives K1's, K3's (its grid route's too) and
+# K2's. The kernels line's launches of lm_fused are the wrapper's,
+# lm_solve.
 UNSHARDED_BA = ("schur_assemble", "camera_solve", "point_update_cost")
 LAUNCH_KEY = {"lm_fused": "lm_solve"}
 # Phase 11: the main path past 119 views (testbench/scale_demo.py at 192
-# views): its BAs of 120 views or more (the global BAs over all 192 cameras
-# and the final BA) run an iteration at a time, K3 by its grid route; the
-# repo's bar at 1 px
+# views): its global BAs over all 192 cameras and its final BA run on
+# lm_fused with K3's grid route inside the launch; the repo's bar at 1 px,
+# and PR 12's global-BA stage (1.150 s, an iteration at a time) to print
+# beside this run's
 GRID_PATH_VIEWS, GRID_PATH_TRACKS, GRID_PATH_NOISE_PX = 192, 4096, 1.0
 GRID_PATH_LIMIT_MEAN_DEG = 0.25
+GRID_PATH_GLOBAL_BA_S_PR12 = 1.150
 # K3's grid route (camera_solve_grid in the kernels line): phase 2 at these
 # views of K3_TRACKS tracks, the kernels line's times at K3_GRID_TIMED,
 # phase 11's shape (n = 1152); the crossover with the cluster (GRID_MIN_V
@@ -226,19 +235,25 @@ MANY_LIMIT_MEAN_DEG, MANY_LIMIT_MAX_DEG = 0.05, 0.1
 # lm_fused (the whole LM solve in one launch) against the per-iteration
 # kernels, bit for bit, at the local BA (3 views) of phase 3 and of phase 9,
 # the standard problem, the one-CTA camera solve's edge (37 views), the
-# cluster's first (38) and last (119) in shared memory, 64 x 4096 and phase
-# 9's global BA (64 x 50 000); and against its plain version after one
-# iteration at the JAX package's tolerances for its fused kernel
-# (tests/test_ba_fused.py:54-72: f32 both, other sum orders and another
-# solve; the cost sits in a sharp valley)
+# cluster's first (38) and 119 views, 64 x 4096, phase 9's global BA (64 x
+# 50 000), past 119 views on K3's grid route inside the launch at 120 and
+# 128 views, phase 11's global BA (192 x 4096) and the launch's last size
+# (ba_kernels.FUSED_MAX_VIEWS x LM_FUSED_BOUND_TRACKS); and against its
+# plain version after one iteration at the JAX package's tolerances for its
+# fused kernel (tests/test_ba_fused.py:54-72: f32 both, other sum orders
+# and another solve; the cost sits in a sharp valley)
 LM_FUSED_SHAPES = ((3, 7800), (16, 8192), (3, 50000), (37, 2048), (38, 2048), (64, 4096),
-                   (119, 1024), (MANY_VIEWS, MANY_TRACKS))
-# timed at those and at phase 3's size (16 views x 7800 tracks)
+                   (119, 1024), (MANY_VIEWS, MANY_TRACKS), (120, 1024), (128, 1024),
+                   (GRID_PATH_VIEWS, GRID_PATH_TRACKS))
+LM_FUSED_BOUND_TRACKS = 2000
+# timed at those, the last size and phase 3's size (16 views x 7800 tracks)
 LM_FUSED_TIMED = (*LM_FUSED_SHAPES, (N_VIEWS, 7800))
 # the rejecting run: every free camera's scale 2.5 times too large (pinned,
 # so no step can repair it) and lambda_0 = 1e-8, whose near Gauss-Newton
-# steps overshoot
-LM_REJECT_SCALE, LM_REJECT_LAMBDA0, LM_REJECT_ITERATIONS = 2.5, 1e-8, 10
+# steps overshoot, for 30 iterations at function tolerance 0, so that it
+# also reaches its cost's f32 floor, where steps are rejected at every
+# shape (in 10 iterations from lambda_0 alone 120 x 1024 rejected none)
+LM_REJECT_SCALE, LM_REJECT_LAMBDA0, LM_REJECT_ITERATIONS = 2.5, 1e-8, 30
 TOL_LM_INIT_COST_REL = 1e-5
 TOL_LM_COST_REL = 1e-3
 TOL_LM_ROT_REL, TOL_LM_ROT_ABS = 1e-4, 2e-6
@@ -541,7 +556,8 @@ def check_lm_fused(device):
     a run with rejected steps; against lm_solve_ref at each shape: one
     iteration to the JAX package's tolerances for its fused kernel
     (TOL_LM_*), and the main path's config converging like it; then all
-    three timed at LM_FUSED_TIMED (kernel_bench.time_lm_solve). Returns
+    three timed at LM_FUSED_TIMED (kernel_bench.time_lm_solve); both lists
+    end with the launch's last size (FUSED_MAX_VIEWS views). Returns
     (max abs error of the one-iteration cameras and points, max relative
     error of its cost, {shape: times}, {shape: bit-for-bit cases})."""
     import torch
@@ -554,9 +570,10 @@ def check_lm_fused(device):
 
     cfg = BundleAdjustConfig()
     reject_cfg = dataclasses.replace(cfg, initial_lambda=LM_REJECT_LAMBDA0,
-                                     max_iterations=LM_REJECT_ITERATIONS)
+                                     max_iterations=LM_REJECT_ITERATIONS, function_tolerance=0.0)
     err, rel, times, cases = 0.0, 0.0, {}, {}
-    for num_views, n_tracks in LM_FUSED_SHAPES:
+    last = (bk.FUSED_MAX_VIEWS, LM_FUSED_BOUND_TRACKS)
+    for num_views, n_tracks in (*LM_FUSED_SHAPES, last):
         label = f"{num_views}x{n_tracks}"
         cases[label] = []
         for kind in ("quat", "euler"):
@@ -614,15 +631,18 @@ def check_lm_fused(device):
               f"cost {float(f_full.cost):.6g} / {float(p_full.cost):.6g}")
         require(ok and like, f"lm_fused {label}: not within tolerance of lm_solve_ref")
         err, rel = max(err, e_r, e_o, e_p), max(rel, e_c)
-    for num_views, n_tracks in LM_FUSED_TIMED:
+    for num_views, n_tracks in (*LM_FUSED_TIMED, last):
         label = f"{num_views}x{n_tracks}"
         t = times[label] = time_lm_solve("quat", device, num_views, n_tracks)
+        working = t["per_iteration_ms_per_working_iteration"]
+        t["ratio_per_working_iteration"] = t["ms_per_iteration"] / working
         print(f"  lm_fused {label}: {t['iterations']} iterations in {t['ms']:.4f} ms "
               f"({t['ms_per_iteration']:.4f} ms/it, wall {t['wall_ms']:.4f} ms); per-iteration "
               f"kernels {t['per_iteration_ms']:.4f} ms device, {t['per_iteration_wall_ms']:.4f} ms "
-              f"wall ({t['max_iterations']} enqueued); plain {t['plain_ms']:.2f} ms; bound "
-              f"{t['bound_ms']:.5f} ms ({t['bound_by']}), stages' bounds "
-              f"{t['stages_bound_ms']:.5f} ms")
+              f"wall ({t['max_iterations']} enqueued; {working:.4f} ms a working iteration, "
+              f"lm_fused / that {t['ratio_per_working_iteration']:.3f}); plain "
+              f"{t['plain_ms']:.2f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+              f"stages' bounds {t['stages_bound_ms']:.5f} ms")
     return err, rel, times, cases
 
 
@@ -1615,10 +1635,11 @@ def run_grid_path(device):
     reconstruction at GRID_PATH_VIEWS x GRID_PATH_TRACKS with
     GRID_PATH_NOISE_PX of noise (one timed run, with the BA kernels'
     launches, then a run under the stage barriers): every view placed, the
-    mean angular error under GRID_PATH_LIMIT_MEAN_DEG, the BAs of up to
-    FUSED_MAX_VIEWS views on lm_fused and the larger ones an iteration at a
-    time, K3 by its grid route. Returns (launches, K3's launches by route,
-    results)."""
+    mean angular error under GRID_PATH_LIMIT_MEAN_DEG, every BA one
+    lm_fused launch, those over all cameras with K3's grid route inside it,
+    no launch of K1, K3 or K2, and no LM iteration launched that did not
+    work. Returns (launches, lm_fused's launches by the route of its camera
+    solve, results)."""
     from orthosfm_torch.solvers import ba_kernels as bk
     from orthosfm_torch.testbench import scale_demo
 
@@ -1626,8 +1647,9 @@ def run_grid_path(device):
     out = scale_demo.run_scale_demo(GRID_PATH_VIEWS, GRID_PATH_TRACKS,
                                     noise_px=GRID_PATH_NOISE_PX, runs=1, device=device)
     out["phase_s"] = time.perf_counter() - t0
-    launches, routes, ba_calls = dict(out["launches"]), out["camera_solve_routes"], out["ba"]
-    big = {int(v): r for v, r in ba_calls["by_views"].items() if int(v) > bk.FUSED_MAX_VIEWS}
+    launches, fused_routes, ba_calls = dict(out["launches"]), out["lm_fused_routes"], out["ba"]
+    big = {int(v): r for v, r in ba_calls["by_views"].items()
+           if bk.camera_solve_route(int(v)) == "grid"}
     global_s = {k: v for k, v in out["stages_s"].items() if "global" in k}
     print(f"  {GRID_PATH_VIEWS} views x {GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px: pose "
           f"estimation {out['wall_s']:.3f} s (under the stage barriers "
@@ -1635,27 +1657,29 @@ def run_grid_path(device):
           f"angular error mean {out['mean_angular_error_deg']:.6f} max "
           f"{out['max_angular_error_deg']:.6f} deg (limit {GRID_PATH_LIMIT_MEAN_DEG})")
     print("  global BA stage " + ", ".join(f"{k} {v:.3f} s" for k, v in global_s.items())
-          + f"; BA: {ba_calls['ba_calls']} calls, {ba_calls['iterations_worked']} of "
+          + f" (PR 12, an iteration at a time: {GRID_PATH_GLOBAL_BA_S_PR12} s); BA: "
+          f"{ba_calls['ba_calls']} calls, {ba_calls['iterations_worked']} of "
           f"{ba_calls['iterations_launched']} LM iterations did work; by route "
           + ", ".join(f"{r}: {d['ba_calls']} calls, {d['iterations_worked']} of "
                       f"{d['iterations_launched']} iterations worked"
                       for r, d in ba_calls["by_route"].items()))
-    # the per-iteration route enqueues max_iterations: an iteration after
-    # convergence launches K1, K3 and K2, which return at once on
-    # state[DONE], so the grid route's working solves are these BAs'
-    # working iterations
-    out["grid_solves_working"] = sum(r["iterations_worked"] for r in big.values())
-    print(f"  BAs past {bk.FUSED_MAX_VIEWS} views: {sum(r['ba_calls'] for r in big.values())} calls at "
-          f"{sorted(big)} views; launches {launches}, camera_solve by route {routes} "
-          f"(grid route {routes['grid']}, of them {out['grid_solves_working']} working solves, "
-          f"the rest returning at once on state[DONE])")
+    print(f"  BAs on K3's grid route inside lm_fused: {sum(r['ba_calls'] for r in big.values())} "
+          f"calls at {sorted(big)} views, {sum(r['iterations_worked'] for r in big.values())} "
+          f"working iterations; launches {launches}, lm_fused by the route of its camera solve "
+          f"{fused_routes} (PR 12: 190 lm_fused launches and 64 BAs an iteration at a time)")
     print("  stage shares: " + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_shares"].items()))
     require(out["views_placed"] == GRID_PATH_VIEWS, f"phase 11: {out['views_placed']} placed")
     require(out["mean_angular_error_deg"] < GRID_PATH_LIMIT_MEAN_DEG,
             f"phase 11: mean angular error {out['mean_angular_error_deg']}")
-    require(big and routes["grid"] > 0, f"phase 11: no grid-route solve ({routes}, {sorted(big)})")
+    require(big and fused_routes["grid"] == sum(r["ba_calls"] for r in big.values()) > 0,
+            f"phase 11: the grid route inside lm_fused ran {fused_routes['grid']} times for "
+            f"{sorted(big)} views")
     require_routes(launches, ba_calls, "phase 11")
-    return launches, routes, out
+    require(launches["lm_solve"] == ba_calls["ba_calls"]
+            and all(launches[name] == 0 for name in UNSHARDED_BA)
+            and ba_calls["iterations_launched"] == ba_calls["iterations_worked"],
+            f"phase 11: not every BA one lm_fused launch: {launches}, {ba_calls['by_route']}")
+    return launches, fused_routes, out
 
 
 def main() -> int:
@@ -1701,7 +1725,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for _, log in built:
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry",
+                                       "Function properties")):
                 print("  " + line.strip())
 
     print("== phase 2: kernels against their plain versions")
@@ -1804,10 +1829,11 @@ def main() -> int:
     phase_launches["phase10"], entry_run = run_entry(device)
     print(f"  phase 10 wall time {time.perf_counter() - t0:.2f} s")
     print(f"== phase 11: the main path past 119 views ({GRID_PATH_VIEWS} views x "
-          f"{GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px): global BAs on K3's grid route")
+          f"{GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px): every BA on lm_fused, the "
+          "global ones with K3's grid route inside")
     t0 = time.perf_counter()
-    grid_launches, grid_routes, grid_path = run_grid_path(device)
-    phase_launches["phase11"] = {**grid_launches, "camera_solve_routes": grid_routes}
+    grid_launches, fused_routes, grid_path = run_grid_path(device)
+    phase_launches["phase11"] = {**grid_launches, "lm_fused_routes": fused_routes}
     print(f"  phase 11 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
@@ -1816,11 +1842,11 @@ def main() -> int:
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches: the main path, phase 9 (the many-view run's lm_fused,
-    # profile_matching's top2); K1, K3 and K2 run there only inside
-    # lm_fused, and lm_accept's own launch is not on it: they give phase
-    # 8's (the sharded BA, which launches them). K3's grid route gives
-    # phase 11's, the main path past 119 views. Each earlier phase's counts
-    # are in launches_by_phase.
+    # profile_matching's top2); K1, K3 and K2 run there and in phase 11
+    # only inside lm_fused, and lm_accept's own launch is not on it: they
+    # give phase 8's (the sharded BA, which launches them), and so does K3's
+    # grid route, which phase 11 runs inside lm_fused only. Each earlier
+    # phase's counts are in launches_by_phase.
     def main_path(name):
         key = LAUNCH_KEY.get(name, name)
         return ("phase9", many_launches[key]) if many_launches.get(key) else (
@@ -1833,9 +1859,9 @@ def main() -> int:
                 **{k: times[name][k] for k in keys}}
                for name in REPLACES]
     for k in kernels:
-        if k["name"] == "camera_solve_grid":  # the main path past 119 views
-            k["launches"], k["launches_phase"] = grid_routes["grid"], "phase11"
-            k["launches_working"] = grid_path["grid_solves_working"]
+        if k["name"] == "camera_solve_grid":  # its own launches: the sharded BA's
+            k["launches"], k["launches_phase"] = phase_launches["phase8"][k["name"]], "phase8"
+            k["inside_lm_fused_phase11"] = fused_routes["grid"]
         if k["name"] == "camera_solve":
             k["routes"] = (many_routes if k["launches_phase"] == "phase9"
                            else sharded["camera_solve_routes"])

@@ -111,7 +111,7 @@ class BundleAdjustConfig:
     # the JAX package's "xla") on every device; an explicit `impl` wins
     use_pallas: bool = True
     # LM implementation (solvers/ba_kernels.py): "fused" runs the whole solve
-    # in one cooperative CUDA launch (up to 119 views; raises above), "kernel"
+    # in one cooperative CUDA launch (up to 375 views; raises above), "kernel"
     # the hand-written CUDA kernels one iteration at a time, "torch" their
     # plain PyTorch versions; "auto" picks "fused" for CUDA tensors where it
     # serves, else "kernel", and "torch" for CPU tensors or with use_pallas

@@ -33,14 +33,15 @@
 // _couplings, _inv3x3_rows) is written once, as the __device__ functions
 // below, and shared by K1 and K2.
 //
-// lm_fused (below K4) runs the whole solve in one cooperative launch for up
-// to 119 views: the initial cost and every iteration of the three stages,
-// by the same device functions on the same work items, with grid-wide
-// barriers between the stages and the loop's stop on the device (the
-// counterpart of ba_fused.py run_lm); from 38 views the launch is made in
-// clusters of 8 CTAs and its camera solve is K3's cluster route on the
-// first. ba.run takes it where it serves and the per-iteration launches
-// elsewhere (from 120 views).
+// lm_fused (below K4) runs the whole solve in one cooperative launch: the
+// initial cost and every iteration of the three stages, by the same device
+// functions on the same work items, with grid-wide barriers between the
+// stages and the loop's stop on the device (the counterpart of ba_fused.py
+// run_lm); from 38 views the launch is made in clusters of 8 CTAs and its
+// camera solve is K3's cluster route on the first, and from GRID_MIN_V its
+// camera solve is K3's grid route on every CTA, up to the views where its
+// per-view tables leave shared memory (~375, fused_plan). ba.run takes it
+// where it serves and the per-iteration launches past that.
 //
 // Scalar LM state: float[STATE_SIZE] = [lambda, cost, iterations, done,
 // initial cost, current half, 0, 0]. Iteration i reads slot i%2 and K2's
@@ -1451,9 +1452,11 @@ __global__ void __launch_bounds__(CL_NT) camera_solve_cluster_kernel(
 // builds the damped, pinned, Jacobi-scaled system from S; grid_solve, one
 // cooperative launch of a persistent grid (one 512-thread CTA an SM),
 // factors it and substitutes back, with grid.sync() between its stages;
-// grid_finish forms delta and retracts the cameras. Panels are GB = 128
-// columns wide. For panel p, with its diagonal block's factor L_pp
-// already inverted in the scratch (Linv_p):
+// grid_finish forms delta and retracts the cameras. lm_fused runs the same
+// three (grid_init_tile, grid_solve_all, grid_finish_cta) as its camera
+// solve stage, on its own CTAs. Panels are GB = 128 columns wide. For panel
+// p, with its diagonal block's factor L_pp already inverted in the scratch
+// (Linv_p):
 //   trsm: the rows below, l_i = a_i L_pp^-T = a_i Linv_p^T, a product of
 //     128-row blocks by Linv_p, one block a CTA;
 //   update: the rank-128 update of the trailing lower triangle, one 128 x
@@ -1538,20 +1541,21 @@ __device__ __forceinline__ float jacobi_rd(const float* S, const float* dU, cons
   return 1.f / sqrtf(fmaxf(fabsf((S[(size_t)i * n + i] + damp) * f * f + (1.f - f)), 1e-12f));
 }
 
-// The lower triangle of the bordered matrix (row n: b^T) from S, in 64 x 64
-// tiles on or below the diagonal (the upper part of a diagonal tile: zeros).
-__global__ void __launch_bounds__(G_NT) grid_init_kernel(
-    const float* __restrict__ S, const float* __restrict__ dU, const float* __restrict__ rhs,
-    const float* __restrict__ free, const float* __restrict__ state, int n,
-    float* __restrict__ scratch) {
-  if (state[DONE] != 0.f) return;
-  const int bi = blockIdx.y, bj = blockIdx.x, tid = threadIdx.x;
-  if (bj > bi) return;
+// The lower triangle of the bordered matrix (row n: b^T) from S at damping
+// lam, tile (bi, bj), bj <= bi, of the 64 x 64 tiles on or below the
+// diagonal (the upper part of a diagonal tile: zeros), by the `nt` threads
+// of one CTA (tid 0 .. nt - 1); `sh`: 5 GI_T floats of its shared memory,
+// free on return. Each entry is one thread's, whatever nt is; tile (0, 0)
+// clears the failure flag.
+__device__ __forceinline__ void grid_init_tile(const float* S, const float* dU, const float* rhs,
+                                               const float* free, float lam, int n,
+                                               float* scratch, int bi, int bj, float* sh,
+                                               int tid, int nt) {
   const GridLayout g = grid_layout(n / 6);
   float* A = scratch + g.a;
   const int N = n + 1;
-  __shared__ float rd_r[GI_T], f_r[GI_T], d_r[GI_T], rd_c[GI_T], f_c[GI_T];
-  const float lam = state[LAM];
+  float *rd_r = sh, *f_r = sh + GI_T, *d_r = sh + 2 * GI_T, *rd_c = sh + 3 * GI_T,
+        *f_c = sh + 4 * GI_T;
   if (bi == 0 && tid == 0) reinterpret_cast<int*>(scratch)[0] = 0;
   if (tid < GI_T) {
     const int i = bi * GI_T + tid;
@@ -1568,7 +1572,7 @@ __global__ void __launch_bounds__(G_NT) grid_init_kernel(
     }
   }
   __syncthreads();
-  for (int e = tid; e < GI_T * GI_T; e += G_NT) {
+  for (int e = tid; e < GI_T * GI_T; e += nt) {
     const int r = e / GI_T, c = e % GI_T, i = bi * GI_T + r, j = bj * GI_T + c;
     if (i >= N || j >= N) continue;
     float a = 0.f;
@@ -1583,6 +1587,17 @@ __global__ void __launch_bounds__(G_NT) grid_init_kernel(
     }
     A[(size_t)i * g.lda + j] = a;
   }
+}
+
+__global__ void __launch_bounds__(G_NT) grid_init_kernel(
+    const float* __restrict__ S, const float* __restrict__ dU, const float* __restrict__ rhs,
+    const float* __restrict__ free, const float* __restrict__ state, int n,
+    float* __restrict__ scratch) {
+  if (state[DONE] != 0.f) return;
+  const int bi = blockIdx.y, bj = blockIdx.x;
+  if (bj > bi) return;
+  __shared__ float sh[5 * GI_T];
+  grid_init_tile(S, dU, rhs, free, state[LAM], n, scratch, bi, bj, sh, threadIdx.x, G_NT);
 }
 
 // A 16-byte copy into shared memory of the first `bytes` bytes at src (the
@@ -1831,9 +1846,14 @@ __device__ __forceinline__ void diag_block_update(float* D, int q0, int j0, int 
 // block's (thread c of its 16 solving for column c), then each block column
 // j of L^-1 by two warps of its own, block row by block row down from the
 // diagonal, X_i = -Linv_ii sum_{k = j .. i-1} L_ik X_k (the block columns
-// are independent). `sm`: G_DIAG_FLOATS floats, free on return.
-__device__ __forceinline__ void grid_diag(float* __restrict__ scratch, GridLayout g, int n, int p,
-                                          float* sm) {
+// are independent). `sm`: G_DIAG_FLOATS floats, free on return. A function
+// of its own (not inlined): its registers are allocated apart from the tile
+// products', and neither grid_solve nor lm_fused's call of it spills (ptxas
+// -v on sm_90a; inlined, grid_solve spilled 56 bytes a thread), which took
+// 3.7-4.7% off grid_solve at 120-375 views (scripts/torch_k3_routes.py
+// --grid-variants, PERF.md).
+__device__ __noinline__ void grid_diag(float* __restrict__ scratch, GridLayout g, int n, int p,
+                                       float* sm) {
   const float* A = scratch + g.a;
   const int k0 = p * GB, kb = min(GB, n - k0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1976,13 +1996,20 @@ __device__ __forceinline__ void grid_diag(float* __restrict__ scratch, GridLayou
   __syncthreads();
 }
 
-// The factorization and the back substitution, one cooperative launch.
-__global__ void __launch_bounds__(GS_NT, 1) grid_solve_kernel(const float* __restrict__ state,
-                                                              int n, float* __restrict__ scratch) {
-  if (state[DONE] != 0.f) return;
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float gsm_raw[];
-  float* gsm = gsm_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(gsm_raw) & 1023)) & 1023) / 4;
+// The first 1024-byte boundary at or past p in shared memory (the tile
+// product's operand atoms): G_SMEM keeps 1 KB for it.
+__device__ __forceinline__ float* align1024(float* p) {
+  return p + ((1024 - ((unsigned)__cvta_generic_to_shared(p) & 1023)) & 1023) / 4;
+}
+
+// The factorization and the back substitution by every CTA of a cooperative
+// grid of GS_NT-thread CTAs (grid_solve's launch, or lm_fused's, whose CTAs
+// have as many threads), gsm: G_SMEM - 1024 bytes of each CTA's shared
+// memory at a 1024-byte boundary. Which CTA takes which tile or row chunk
+// does not change what any entry computes, so the bits do not depend on the
+// grid's size. Ends at a grid barrier, x complete in the scratch.
+__device__ __forceinline__ void grid_solve_all(int n, float* scratch, float* gsm,
+                                               cg::grid_group& grid) {
   const GridLayout g = grid_layout(n / 6);
   float* A = scratch + g.a;
   const int N = n + 1, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -2115,33 +2142,53 @@ __global__ void __launch_bounds__(GS_NT, 1) grid_solve_kernel(const float* __res
   }
 }
 
+__global__ void __launch_bounds__(GS_NT, 1) grid_solve_kernel(const float* __restrict__ state,
+                                                              int n, float* __restrict__ scratch) {
+  if (state[DONE] != 0.f) return;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float gsm_raw[];
+  grid_solve_all(n, scratch, align1024(gsm_raw), grid);
+}
+
 // delta from x (NaN throughout if a pivot was not positive or a free
-// unknown came out non-finite) and the candidate cameras, one CTA.
+// unknown came out non-finite) and the candidate cameras, by the `nt`
+// threads of one CTA (tid 0 .. nt - 1), from the scalar state `state` (its
+// lambda and current half); `failed`: an int of the CTA's shared memory.
+// Each entry and camera is one thread's, whatever nt is.
+__device__ __forceinline__ void grid_finish_cta(int quat, const float* S, const float* dU,
+                                                const float* free, const float* state,
+                                                float* rot_a, float* rot_b, float* camp_a,
+                                                float* camp_b, int V, const float* scratch,
+                                                float* delta, int& failed, int tid, int nt) {
+  const int n = 6 * V;
+  const GridLayout g = grid_layout(V);
+  const float* x = scratch + g.x;
+  const float lam = state[LAM];
+  if (tid == 0) failed = reinterpret_cast<const int*>(scratch)[0];
+  __syncthreads();
+  for (int i = tid; i < n; i += nt)
+    if (free[i] != 0.f && !isfinite(x[i])) failed = 1;
+  __syncthreads();
+  const bool fail = failed != 0;
+  for (int i = tid; i < n; i += nt)
+    delta[i] = fail ? __int_as_float(0x7fc00000)
+                    : (free[i] != 0.f ? x[i] * jacobi_rd(S, dU, free, lam, n, i) * free[i] : 0.f);
+  __syncthreads();
+  const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
+  for (int v = tid; v < V; v += nt)
+    retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
+                   h.camp_c + 8 * v);
+}
+
 __global__ void __launch_bounds__(GF_NT) grid_finish_kernel(
     int quat, const float* __restrict__ S, const float* __restrict__ dU,
     const float* __restrict__ free, const float* __restrict__ state, float* rot_a, float* rot_b,
     float* camp_a, float* camp_b, int V, const float* __restrict__ scratch,
     float* __restrict__ delta) {
   if (state[DONE] != 0.f) return;
-  const int n = 6 * V, tid = threadIdx.x;
-  const GridLayout g = grid_layout(V);
-  const float* x = scratch + g.x;
-  const float lam = state[LAM];
   __shared__ int failed;
-  if (tid == 0) failed = reinterpret_cast<const int*>(scratch)[0];
-  __syncthreads();
-  for (int i = tid; i < n; i += GF_NT)
-    if (free[i] != 0.f && !isfinite(x[i])) failed = 1;
-  __syncthreads();
-  const bool fail = failed != 0;
-  for (int i = tid; i < n; i += GF_NT)
-    delta[i] = fail ? __int_as_float(0x7fc00000)
-                    : (free[i] != 0.f ? x[i] * jacobi_rd(S, dU, free, lam, n, i) * free[i] : 0.f);
-  __syncthreads();
-  const CamHalves h = cam_halves(state, rot_a, rot_b, camp_a, camp_b);
-  for (int v = tid; v < V; v += GF_NT)
-    retract_camera(quat, delta + 6 * v, h.rot + 4 * v, h.camp + 8 * v, h.rot_c + 4 * v,
-                   h.camp_c + 8 * v);
+  grid_finish_cta(quat, S, dU, free, state, rot_a, rot_b, camp_a, camp_b, V, scratch, delta,
+                  failed, threadIdx.x, GF_NT);
 }
 
 // The camera solve's routes. Its automatic choice: one warp up to
@@ -2152,16 +2199,17 @@ __global__ void __launch_bounds__(GF_NT) grid_finish_kernel(
 // up to CL_MAX_V views (64 row blocks a CTA), the grid route any number.
 enum Route { R_AUTO = -1, R_WARP = 0, R_CTA = 1, R_CLUSTER = 2, R_GRID = 3 };
 constexpr int CL_MAX_V = 1365;
-// GRID_MIN_V: where the grid route overtakes the cluster. Cluster / grid ms
-// a solve (scripts/torch_k3_routes.py, both routes in one run on an H100
-// 80GB HBM3 at 700 W): 96 views 0.3490 / 0.3479, 104 0.4050 / 0.3595,
-// 112 0.4678 / 0.4154, 120 0.6617 / 0.4250, 128 0.7456 / 0.4336,
-// 160 1.1937 / 0.5715, 192 1.7937 / 0.6600 (the library's Cholesky 0.2880
-// at 96 views, 0.5573 at 192). The grid route is the faster from ~100
-// views, but lm_fused, which serves up to 119 and has no grid route, takes
-// its route from this rule (fused_plan): a lower GRID_MIN_V would take it
-// off those views, and a rule of its own would break its bit-for-bit
-// parity with the per-iteration route there (PERF.md).
+// GRID_MIN_V: where the grid route overtakes the cluster, for K3's own
+// launches and for lm_fused's solve stage alike (fused_plan takes this
+// rule, so the two keep their bit-for-bit parity). Cluster / grid ms a
+// solve in their own launches (scripts/torch_k3_routes.py --fused, all in
+// one run on an H100 80GB HBM3 at 700 W): 96 views 0.3458 / 0.3278, 104
+// 0.4015 / 0.3378, 112 0.4608 / 0.3940, 119 0.5182 / 0.3957 (the library's
+// Cholesky 0.2876 at 96 views); as lm_fused's solve stage (two copies of
+// this source, each route at every size), the route "auto" runs up to 375
+// views: 96 0.3747 / 0.4764, 104 0.4343 / 0.4824, 112 0.5038 / 0.5741, 119
+// 0.5601 / 0.5812. Inside the launch the cluster stays the faster up to
+// 119 views, so the crossover stays at 120 (PERF.md, PR 13).
 constexpr int GRID_MIN_V = 120;
 
 struct SolvePlan {
@@ -2605,8 +2653,9 @@ __global__ void lm_accept_kernel(const float* __restrict__ state_in,
 // lm_fused — replaces ba_fused.py run_lm (_make_lm_kernel :229), the whole
 // robust LM solve in one pallas_call: the initial cost, then up to
 // max_iters iterations of K1, K3 and K2 with its accept rule, and the loop
-// with its stop, in one cooperative launch for problems of up to 119 views
-// (fused_plan).
+// with its stop, in one cooperative launch for problems of up to ~375
+// views (fused_plan: while K1's and K2's per-view tables fit its shared
+// memory).
 //
 // Bound: per iteration that works, the K1 + K3 + K2 work above (FMA for
 // K1's Schur term, the dependent chain of K3's pivots, K2's per-observation
@@ -2645,9 +2694,16 @@ __global__ void lm_accept_kernel(const float* __restrict__ state_in,
 //               with the cooperative attribute (cudaLaunchKernelEx), its grid
 //               whole clusters (cudaOccupancyMaxActiveClusters: 15 on an H100
 //               SXM at 512 threads and ~200 KB, 120 CTAs); the cluster's own
-//               barriers, its rows in distributed shared memory (up to 119
-//               views) and its panel order inside the stage, the grid
-//               barriers around it, as in its own launch, so the same bits
+//               barriers, its rows in distributed shared memory and its
+//               panel order inside the stage, the grid barriers around it,
+//               as in its own launch, so the same bits; from GRID_MIN_V the
+//               grid route on every CTA of a plain cooperative launch (one
+//               CTA a SM): grid_init's 64 x 64 tiles dealt to the CTAs, a
+//               grid barrier, grid_solve's panels (two grid barriers a panel
+//               and one a panel of the back substitution) and grid_finish
+//               on CTA 0, lambda and the current half from the CTA's state
+//               copy; its failure flag in its scratch makes delta NaN, so
+//               K2's cost is NaN and the step rejected, as in its launches
 //   K2          16 / w groups of w warps (w = the launch's warps a CTA,
 //               ba_kernels.py _k2_warps), 32 tracks each; the per-view
 //               tables are the CTA's, built once
@@ -2673,6 +2729,7 @@ __global__ void lm_accept_kernel(const float* __restrict__ state_in,
 constexpr int FUSED_NT = 512;                          // threads of lm_fused's CTA
 constexpr int FUSED_BLK_GROUPS = FUSED_NT / BLK_NT;    // K1 block-pass groups a CTA
 constexpr int FUSED_PROD_GROUPS = FUSED_NT / PROD_NT;  // K1 product groups a CTA
+static_assert(FUSED_NT == GS_NT, "the grid route's tile product takes a CTA of GS_NT threads");
 
 struct FusedArgs {
   int quat;
@@ -2686,7 +2743,8 @@ struct FusedArgs {
   int* counts;
   float *vpart, *Ppart, *S, *dU, *rhs, *delta, *cost_part, *state_out;
   LMRule rule;
-  int route;  // the camera solve's: R_WARP, R_CTA or R_CLUSTER
+  int route;        // the camera solve's: R_WARP, R_CTA, R_CLUSTER or R_GRID
+  float* gscratch;  // the grid route's scratch (grid_layout(V).total floats; R_GRID only)
 #ifdef OSFM_FUSED_TIMING
   unsigned long long* stamps;  // FUSED_STAMP_HEAD + FUSED_STAMP_SLOTS * max_iters, zeroed
 #endif
@@ -2789,12 +2847,35 @@ __device__ __forceinline__ void fused_reduce(const FusedArgs& a) {
                       a.dU, a.rhs);
 }
 
-// K3 in CTA 0 (one warp or the one-CTA solve) or on the first cluster
-// (CTAs 0 .. CL_C - 1): the candidate cameras into the half st[CUR] does not
-// name.
+// K3 in CTA 0 (one warp or the one-CTA solve), on the first cluster (CTAs
+// 0 .. CL_C - 1) or on every CTA (the grid route: grid_init's tiles dealt
+// to the CTAs, a grid barrier, grid_solve's factorization and back
+// substitution with their own barriers, then grid_finish on CTA 0, with
+// lambda and the current half from st): the candidate cameras into the half
+// st[CUR] does not name.
+template <bool GRID>
 __device__ __forceinline__ void fused_solve(const FusedArgs& a, const float* st, float* fsm,
-                                            int& s_failed) {
+                                            int& s_failed, cg::grid_group& grid) {
   const int tid = threadIdx.x;
+  if (GRID) {
+    const int n = 6 * a.V, it = (n + GI_T) / GI_T, tiles = it * (it + 1) / 2;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int bi = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);  // an approximate root, then exact
+      while (bi * (bi + 1) / 2 > t) --bi;
+      while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+      __syncthreads();  // the tile's shared buffer is free again
+      grid_init_tile(a.S, a.dU, a.rhs, a.free, st[LAM], n, a.gscratch, bi, t - bi * (bi + 1) / 2,
+                     fsm, tid, FUSED_NT);
+    }
+    grid.sync();
+    // inlined: as a call of its own (__noinline__) the stage ran 9-11%
+    // slower at 120-375 views (scripts/torch_k3_routes.py --grid-variants)
+    grid_solve_all(n, a.gscratch, align1024(fsm), grid);
+    if (blockIdx.x == 0)
+      grid_finish_cta(a.quat, a.S, a.dU, a.free, st, a.rot_a, a.rot_b, a.camp_a, a.camp_b, a.V,
+                      a.gscratch, a.delta, s_failed, tid, FUSED_NT);
+    return;
+  }
   if (a.route == R_CLUSTER) {
     if (blockIdx.x < CL_C)
       camera_solve_cluster<false, false>(a.quat, a.S, a.dU, a.rhs, a.free, st, a.rot_a, a.rot_b,
@@ -2879,6 +2960,12 @@ __device__ __forceinline__ void fused_accept(const FusedArgs& a, const float* st
   __syncthreads();
 }
 
+// GRID: the instantiation for the grid route (fused_plan's R_GRID); the
+// other routes' instantiation holds none of its code, so its registers are
+// allocated as before it existed (with the grid route's stage in the same
+// kernel, every size below 120 views ran 3.5-10% slower, its spill 296 ->
+// 428 bytes a thread; PERF.md, PR 13).
+template <bool GRID>
 __global__ void __launch_bounds__(FUSED_NT, 1) lm_fused_kernel(const FusedArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float fsm[];
@@ -2906,7 +2993,7 @@ __global__ void __launch_bounds__(FUSED_NT, 1) lm_fused_kernel(const FusedArgs a
     }
     fused_reduce(a);
     fused_sync(grid, a, base + 1 + 2 * FUSED_B_REDUCE);
-    fused_solve(a, s_in, fsm, s_failed);
+    fused_solve<GRID>(a, s_in, fsm, s_failed, grid);
     fused_sync(grid, a, base + 1 + 2 * FUSED_B_SOLVE);
     fused_k2(a, s_in, false, fsm);
     fused_sync(grid, a, base + 1 + 2 * FUSED_B_K2);
@@ -3067,12 +3154,17 @@ int launch_warp_solve(cudaStream_t st, const SolveArgs& a) {
 // camera solve's route, its dynamic shared bytes (its largest stage's: the
 // stages reuse one buffer) and its grid: as many CTAs as the occupancy
 // query lets be resident (one wave; with the cluster, whole clusters of
-// CL_C), or 0 where it cannot serve V views. It serves the camera solve's
-// warp, one-CTA and cluster routes while the cluster's rows fit its shared
-// memory: up to 119 views. Past that the cluster's rows live in a global
-// scratch, where the per-iteration route solved make_problem() faster
-// than lm_fused did with them (PERF.md), and from GRID_MIN_V the solve is
-// the grid route: BA runs an iteration at a time there.
+// CL_C), or 0 where it cannot serve V views. The camera solve takes K3's
+// own rule (solve_route), so lm_fused and the per-iteration kernels run the
+// same route at every size: one warp, one CTA, the cluster with its rows in
+// shared memory, or from GRID_MIN_V the grid route on every CTA, its
+// G_SMEM (~195 KB) the largest stage there. Where K1's block stage (the
+// camera tables, 200 bytes a view, and two groups' per-view sums, 108
+// bytes a view each, beside 2 x 37 KB) or K2's per-view tables (208 bytes a
+// view) no longer fit the one buffer beside the kernel's static shared
+// memory, it serves no more: past ~375 views on an H100 (the per-iteration
+// kernels read such tables from global memory; inside lm_fused they are
+// not built there).
 struct FusedPlan {
   int route, grid;
   size_t smem;
@@ -3082,26 +3174,28 @@ FusedPlan fused_plan(int V, int warps) {
   FusedPlan f = {};
   if (V < 1 || warps < 1 || warps > K2_MAXW) return f;
   f.route = solve_route(V, R_AUTO);
-  if (f.route == R_GRID || (f.route == R_CLUSTER && solve_plan(V).global)) return f;
+  if (f.route == R_CLUSTER && solve_plan(V).global) return f;
   const int n = 6 * V;
   const size_t blocks =
       round16(sizeof(Cam) * V) + FUSED_BLK_GROUPS * fused_blocks_group_bytes(V);
   const size_t product = FUSED_PROD_GROUPS * sizeof(ProductShared);
-  const size_t solve =
-      f.route == R_WARP ? sizeof(float) * (n * (n + 1) + 32) : solve_plan(V).smem;
+  const size_t solve = f.route == R_WARP   ? sizeof(float) * (n * (n + 1) + 32)
+                       : f.route == R_GRID ? G_SMEM
+                                           : solve_plan(V).smem;
   const size_t k2 = sizeof(float) * (round4(V * (TAB_CAND + TAB_CUR)) +
                                      (size_t)(FUSED_NT / 32 / warps) * fused_k2_group_floats(warps));
   f.smem = blocks > product ? blocks : product;
   f.smem = solve > f.smem ? solve : f.smem;
   f.smem = k2 > f.smem ? k2 : f.smem;
-  const void* fn = (const void*)lm_fused_kernel;
+  const void* fn = f.route == R_GRID ? (const void*)lm_fused_kernel<true>
+                                      : (const void*)lm_fused_kernel<false>;
   if (allow_smem(fn) || !fits_smem(fn, f.smem)) return f;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) || !coop)
     return f;
   if (f.route != R_CLUSTER) {
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lm_fused_kernel, FUSED_NT, f.smem))
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, FUSED_NT, f.smem))
       return f;
     f.grid = per_sm * sms;
     return f;
@@ -3118,7 +3212,7 @@ FusedPlan fused_plan(int V, int warps) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, lm_fused_kernel, &cfg)) return f;
+  if (cudaOccupancyMaxActiveClusters(&clusters, lm_fused_kernel<false>, &cfg)) return f;
   f.grid = clusters * CL_C;
   return f;
 }
@@ -3312,7 +3406,11 @@ int osfm_lm_fused_grid(int V, int warps) { return fused_plan(V, warps).grid; }
 // counts, vpart, Ppart), the system (S, dU, rhs), delta (6V) and K2's cost
 // partials (ceil(T / 32)) are as the per-iteration launches take them.
 // From 38 views the launch is cooperative and in clusters of CL_C, the
-// camera solve on the first. Where lm_fused cannot serve V views it returns
+// camera solve on the first; from GRID_MIN_V a plain cooperative launch of
+// one CTA a SM (not trimmed to the other stages' work: the grid route uses
+// every CTA), its camera solve the grid route on all of them, from gscratch
+// (osfm_camera_solve_scratch_floats(V, R_GRID) floats; null below
+// GRID_MIN_V). Where lm_fused cannot serve V views it returns
 // cudaErrorCooperativeLaunchTooLarge and launches nothing; a refused launch
 // returns the runtime's error.
 int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const float* maskT,
@@ -3320,14 +3418,17 @@ int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const f
                   float huber, int opt, int V, int T, int ldx, int n_chunks, int n_split,
                   int cps, int warps, int max_iters, float* Xk, float* Yk, int* counts,
                   float* vpart, float* Ppart, float* S, float* dU, float* rhs, float* delta,
-                  float* cost_part, float* state_out, float lam0, float func_tol, float lam_up,
-                  float lam_down, float min_lam, float max_lam, void* stream) {
+                  float* cost_part, float* gscratch, float* state_out, float lam0,
+                  float func_tol, float lam_up, float lam_down, float min_lam, float max_lam,
+                  void* stream) {
   if (T < 1 || max_iters < 0) return (int)cudaErrorInvalidValue;
   const FusedPlan f = fused_plan(V, warps);
   if (f.grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (f.route == R_GRID && !gscratch) return (int)cudaErrorInvalidValue;
   const bool cluster = f.route == R_CLUSTER;
-  // no more CTAs than the stage with the most work items can use (whole
-  // clusters, and at least the one the camera solve runs on)
+  // below the grid route, no more CTAs than the stage with the most work
+  // items can use (whole clusters, and at least the one the camera solve
+  // runs on)
   const int n = 6 * V, nt = ldx / PT, items = (T + K2_TRACKS - 1) / K2_TRACKS;
   const size_t lanes = ((size_t)n * n + 2 * (size_t)n) * RL;
   const int groups = (FUSED_NT / 32) / warps;
@@ -3340,13 +3441,14 @@ int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const f
   need = r > need ? r : need;
   need = k > need ? k : need;
   if (cluster) need = ((need + CL_C - 1) / CL_C) * CL_C;
-  const int grid = need < f.grid ? need : f.grid;
+  const int grid = f.route == R_GRID || need >= f.grid ? f.grid : need;
   int G = 1;  // K1's lanes per track, as osfm_schur_assemble's
   while (G < V && G < 32) G *= 2;
   const FusedArgs a = {quat, pT_a, pT_b, obsT, maskT, rot_a, rot_b, camp_a, camp_b, free,
                        huber, opt, V, T, G, ldx, n_chunks, n_split, cps, warps, max_iters,
                        Xk, Yk, counts, vpart, Ppart, S, dU, rhs, delta, cost_part, state_out,
-                       {lam0, func_tol, lam_up, lam_down, min_lam, max_lam}, f.route
+                       {lam0, func_tol, lam_up, lam_down, min_lam, max_lam}, f.route,
+                       f.route == R_GRID ? gscratch : nullptr
 #ifdef OSFM_FUSED_TIMING
                        , fused_stamps
 #endif
@@ -3368,10 +3470,12 @@ int osfm_lm_fused(int quat, float* pT_a, float* pT_b, const float* obsT, const f
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 2;
-    err = (int)cudaLaunchKernelEx(&cfg, lm_fused_kernel, a);
+    err = (int)cudaLaunchKernelEx(&cfg, lm_fused_kernel<false>, a);
   } else {
     void* args[] = {const_cast<FusedArgs*>(&a)};
-    err = (int)cudaLaunchCooperativeKernel((const void*)lm_fused_kernel, dim3(grid),
+    const void* fn = f.route == R_GRID ? (const void*)lm_fused_kernel<true>
+                                        : (const void*)lm_fused_kernel<false>;
+    err = (int)cudaLaunchCooperativeKernel(fn, dim3(grid),
                                            dim3(FUSED_NT), args, f.smem, st);
   }
   if (err) return err;

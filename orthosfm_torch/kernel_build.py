@@ -55,7 +55,7 @@ def resolve_impl(impl: str, device, fused=None, use_pallas: bool = True) -> str:
             return "kernel"
         if not fused:
             raise ValueError("impl 'fused' cannot serve this problem (the whole LM solve in one "
-                             "launch serves up to 119 views)")
+                             "launch serves up to 375 views, ba_kernels.FUSED_MAX_VIEWS)")
         return impl
     if impl not in ("torch", "kernel"):
         raise ValueError(f"unknown impl {impl!r} (expected auto|torch|kernel|fused, or the JAX "
@@ -107,21 +107,26 @@ def build(source: Path, defines: tuple = ()) -> tuple:
 def ptxas_usage(log: str, entry: str) -> dict:
     """Registers a thread, bytes of stack frame and of spill stores and
     loads of the kernel whose mangled name holds `entry`, from a build's
-    -Xptxas -v log (empty where the log does not name it)."""
+    -Xptxas -v log (empty where the log does not name it); for a device
+    function compiled apart (__noinline__), its stack and spills (its
+    registers count in its callers')."""
     out, lines = {}, log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or entry not in line:
-            continue
-        for nxt in lines[i + 1:i + 5]:
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
-                          r"spill loads", nxt)
-            if m:
-                out.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
-            m = re.search(r"Used (\d+) registers", nxt)
-            if m:
-                out["registers"] = int(m[1])
-                break
-        break
+    at = next((i for head in ("Compiling entry function", "Function properties for")
+               for i, line in enumerate(lines) if head in line and entry in line), None)
+    if at is None:
+        return out
+    for nxt in lines[at + 1:at + 5]:
+        if "Compiling entry function" in nxt or (
+                "Function properties for" in nxt and entry not in nxt):
+            break  # the next function's
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", nxt)
+        if m:
+            out.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", nxt)
+        if m:
+            out["registers"] = int(m[1])
+            break
     return out
 
 

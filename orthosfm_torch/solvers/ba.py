@@ -21,19 +21,21 @@ assemble → camera solve + retract → point update + cost + accept. It takes
 one of three routes (config.impl, kernel_build.resolve_impl):
   - "fused": the whole solve in one cooperative CUDA launch (lm_fused,
     ba_kernels.lm_solve), which stops at convergence on the device. "auto"
-    takes it on the card wherever ba_kernels.fused_fits holds: up to 119
-    views, which covers the local BAs, the 16- and 64-view global BAs and
-    the testbench. The gate is the card's, not the JAX package's
-    ba_fused.fits(): there the whole problem had to sit in VMEM; here the
-    problem lives in device memory, and the limit is the camera solve's
-    route inside the launch: one warp, one CTA (up to 37 views), or from
-    38 views the cluster of 8 CTAs, the launch then made in clusters, while
-    the cluster's rows fit its shared memory.
+    takes it on the card wherever ba_kernels.fused_fits holds: up to
+    ba_kernels.FUSED_MAX_VIEWS (375) views, which covers the local BAs,
+    the testbench and the global BAs of the 64- and 192-view runs, as the
+    JAX package's ba.run takes its run_lm wherever ba_fused.fits() holds.
+    The gate is the card's, not the JAX package's fits(): there the whole
+    problem had to sit in VMEM; here the problem lives in device memory,
+    and the limit is the per-view tables that the launch keeps in shared
+    memory. Its camera solve is K3's own route at each size: one warp, one
+    CTA (up to 37 views), the cluster of 8 CTAs (the launch then made in
+    clusters), or from the crossover K3's grid route on every CTA.
   - "kernel": the hand-written CUDA kernels one iteration at a time
     (ba_kernels.lm_iterate), which serve any size: "auto" takes it on the
-    card from 120 views up (the many-view problems). The loop enqueues
-    ``max_iterations`` iterations with no host sync; a device `done` flag
-    turns the converged ones into no-ops.
+    card past FUSED_MAX_VIEWS views (the many-view problems). The loop
+    enqueues ``max_iterations`` iterations with no host sync; a device
+    `done` flag turns the converged ones into no-ops.
   - "torch": their plain PyTorch versions in the same loop ("auto" on the
     CPU, where reading `done` syncs nothing and the loop stops there).
 The JAX package's "xla" and "pallas" name the "torch" and "kernel" routes,

@@ -4,8 +4,8 @@ PyTorch version.
 
   stage                 kernel wrapper       plain version          replaces (JAX package)
   the whole LM solve    lm_solve             lm_solve_ref           ba_fused.run_lm (one launch;
-  (up to 119 views)     (lm_fused, one       (the plain stages      the solve, the loop and its
-                        cooperative launch)  in a loop)             stop in one kernel)
+  (up to FUSED_MAX_     (lm_fused, one       (the plain stages      the solve, the loop and its
+  VIEWS views)          cooperative launch)  in a loop)             stop in one kernel)
   assemble              schur_assemble       normal_eq_schur_ref    ba_pallas.normal_eq_schur,
                                                                     ba_fused.run_lm pass 1
   camera solve+retract  camera_solve         camera_solve_ref       ba_fused._gauss_jordan and the
@@ -23,9 +23,12 @@ its accept rule in one cooperative launch (lm_fused), with the same work
 items and sum orders as those kernels launched one iteration at a time
 (lm_iterate), so the two agree bit for bit; it stops at convergence on the
 card. It serves up to FUSED_MAX_VIEWS views (fused_fits): its camera solve
-is K3's one-warp or one-CTA route up to 37 views and, from 38, K3's cluster
-of 8 CTAs on the first cluster of a launch made in clusters, its rows in the
-cluster's shared memory. From 120 views lm_iterate runs, one iteration at
+is K3's own route at every size, so the two keep the same bits: one warp
+or one CTA up to 37 views, from 38 K3's cluster of 8 CTAs on the first
+cluster of a launch made in clusters, its rows in the cluster's shared
+memory, and from the crossover (GRID_MIN_V in the CUDA source) K3's grid
+route on every CTA of the launch. Past FUSED_MAX_VIEWS, where K1's and
+K2's per-view tables leave shared memory, lm_iterate runs, one iteration at
 a time; it runs every size. kernel_bench.lm_fused_split times
 lm_fused's stages from its timing build (timing_library).
 
@@ -39,6 +42,7 @@ A wrapper given CPU tensors calls the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute (``lm_solve.launches``, ``schur_assemble.launches``,
 ``camera_solve.launches`` and ``camera_solve.route_launches`` by route,
+``lm_solve.route_launches`` by the route of the camera solve inside it,
 ``PointUpdateCost.launches``, ``lm_accept.launches``); ``launch_counts()``
 reads them by kernel name.
 
@@ -88,13 +92,14 @@ _K2_VIEWS_PER_WARP = 4  # views each warp of K2 walks, up to _K2_MAXW warps
 # their per-view tables in shared memory up to ~600 and ~990 views and in
 # global memory past that; no kernel has a view limit but the card's memory.
 CAMERA_SOLVE_ROUTES = ("warp", "cta", "cluster", "grid")
-# lm_fused's limit: its camera solve is K3's warp, one-CTA or cluster route
-# while the cluster's rows fit its shared memory; from 120 views they leave
-# it for a global scratch, where the per-iteration route solved
-# make_problem() faster (PERF.md): BA runs an iteration at a time there, K3
-# by its grid route (the card's library says so itself, osfm_lm_fused_grid;
-# this is the rule where there is no card)
-FUSED_MAX_VIEWS = 119
+# lm_fused's limit: the views where K1's block stage (the camera tables and
+# two groups' per-view sums, 416 bytes a view beside 2 x 37 KB) still fits
+# its one shared buffer beside its static shared memory, as the card
+# reports it (osfm_lm_fused_grid on an H100; K2's tables, 208 bytes a view,
+# fit past it). The card's library answers for itself; this is the rule
+# where there is no card. Past it BA runs an iteration at a time
+# (lm_iterate), whose kernels read such tables from global memory.
+FUSED_MAX_VIEWS = 375
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,8 +303,8 @@ _SIGNATURES = {
                                _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
     "osfm_lm_accept": [_P, _P, _P, _F, _F, _F, _F, _F, _F, _P],
     "osfm_lm_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
-                      _F, _P],
+                      _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
+                      _F, _F, _P],
     "osfm_lm_fused_grid": [_I, _I],
     "osfm_camera_solve_route": [_I, _I],
     "osfm_camera_solve_scratch_floats": [_I, _I],
@@ -667,19 +672,26 @@ def _fused_grid(V: int) -> int:
     return library().osfm_lm_fused_grid(V, _k2_warps(V))
 
 
-def _fused_scratch(V: int, T: int, opt: bool) -> list:
+def _fused_scratch(V: int, T: int, opt: bool, lib=None) -> list:
     """Floats of lm_fused's workspace: K1's scratch (_k1_scratch), the
-    system S, dU, rhs, the step and K2's cost partials."""
+    system S, dU, rhs, the step, K2's cost partials and, where its camera
+    solve is K3's grid route (in `lib`'s build, library() by default), that
+    route's scratch."""
     n = 6 * V
-    return _k1_scratch(V, schur_plan(V, T), opt) + [n * n, n, n, n, math.ceil(T / _K2_TRACKS)]
+    lib = lib or library()
+    grid = CAMERA_SOLVE_ROUTES.index("grid")
+    g = lib.osfm_camera_solve_scratch_floats(V, grid) if (
+        lib.osfm_camera_solve_route(V, -1) == grid) else 0
+    return _k1_scratch(V, schur_plan(V, T), opt) + [n * n, n, n, n, math.ceil(T / _K2_TRACKS), g]
 
 
 def fused_fits(V: int, T: int, device) -> bool:
     """Whether lm_solve serves V views and T tracks on `device`. On the
-    card the library answers (osfm_lm_fused_grid: up to 119 views, with a
-    cooperative grid of at least one CTA, or from 38 views one cluster) and
-    its workspace must fit the card's memory; on the CPU, where lm_solve
-    runs its plain version, the same rule: 1 <= V <= FUSED_MAX_VIEWS."""
+    card the library answers (osfm_lm_fused_grid: a cooperative grid of at
+    least one CTA, from 38 views one cluster, while the per-view tables fit
+    its shared memory: up to FUSED_MAX_VIEWS on an H100) and its workspace
+    must fit the card's memory; on the CPU, where lm_solve runs its plain
+    version, the same rule: 1 <= V <= FUSED_MAX_VIEWS."""
     if V < 1 or T < 1:
         return False
     device = torch.device(device)
@@ -712,19 +724,22 @@ def lm_solve(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_point
         raise ValueError(f"lm_fused cannot serve {V} views x {T} tracks on this card (up to "
                          f"{FUSED_MAX_VIEWS} views)")
     opt = bool(optimize_points)
+    lib = lib or library()
     ldx, n_chunks, n_split, cps = schur_plan(V, T)
-    ws, ptrs = _workspace(_fused_scratch(V, T, opt), dev)
+    sizes = _fused_scratch(V, T, opt, lib)
+    ws, ptrs = _workspace(sizes, dev)
     counts = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     state = torch.empty((STATE_SIZE,), dtype=torch.float32, device=dev)
-    Xk, Yk, vpart, Ppart, S, dU, rhs, delta, parts = ptrs
-    err = (lib or library()).osfm_lm_fused(
+    Xk, Yk, vpart, Ppart, S, dU, rhs, delta, parts, gscratch = ptrs
+    err = lib.osfm_lm_fused(
         int(kind == "quat"), *_halves(pT), _ptr(obsT), _ptr(maskT), *_halves(rot),
         *_halves(camp), _ptr(free), float(huber_delta), int(opt), V, T, ldx, n_chunks, n_split,
         cps, _k2_warps(V), int(max_iterations), Xk, Yk, _ptr(counts), vpart, Ppart, S, dU, rhs,
-        delta, parts, _ptr(state), cfg.lam0, cfg.func_tol, cfg.lam_up, cfg.lam_down,
-        cfg.min_lam, cfg.max_lam, _stream())
+        delta, parts, gscratch if sizes[-1] else None, _ptr(state), cfg.lam0, cfg.func_tol,
+        cfg.lam_up, cfg.lam_down, cfg.min_lam, cfg.max_lam, _stream())
     _raise_on(err, "lm_solve")
     lm_solve.launches += 1
+    lm_solve.route_launches[CAMERA_SOLVE_ROUTES[lib.osfm_camera_solve_route(V, -1)]] += 1
     return state
 
 
@@ -732,6 +747,7 @@ def reset_launch_counts():
     schur_assemble.launches = camera_solve.launches = PointUpdateCost.launches = 0
     lm_accept.launches = lm_solve.launches = 0
     camera_solve.route_launches = dict.fromkeys(CAMERA_SOLVE_ROUTES, 0)
+    lm_solve.route_launches = dict.fromkeys(CAMERA_SOLVE_ROUTES, 0)
 
 
 def launch_counts() -> dict:
@@ -746,6 +762,12 @@ def launch_counts() -> dict:
 def route_launches() -> dict:
     """camera_solve's launches since the last reset_launch_counts(), by route."""
     return dict(camera_solve.route_launches)
+
+
+def fused_route_launches() -> dict:
+    """lm_solve's launches since the last reset_launch_counts(), by the
+    route of the camera solve inside each (K3's rule at its views)."""
+    return dict(lm_solve.route_launches)
 
 
 reset_launch_counts()

@@ -15,7 +15,8 @@ solver) → metrics.pose_errors.
 On the card it first builds the BA kernels, then times `runs`
 reconstructions (the first cold, the rest warm), each to a
 torch.cuda.synchronize(), with the launches of the BA kernels (lm_fused,
-one a BA of up to 119 views, so every BA at 64 views; K1, K3 by route and K2
+one a BA of up to ba_kernels.FUSED_MAX_VIEWS (375) views, so every BA at 64
+and at 192 views, by the route of its camera solve; K1, K3 by route and K2
 an iteration of the larger ones) and the bundle adjustments it ran, by route
 (utils.profiling.BARecorder); then it
 measures Tomasi-Kanade's peak device memory on the first group, and runs
@@ -115,6 +116,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         _sync(device)
         walls.append(time.perf_counter() - t0)
         launches, routes = bk.launch_counts(), bk.route_launches()
+        fused_routes = bk.fused_route_launches()
         peaks.append(torch.cuda.max_memory_allocated(device) if cuda else None)
 
     tk_mem = tk_peak_bytes(noisy, cfg, device)
@@ -143,6 +145,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         "launches": {k: launches[k] for k in ("lm_solve", "schur_assemble", "camera_solve",
                                               "point_update_cost")},
         "camera_solve_routes": routes,
+        "lm_fused_routes": fused_routes,
         "ba": ba_calls,
         "peak_bytes": peaks[-1],
         "tk": tk_mem,

@@ -207,8 +207,9 @@ def time_lm_solve(kind, device, num_views, n_tracks, config=None, opt=True, n=10
     reset_ms and taken off the device times). Returns each one's device
     time a solve (CUDA events; the plain version's is its wall time), the
     wall time a solve to a synchronize, the iterations that worked, ms per
-    iteration that worked, and lm_solve_work's bound for this run's
-    iterations."""
+    iteration that worked (the per-iteration kernels' from a run enqueuing
+    only those iterations, so no converged no-op counts), and
+    lm_solve_work's bound for this run's iterations."""
     from orthosfm_torch.config import BundleAdjustConfig
     from orthosfm_torch.solvers import ba_kernels as bk
     from orthosfm_torch.utils.roofline import bound, lm_solve_work
@@ -239,6 +240,11 @@ def time_lm_solve(kind, device, num_views, n_tracks, config=None, opt=True, n=10
         return bk.lm_solve_ref(*args)
 
     iterations = int(fused()[bk.ITERS])
+
+    def per_iteration_working():
+        reset()
+        return bk.lm_iterate(*args[:-1], iterations, plain=False, stop_at_done=False)
+
     reset_ms = cuda_ms(reset, n)
     ms = cuda_ms(fused, n) - reset_ms
     flops, nbytes, stages_ms = lm_solve_work(maskT, opt, iterations)
@@ -252,6 +258,8 @@ def time_lm_solve(kind, device, num_views, n_tracks, config=None, opt=True, n=10
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
            "stages_bound_ms": stages_ms}
     out["per_iteration_ms_per_iteration"] = out["per_iteration_ms"] / max(iterations, 1)
+    out["per_iteration_ms_per_working_iteration"] = (
+        cuda_ms(per_iteration_working, n) - reset_ms) / max(iterations, 1)
     return out
 
 

@@ -34,7 +34,11 @@ that all work): each stage's ms an iteration, each barrier's own wait,
 beside the per-iteration kernels' K1 + K3 + K2 at the same shape, and
 lm_fused's registers, stack and spill from the build's -Xptxas -v log.
 
-    python3 scripts/torch_roofline.py [--json OUT]
+    python3 scripts/torch_roofline.py [--json OUT] [--split VxT ...]
+
+--split runs only the last table, lm_fused's split, at the shapes given
+(for example 128x1024 192x4096 375x2000, where its camera solve is K3's
+grid route inside the launch), beside K1 + K3 + K2 timed at each.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -92,11 +96,11 @@ def lm_iteration(device, num_views, n_tracks):
     return wall, recorder.summary()["enqueue_ms_per_it"]
 
 
-def lm_fused_split_table(device, ba_rows, cfg):
-    """lm_fused's split (kernel_bench.lm_fused_split) at SPLIT_SHAPES beside
+def lm_fused_split_table(device, ba_rows, cfg, shapes=SPLIT_SHAPES):
+    """lm_fused's split (kernel_bench.lm_fused_split) at `shapes` beside
     the per-iteration kernels' K1 + K3 + K2 device time there (ba_rows'
     where this run timed that shape), and its registers and spill in both
-    builds."""
+    builds (both instantiations: below the grid route and with it)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from orthosfm_torch import kernel_build
@@ -106,12 +110,14 @@ def lm_fused_split_table(device, ba_rows, cfg):
     with ThreadPoolExecutor(2) as pool:
         logs = list(pool.map(lambda d: kernel_build.build(bk.SOURCE, d)[1],
                              ((), bk.TIMING_DEFINES)))
-    out = {"ptxas": {name: kernel_build.ptxas_usage(log, "lm_fused_kernel")
+    out = {"ptxas": {name: {fn: kernel_build.ptxas_usage(log, entry) for fn, entry in (
+                                ("lm_fused_kernel", "lm_fused_kernelILb0"),
+                                ("lm_fused_kernel<grid route>", "lm_fused_kernelILb1"))}
                      for name, log in zip(("main", "timing"), logs)}, "shapes": {}}
     print(f"lm_fused ptxas: {out['ptxas']}")
     print("lm_fused split (ms an iteration that worked): blocks, product, reduce, solve, k2, "
           "accept | barrier waits | iteration | per-iteration K1 + K3 + K2")
-    for num_views, n_tracks in SPLIT_SHAPES:
+    for num_views, n_tracks in shapes:
         label = f"{num_views}x{n_tracks}"
         if not bk.fused_fits(num_views, n_tracks, device):
             out["shapes"][label] = None
@@ -146,6 +152,7 @@ def lm_fused_split_table(device, ba_rows, cfg):
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--json", default="")
+    p.add_argument("--split", nargs="+", default=None, help="VxT shapes: only lm_fused's split")
     args = p.parse_args()
 
     import torch
@@ -166,6 +173,12 @@ def main() -> int:
     device = torch.device("cuda:0")
     out = {"card": smi, "peaks": {"f32_flops": F32_FLOPS, "hbm_bytes_per_s": HBM_BYTES},
            "ba": {}, "lm_iteration": {}}
+    cfg = BundleAdjustConfig(max_iterations=LM_ITERATIONS, function_tolerance=0.0,
+                             min_lambda=1e-12)
+    if args.split:
+        shapes = [tuple(map(int, shape.split("x"))) for shape in args.split]
+        out["lm_fused_split"] = lm_fused_split_table(device, {}, cfg, shapes)
+        return finish(out, args.json)
     head = (f"{'kernel':18s} {'shape':9s} {'GFLOP':>9s} {'MB':>9s} {'ms':>9s} {'TFLOP/s':>8s} "
             f"{'GB/s':>8s} {'%f32':>6s} {'%HBM':>6s} {'bound ms':>9s} {'by':10s} {'%bound':>7s}")
     print(head)
@@ -206,8 +219,6 @@ def main() -> int:
               f"{t['point_update_cost_with_tail_ms']:.4f} = {t['device_ms']:.4f} device; "
               f"enqueue {t['host_enqueue_ms']:.4f}; ba.run {t['ba_run_ms']:.4f} "
               f"({t['paced_by']}-paced)")
-    cfg = BundleAdjustConfig(max_iterations=LM_ITERATIONS, function_tolerance=0.0,
-                             min_lambda=1e-12)
     out["lm_fused"] = {}
     for num_views, n_tracks in FUSED_SHAPES:
         label = f"{num_views}x{n_tracks}"
@@ -227,9 +238,13 @@ def main() -> int:
             print(f"  {label:9s} lm_fused {t['lm_fused_ms_per_it']:.4f} ms an iteration, one "
                   f"launch a solve")
     out["lm_fused_split"] = lm_fused_split_table(device, out["ba"], cfg)
+    return finish(out, args.json)
+
+
+def finish(out, path) -> int:
     print(json.dumps(out))
-    if args.json:
-        with open(args.json, "w") as f:
+    if path:
+        with open(path, "w") as f:
             json.dump(out, f, indent=1)
             f.write("\n")
     return 0

@@ -4,8 +4,10 @@ package's fused LM kernel (orthosfm_tpu/solvers/ba_fused.py run_lm) run in
 interpret mode, on the CPU, where lm_solve runs lm_solve_ref.
 
 The problem is the JAX package's own test problem (tests/test_ba_pallas.py
-_problem: 8 views x 1024 tracks, and 40 views, where the card's camera
-solve is the cluster's) and the tolerances are its own for its fused kernel
+_problem: 8 views x 1024 tracks; 40 views, where the card's camera solve is
+the cluster's; and 128, where it is K3's grid route inside the launch and
+the JAX package's own gate, ba_fused.fits, still takes its fused kernel)
+and the tolerances are its own for its fused kernel
 against its XLA path (tests/test_ba_fused.py:54-109): both sides are f32
 and differ in the order of their sums and in the solve (LU here,
 Gauss-Jordan there). The CUDA kernel itself is held to lm_solve_ref
@@ -27,6 +29,7 @@ from tests.test_ba_fused import _fused_inputs
 from orthosfm_tpu.config import BundleAdjustConfig as JBAConfig
 from orthosfm_tpu.core import cameras as jcam
 from orthosfm_tpu.solvers import ba as jba
+from orthosfm_tpu.solvers import ba_fused as jba_fused
 
 from orthosfm_torch import kernel_build
 from orthosfm_torch.config import BundleAdjustConfig
@@ -95,13 +98,18 @@ def test_single_step_matches_fused_interpret(kind, optimize_points):
         assert iters == int(rf.iterations) == 1
 
 
-@pytest.mark.parametrize("kind", ["quat", "euler"])
-def test_many_view_step_matches_fused_interpret(kind):
-    """40 views x 1024 tracks (one tile), past the one-CTA camera solve:
-    on the card lm_fused solves this on its cluster; here its plain
+@pytest.mark.parametrize("kind,num_views", [("quat", 40), ("euler", 40), ("quat", 128),
+                                            ("euler", 128)],
+                         ids=["quat", "euler", "quat-128", "euler-128"])
+def test_many_view_step_matches_fused_interpret(kind, num_views):
+    """40 and 128 views x 1024 tracks (one tile), past the one-CTA camera
+    solve: on the card lm_fused solves 40 views on its cluster and 128 on
+    K3's grid route over every CTA of the launch, where the JAX package's
+    ba.run takes its fused kernel too (ba_fused.fits); here its plain
     version, one iteration against the JAX kernel's."""
-    rf = _jax_fused(kind, True, 1, num_views=40)
-    _, ref, run = _port(kind, True, 1, num_views=40)
+    assert jba_fused.fits(num_views, 1024)
+    rf = _jax_fused(kind, True, 1, num_views=num_views)
+    _, ref, run = _port(kind, True, 1, num_views=num_views)
     for rot, offset, points, cost, init_cost, iters in (ref, run):
         np.testing.assert_allclose(float(init_cost), float(rf.initial_cost), rtol=1e-5)
         np.testing.assert_allclose(float(cost), float(rf.cost), rtol=1e-3)
@@ -136,13 +144,15 @@ def test_fixed_cameras_stay_fixed():
 
 
 @pytest.mark.parametrize("views,fits", [(3, True), (37, True), (38, True), (64, True),
-                                        (119, True), (120, False), (128, False)])
+                                        (119, True), (120, True), (128, True), (192, True),
+                                        (bk.FUSED_MAX_VIEWS, True),
+                                        (bk.FUSED_MAX_VIEWS + 1, False)])
 def test_fused_gate(views, fits):
-    """lm_solve serves 1 to 119 views (on the card its camera solve is one
-    warp, one CTA, or from 38 views the cluster of 8 CTAs while the
-    cluster's rows fit its shared memory; from 120 views BA runs an
-    iteration at a time, and from 128 the camera solve is K3's grid route;
-    the same rule here), whatever the track count."""
+    """lm_solve serves 1 to FUSED_MAX_VIEWS views (on the card its camera
+    solve is one warp, one CTA, from 38 views the cluster of 8 CTAs, and
+    from the crossover K3's grid route over every CTA, while K1's and K2's
+    per-view tables fit the launch's shared memory; past that BA runs an
+    iteration at a time; the same rule here), whatever the track count."""
     for tracks in (1, 1024, 50000):
         assert bk.fused_fits(views, tracks, "cpu") is fits
     assert kernel_build.resolve_impl("auto", torch.device("cpu"), fused=fits) == "torch"
@@ -166,18 +176,33 @@ def test_jax_impl_names_run_in_the_port(impl):
 
 
 def test_fused_raises_past_37_views():
-    """The fused route's edge, which was 37 views and is now 119: from 120
-    views "fused" raises, in ba.run and in lm_solve."""
+    """The fused route's edge, which was 37 views, then 119, and is now
+    FUSED_MAX_VIEWS: "fused" serves 120 views, in ba.run and in lm_solve,
+    with the plain route's bits on the CPU, and one view past the bound
+    raises in both."""
     from orthosfm_torch.testbench.problems import make_problem
 
-    cams, points, obs, mask = make_problem("quat", "cpu", 120, 64)
-    with pytest.raises(ValueError, match="fused"):
-        ba.run(cams, points, obs, mask, True, BundleAdjustConfig(max_iterations=1, impl="fused"))
-    pT, obsT, maskT = ba.prepare(points, obs, mask)
-    p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
-    with pytest.raises(ValueError, match="119 views"):
-        bk.lm_solve("quat", p2, obsT, maskT, r2, c2, cam_mod.free_mask(cams).float(), 1.0, True,
-                    bk.LMConfig.of(BundleAdjustConfig()), 1)
+    cfg = BundleAdjustConfig(max_iterations=3, function_tolerance=0.0)
+    for views in (120, bk.FUSED_MAX_VIEWS + 1):
+        cams, points, obs, mask = make_problem("quat", "cpu", views, 64)
+        pT, obsT, maskT = ba.prepare(points, obs, mask)
+        p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
+        solve = functools.partial(bk.lm_solve, "quat", p2, obsT, maskT, r2, c2,
+                                  cam_mod.free_mask(cams).float(), 1.0, True,
+                                  bk.LMConfig.of(cfg), 3)
+        fused = dataclasses.replace(cfg, impl="fused")
+        if views > bk.FUSED_MAX_VIEWS:
+            with pytest.raises(ValueError, match="fused"):
+                ba.run(cams, points, obs, mask, True, fused)
+            with pytest.raises(ValueError, match=f"{bk.FUSED_MAX_VIEWS} views"):
+                solve()
+            continue
+        got = ba.run(cams, points, obs, mask, True, fused)
+        ref = ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="torch"))
+        assert torch.equal(got.points, ref.points) and torch.equal(got.cams.rot, ref.cams.rot)
+        assert float(got.cost) == float(ref.cost) and int(got.iterations) == int(ref.iterations)
+        state = solve()
+        assert float(state[bk.COST]) == float(ref.cost) and int(state[bk.ITERS]) == 3
     # the sharded BA has no fused route: "fused" keeps its per-iteration kernels
     assert kernel_build.resolve_impl("fused", torch.device("cuda")) == "kernel"
     with pytest.raises(ValueError, match="impl"):

@@ -459,13 +459,17 @@ def _rejecting(cams):
 @pytest.mark.parametrize("kind", ["quat", "euler"])
 @pytest.mark.parametrize("optimize_points", [True, False])
 @pytest.mark.parametrize("shape", [(3, 7800), (8, 1000), (16, 3000), (37, 2048), (38, 2048),
-                                   (64, 4096), (119, 1024), (64, 50000)])
+                                   (64, 4096), (119, 1024), (64, 50000), (120, 1024),
+                                   (128, 1024), (192, 4096), (bk.FUSED_MAX_VIEWS, 2000)])
 def test_lm_solve_is_the_per_iteration_kernels_bit_for_bit(dev, kind, optimize_points, shape):
     """ba.run's fused route against its per-iteration kernels, to convergence
     (the main path's config) and with the first steps rejected: the same
     work items and sum orders, so the same bits and iteration count. From
-    38 views the camera solve runs on the launch's first cluster; 64 x
-    50 000 is phase 9's global BA."""
+    38 views the camera solve runs on the launch's first cluster and from
+    the crossover (GRID_MIN_V) on K3's grid route over every CTA, whose
+    work dealing differs from its own launch's (a CTA a SM, not one a
+    tile); 64 x 50 000 is phase 9's global BA, 192 x 4096 phase 11's and
+    FUSED_MAX_VIEWS the launch's last size."""
     cams, points, obs, mask = make_problem(kind, dev, *shape)
     cfg = BundleAdjustConfig()
     for c, config in ((cams, cfg), (_rejecting(cams), dataclasses.replace(cfg, initial_lambda=1e-2,
@@ -533,53 +537,63 @@ def test_lm_solve_with_no_iterations_is_the_initial_cost(dev):
 
 
 def test_fused_gate_is_the_cards(dev):
-    """The library serves 1 to 119 views: up to 37 with a grid of at least
-    one CTA a SM, from 38 (the cluster's camera solve) with whole clusters of
-    8; from 120 (the cluster's rows past its shared memory) nothing. The
-    CPU rule says the same."""
+    """The library serves 1 to FUSED_MAX_VIEWS views, the CPU rule's
+    bound, and neither serves one more: up to 37 with a grid of at least one
+    CTA a SM, from 38 (the cluster's camera solve) with whole clusters of
+    8, from the crossover (K3's grid route) with one CTA a SM, up to where
+    K1's and K2's per-view tables leave its shared memory."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for views in (1, 3, 5, 6, 16, 32, 33, 37):
-        assert bk._fused_grid(views) >= sms, views
-        assert bk.fused_fits(views, 2048, dev) and bk.fused_fits(views, 2048, "cpu")
-    for views in (38, 64, 119):
-        grid = bk._fused_grid(views)
-        assert grid >= 8 and grid % 8 == 0, (views, grid)
-        assert bk.fused_fits(views, 2048, dev) and bk.fused_fits(views, 2048, "cpu")
-    for views in (120, 127, 128, 200):
-        assert bk._fused_grid(views) == 0, views
-        assert not bk.fused_fits(views, 2048, dev) and not bk.fused_fits(views, 2048, "cpu")
+    for views in range(1, bk.FUSED_MAX_VIEWS + 2):
+        grid, route = bk._fused_grid(views), bk.camera_solve_route(views)
+        fits = views <= bk.FUSED_MAX_VIEWS
+        assert (grid > 0) is fits, (views, grid)
+        assert bk.fused_fits(views, 2048, dev) is fits and bk.fused_fits(views, 2048, "cpu") is fits
+        if not fits:
+            continue
+        if route in ("warp", "cta"):
+            assert grid >= sms, views
+        elif route == "cluster":
+            assert grid >= 8 and grid % 8 == 0, (views, grid)
+        else:
+            assert grid == sms, (views, grid)
+    assert bk.FUSED_MAX_VIEWS > 192
 
 
 def test_ba_run_routes_by_views(dev):
-    """"auto" takes lm_solve, one launch a BA, up to 119 views (64: phase 9's
-    global BA) and the per-iteration kernels from 120; "fused" on 120 views
-    raises, in ba.run and in lm_solve; the JAX package's "pallas" is the
-    per-iteration kernels and "xla" the plain versions."""
+    """"auto" takes lm_solve, one launch a BA, up to FUSED_MAX_VIEWS views
+    (64: phase 9's global BA, 120 and 192 past the cluster, on K3's grid
+    route inside the launch) and the per-iteration kernels past that;
+    "fused" there raises, in ba.run and in lm_solve; the JAX package's
+    "pallas" is the per-iteration kernels and "xla" the plain versions."""
     cfg = BundleAdjustConfig(max_iterations=5, function_tolerance=0.0)
-    small = make_problem("quat", dev, 119, 500)
-    large = make_problem("quat", dev, 120, 500)
+    small = make_problem("quat", dev, 120, 500)
+    large = make_problem("quat", dev, bk.FUSED_MAX_VIEWS + 1, 500)
     none = dict.fromkeys(("lm_solve", "schur_assemble", "camera_solve", "point_update_cost",
                           "lm_accept"), 0)
     fused = {**none, "lm_solve": 1}
     per_iteration = {**none, "schur_assemble": 5, "camera_solve": 5, "point_update_cost": 6}
+    at_192 = make_problem("quat", dev, 192, 1000)
     for problem, impl, launched in ((small, "auto", fused), (large, "auto", per_iteration),
                                     (make_problem("quat", dev, 64, 2000), "auto", fused),
-                                    (small, "fused", fused), (small, "pallas", per_iteration),
-                                    (small, "xla", none)):
+                                    (at_192, "auto", fused), (small, "fused", fused),
+                                    (small, "pallas", per_iteration), (small, "xla", none)):
         bk.reset_launch_counts()
         ba.run(*problem, True, dataclasses.replace(cfg, impl=impl))
         assert bk.launch_counts() == launched, (impl, bk.launch_counts())
+        if problem is at_192:  # its camera solve: K3's grid route inside the launch
+            assert bk.fused_route_launches() == {**dict.fromkeys(bk.CAMERA_SOLVE_ROUTES, 0),
+                                                 "grid": 1}
     with pytest.raises(ValueError, match="fused"):
         ba.run(*large, True, dataclasses.replace(cfg, impl="fused"))
     cams, points, obs, mask = large
     pT, obsT, maskT = ba.prepare(points, obs, mask)
     p2, r2, c2 = bk.lm_buffers(pT, cams.rot, ba.pack_camp(cams))
-    with pytest.raises(ValueError, match="119 views"):
+    with pytest.raises(ValueError, match=f"{bk.FUSED_MAX_VIEWS} views"):
         bk.lm_solve("quat", p2, obsT, maskT, r2, c2, cam_mod.free_mask(cams).float(), 1.0, True,
                     CFG, 5)
 
 
-@pytest.mark.parametrize("views", [16, 64])
+@pytest.mark.parametrize("views", [16, 64, 192])
 def test_lm_solve_refused_launch_raises(dev, monkeypatch, views):
     """A launch the runtime refuses (here the library answers 720,
     cudaErrorCooperativeLaunchTooLarge, as for a grid that cannot be
@@ -1011,11 +1025,14 @@ def test_grid_solve_stamps_only_in_the_timing_build(dev):
 
 def test_camera_solve_route_crossover(dev):
     """The automatic route: one warp up to 5 views, one CTA up to 37, the
-    cluster below GRID_MIN_V (120: the grid route is the faster from ~100
-    views on the card, but up to 119 the route is lm_fused's, whose bits the
-    per-iteration kernels keep) and the grid route from there; the cluster
-    refuses past 1365 views, the grid route serves every size. At the
-    crossover the cluster and the grid route solve the same system alike."""
+    cluster below GRID_MIN_V (120) and the grid route from there, for the
+    per-iteration kernels and inside lm_fused alike (one rule keeps their
+    bits the same); in its own launch the grid route is the faster from ~96
+    views, but as lm_fused's solve stage, the route "auto" runs there, the
+    cluster stays the faster up to 119 (scripts/torch_k3_routes.py
+    --fused). The cluster refuses
+    past 1365 views, the grid route serves every size. At the crossover the
+    cluster and the grid route solve the same system alike."""
     route = bk.camera_solve_route
     assert [route(v) for v in (1, 5, 6, 37, 38, 119, 120, 1365, 5000)] == [
         "warp", "warp", "cta", "cta", "cluster", "cluster", "grid", "grid", "grid"]

@@ -86,6 +86,7 @@ def test_scale_demo_prints_the_jax_keys_and_its_counts(tmp_path, capsys):
     assert out["ba"]["by_views"]["3"]["ba_calls"] == groups
     assert 0 < out["ba"]["iterations_worked"] <= out["ba"]["iterations_launched"]
     assert set(out["launches"].values()) == {0} and set(out["camera_solve_routes"].values()) == {0}
+    assert set(out["lm_fused_routes"].values()) == {0}
     assert {"pose/tk", "pose/local_ba", "pose/global_ba"} <= set(out["stages_s"])
     assert out["tk"]["hypotheses"] == 241 and out["tk"]["tracks"] == TRACKS
     assert out["peak_bytes"] is None and out["tk"]["tk_peak_bytes"] is None
