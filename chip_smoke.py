@@ -6,8 +6,8 @@
 Phases:
   1. the card's name and power limit, and the build of the native sources
      of orthosfm_torch/csrc/ (the BA kernels, the top-2 matching kernel, the
-     union-find and the tracks.txt reader), one compiler each, all started
-     together;
+     TK kernels, the union-find and the tracks.txt reader), one compiler
+     each, all started together;
   2. each kernel against its plain PyTorch version on the card: the BA
      kernels (schur_assemble, camera_solve, and point_update_cost with the
      accept rule of lm_accept in its last CTA, held against
@@ -134,6 +134,21 @@ Phases:
      beside PR 12's 1.150 s, and the BAs and their working iterations by
      route.
 
+ 12. the Tomasi-Kanade initialization's kernels (orthosfm_torch/csrc/
+     tk_kernels.cu: K5 tk_factorize, every hypothesis's factorization,
+     metric upgrade and validity in one launch; K6 tk_score, every
+     hypothesis's triangulation and consensus score in one launch) against
+     their plain versions at phase 11's group shape (241 hypotheses x 4096
+     tracks) and phase 9's (x 50 000), K5 also as the fallback over every
+     valid track, each timed beside its plain version and bound; a whole
+     robust_factorization timed, and run under torch's sync debug mode
+     ("error": a call that waits on the card raises) through K5 twice and
+     K6 once; then TK per group (the pose/tk stage over the groups) of
+     phases 5, 9 and 11 beside the plain TK route's earlier runs on an
+     H100 80GB HBM3 at 700 W. Phases 3, 5, 6, 8, 9
+     and 11 require TK on the kernels (K6 once a group, K5 twice), and the
+     kernels line gives their launches by phase.
+
 Phase 2 also runs K3's grid route at 128, 192 (phase 11's shape, n =
 1152: the kernels line's times for the grid route), 700, 1100 and 2000
 views (n = 4200, 6600, 12000) and the cluster against it at the
@@ -174,6 +189,7 @@ N_TRACKS = 8192
 WIDTH = 2048.0
 BA_SOURCE = "orthosfm_torch/csrc/ba_kernels.cu"
 MATCH_SOURCE = "orthosfm_torch/csrc/match_kernels.cu"
+TK_SOURCE = "orthosfm_torch/csrc/tk_kernels.cu"
 REPLACES = {
     "lm_fused": "orthosfm_tpu/solvers/ba_fused.py:545",
     "schur_assemble": "orthosfm_tpu/solvers/ba_pallas.py:394",
@@ -183,8 +199,15 @@ REPLACES = {
     "lm_accept": "orthosfm_tpu/solvers/ba_fused.py:545",
     "top2": "orthosfm_tpu/ops/matching_pallas.py:87",
 }
+# The TK kernels port no Pallas kernel: the JAX package runs TK as one
+# jitted program (tomasi_kanade.py:193), whose functions they replace
+TK_REPLACES = {
+    "tk_factorize": "orthosfm_tpu/solvers/tomasi_kanade.py:49",
+    "tk_score": "orthosfm_tpu/solvers/tomasi_kanade.py:112",
+}
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
+SOURCE_OF.update(dict.fromkeys(TK_REPLACES, TK_SOURCE))
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
 # The unsharded BA (ba.run, phases 3 to 7, 9 and 11) launches lm_fused once
 # a BA of up to FUSED_MAX_VIEWS views (every BA of those phases), and K1, K3
@@ -305,6 +328,23 @@ BENCH_VIEWS, BENCH_WIDTH = 16, 512
 # Phase 7: the JAX package's homography test scene
 # (tests/test_full_pipeline.py:107)
 HOMOGRAPHY_LIMIT_DEG = 3.0
+# Phase 12: TK's kernels at the group shapes of phase 11 (4096 tracks) and
+# phase 9 (50 000), 241 hypotheses of 3 views, 1 px of noise. K5 is held to
+# its plain version given the plain version's RStar (models 1e-4, the
+# validity heuristic equal) and its own RStar to the SVD's up to column
+# signs (1e-4); K6 on K5's models: scores 1e-3 and consensus counts equal
+# except tracks within TK_NEAR_PX of the 3 px threshold (f32 pixel
+# coordinates near 2048 round to 1.2e-4 px; the kernel and the plain
+# version may round a coordinate either way), exempted and counted as top2's
+# near ties are. TK per group (the pose/tk stage over the groups) in phases
+# 5, 9 and 11, printed beside the plain TK route's (its LM a host loop),
+# measured by this script on an H100 80GB HBM3 at 700 W before the kernels
+TK_SHAPES = (GRID_PATH_TRACKS, MANY_TRACKS)
+TK_NOISE_PX = 1.0
+TOL_TK_MODEL, TOL_TK_SCORE, TK_NEAR_PX = 1e-4, 1e-3, 2.5e-4
+TK_EARLIER = {"phase5": "52% of 2.375 s over 14 groups, ~88 ms a group",
+              "phase9": "6.012 s over 62 groups, ~97 ms a group",
+              "phase11": "16.535 s over 190 groups, ~87 ms a group"}
 
 
 def max_err(a, b):
@@ -345,6 +385,16 @@ def require_routes(launches, ba_calls, what):
             and launches["point_update_cost"] == its + per_it["ba_calls"]
             and launches.get("lm_accept", 0) == 0,
             f"{what}: per-iteration launches {launches} for {per_it}")
+
+
+def require_tk(launches, what):
+    """TK ran through its kernels over a phase (launches: tk_kernels'
+    launch_counts()): K6 once a group and K5 twice (the hypotheses, then
+    the fallback), at least one group."""
+    print(f"  {what}: TK on the kernels: tk_factorize {launches['tk_factorize']}, tk_score "
+          f"{launches['tk_score']} launches")
+    require(launches["tk_score"] > 0 and launches["tk_factorize"] == 2 * launches["tk_score"],
+            f"{what}: TK launches {launches['tk_factorize']} K5, {launches['tk_score']} K6")
 
 
 def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
@@ -1126,7 +1176,7 @@ def run_front_end(device):
           f"mean position error {float(np.mean(pos)):.5f}")
     require(bool(res.present.all()), "front end: a view was not placed")
     require(mean_ang < FRONT_LIMIT_DEG, f"front end: mean angular error {mean_ang}")
-    return features, cfg
+    return features, cfg, stages
 
 
 def check_top2_real(device, features, cfg):
@@ -1191,6 +1241,7 @@ def run_testbench(device, root):
 
     from orthosfm_torch.ops import matching_kernels as mk
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.solvers import tk_kernels as tkk
     from orthosfm_torch.testbench import bench_pipeline, synthetic_tests
     from orthosfm_torch.testbench import run as tb_run
     from orthosfm_torch.utils.profiling import BARecorder
@@ -1199,6 +1250,7 @@ def run_testbench(device, root):
     proj, data = os.path.join(root, "proj"), os.path.join(root, "data")
     log = io.StringIO()
     bk.reset_launch_counts()
+    tkk.reset_launch_counts()
     mk.top2.launches = 0
     recorder = BARecorder()
     t0 = time.perf_counter()
@@ -1207,7 +1259,7 @@ def run_testbench(device, root):
                           "--width", str(TESTBENCH_WIDTH)])
     torch.cuda.synchronize()
     t_matrix = time.perf_counter() - t0
-    launches = {**bk.launch_counts(), "top2": mk.top2.launches}
+    launches = {**bk.launch_counts(), "top2": mk.top2.launches, **tkk.launch_counts()}
     ba_calls = recorder.summary()
     lines = log.getvalue().splitlines()
     for ln in lines:
@@ -1256,6 +1308,7 @@ def run_testbench(device, root):
     require(worst < TESTBENCH_LIMIT_DEG, f"testbench: a cell's mean angular error is {worst}")
     require(launches["top2"] > 0, "top2 was not launched on the testbench's path")
     require_routes(launches, ba_calls, "phase 6 (the testbench matrix)")
+    require_tk(launches, "phase 6 (the testbench matrix)")
 
     t0 = time.perf_counter()
     sweep = synthetic_tests.run_noise_sweep(noise_levels=tuple(SWEEP_LIMITS_DEG), verbose=False,
@@ -1384,6 +1437,7 @@ def run_sharded(device, features, cfg):
     from orthosfm_torch.pipeline import matching as pipe
     from orthosfm_torch.solvers import ba
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.solvers import tk_kernels as tkk
     from orthosfm_torch.solvers import tomasi_kanade as tk
     from orthosfm_torch.testbench.problems import make_problem
 
@@ -1412,6 +1466,7 @@ def run_sharded(device, features, cfg):
         mesh.all_reduce(torch.zeros(1, device=device))  # NCCL's communicator, set up once
         torch.cuda.synchronize()
         bk.reset_launch_counts()
+        tkk.reset_launch_counts()
         mk.top2.launches = 0
         sharded = []
         for label, args, bcfg, ref, t_ref in problems:
@@ -1424,7 +1479,7 @@ def run_sharded(device, features, cfg):
             obs, valid, WIDTH, WIDTH, generator=torch.Generator(device).manual_seed(seed))
         m_sh = pipe.match_all_pairs(features, cfg, verbose=False, mesh=mesh)
         torch.cuda.synchronize()
-        launches = {**bk.launch_counts(), "top2": mk.top2.launches}
+        launches = {**bk.launch_counts(), "top2": mk.top2.launches, **tkk.launch_counts()}
         routes = bk.route_launches()
         # the JAX package's multi-device dry run, from images through the
         # sharded matching and pose estimation, on this rank
@@ -1455,6 +1510,7 @@ def run_sharded(device, features, cfg):
     print(f"  sharded TK ({int(tk_res.num_inliers)} inliers) bit for bit: {same_tk}; sharded "
           f"matching ({len(m_sh)} pairs) identical: {same_m}")
     require(same_tk and same_m, "sharded TK or matching differs from one device")
+    require_tk(launches, "phase 8 (the sharded TK)")
     for name in (*BA_KERNELS, "camera_solve_grid", "top2"):
         require(launches[name] > 0, f"{name} was not launched on the sharded path")
     out["gloo"] = gloo_ranks(problems[0])
@@ -1615,6 +1671,8 @@ def run_many_views(device):
             f"many views: angular error {many['mean_angular_error_deg']} / "
             f"{many['max_angular_error_deg']}")
     require_routes(launches, ba_calls, "phase 9")
+    launches.update(many["tk_launches"])
+    require_tk(launches, "phase 9")
     require(ba_calls["global_ba_calls"] > 0 and all(launches[name] == 0 for name in UNSHARDED_BA)
             and ba_calls["iterations_launched"] == ba_calls["iterations_worked"],
             f"phase 9: the 64-view global BAs did not all run on lm_fused: {launches}, "
@@ -1675,11 +1733,159 @@ def run_grid_path(device):
             f"phase 11: the grid route inside lm_fused ran {fused_routes['grid']} times for "
             f"{sorted(big)} views")
     require_routes(launches, ba_calls, "phase 11")
+    launches.update(out["tk_launches"])
+    require_tk(launches, "phase 11")
     require(launches["lm_solve"] == ba_calls["ba_calls"]
             and all(launches[name] == 0 for name in UNSHARDED_BA)
             and ba_calls["iterations_launched"] == ba_calls["iterations_worked"],
             f"phase 11: not every BA one lm_fused launch: {launches}, {ba_calls['by_route']}")
     return launches, fused_routes, out
+
+
+def rstar_err(a, b):
+    """max |a - b s|, s each column's sign of agreement (RStar's columns are
+    defined up to sign)."""
+    s = (a * b).sum(dim=-2, keepdim=True).sign()
+    return max_err(a, b * s)
+
+
+def run_tk(device):
+    """Phase 12: TK's kernels against their plain versions on the card at
+    TK_SHAPES (241 hypotheses of 3 views; K5 also as the fallback over every
+    valid track, its Gram a torch.matmul), each timed beside its plain
+    version and bound; a whole robust_factorization timed to a synchronize
+    and run once more under torch's sync debug mode ("error": a call that
+    waits on the card raises), through K5 twice and K6 once, with its peak
+    device memory. Returns (errors, times, per-shape results)."""
+    import torch
+
+    from orthosfm_torch.config import RansacConfig
+    from orthosfm_torch.solvers import tk_kernels as tkk
+    from orthosfm_torch.solvers import tomasi_kanade as tk
+    from orthosfm_torch.utils.kernel_bench import cuda_ms, tk_inputs
+    from orthosfm_torch.utils.roofline import bound, tk_factorize_work, tk_score_work
+
+    cfg = RansacConfig()
+    thr = cfg.max_inlier_reprojection_error_px
+    w = torch.full((3,), WIDTH, device=device)
+    errs = {"tk_factorize": 0.0, "tk_score": 0.0}
+    shapes = {}
+    for n_tracks in TK_SHAPES:
+        obs, valid, samp, q0, q0f = tk_inputs(device, n_tracks, TK_NOISE_PX)
+        H, S = samp.shape
+        n_valid = int(valid.sum())
+        o, fb = obs[samp], (obs[None], valid[None], q0f[None])
+        ref = tkk.tk_factorize_ref(o, None, q0, cfg)
+        own = tkk.tk_factorize(o, None, q0, cfg)
+        given = tkk.tk_factorize(o, None, q0, cfg, rstar=ref[3].contiguous())
+        fb_ref = tkk.tk_factorize_ref(*fb, cfg)
+        fb_own = tkk.tk_factorize(*fb, cfg)
+        fb_given = tkk.tk_factorize(*fb, cfg, rstar=fb_ref[3].contiguous())
+        k5 = {"models": max(max_err(given[0], ref[0]), max_err(given[1], ref[1])),
+              "rstar_up_to_signs": rstar_err(own[3], ref[3]),
+              "fallback_models": max(max_err(fb_given[0], fb_ref[0]),
+                                     max_err(fb_given[1], fb_ref[1])),
+              "fallback_rstar_up_to_signs": rstar_err(fb_own[3], fb_ref[3]),
+              "usable_equal": torch.equal(given[2], ref[2]),
+              "usable": int(own[2].sum())}
+        score, n_con = tkk.tk_score(own[0], own[2], obs, valid, w, w, samp, cfg)
+        score_ref, n_ref = tkk.tk_score_ref(own[0], own[2], obs, valid, w, w, samp, cfg)
+        _, err = tkk._triangulate_and_errors(own[0], obs, valid, w, w)
+        gap = (err - thr).abs().amin(dim=2).masked_fill(~valid[None], float("inf"))
+        n_near = (gap < TK_NEAR_PX).sum(dim=1)
+        clean = n_near == 0
+        fin = torch.isfinite(score_ref) & clean
+        k6 = {"score": max_err(score[fin], score_ref[fin]) if bool(fin.any()) else 0.0,
+              "finite_equal": torch.equal(torch.isfinite(score)[clean],
+                                          torch.isfinite(score_ref)[clean]),
+              "consensus_within_near": bool(((n_con - n_ref).abs() <= n_near).all()),
+              "consensus_differs": int((n_con != n_ref).sum()),
+              "near_tracks": int(n_near.sum()), "finite_scores": int(torch.isfinite(score).sum())}
+        print(f"  {H} hypotheses x {n_tracks} tracks ({n_valid} valid): K5 models "
+              f"{k5['models']:.3e} given the plain RStar (fallback {k5['fallback_models']:.3e}), "
+              f"RStar up to signs {k5['rstar_up_to_signs']:.3e} (fallback "
+              f"{k5['fallback_rstar_up_to_signs']:.3e}), usable equal {k5['usable_equal']} "
+              f"({k5['usable']} usable); K6 scores {k6['score']:.3e}, consensus counts differ at "
+              f"{k6['consensus_differs']} hypotheses with {k6['near_tracks']} tracks within "
+              f"{TK_NEAR_PX} px of the threshold; {k6['finite_scores']} finite scores")
+        require(k5["models"] <= TOL_TK_MODEL and k5["fallback_models"] <= TOL_TK_MODEL
+                and k5["rstar_up_to_signs"] <= TOL_TK_MODEL
+                and k5["fallback_rstar_up_to_signs"] <= TOL_TK_MODEL and k5["usable_equal"],
+                f"K5 against its plain version at {H} x {n_tracks}: {k5}")
+        require(k6["score"] <= TOL_TK_SCORE and k6["finite_equal"] and k6["consensus_within_near"]
+                and k6["finite_scores"] > 0, f"K6 against its plain version at {n_tracks}: {k6}")
+        errs["tk_factorize"] = max(errs["tk_factorize"], k5["models"], k5["fallback_models"])
+        errs["tk_score"] = max(errs["tk_score"], k6["score"])
+
+        t5 = cuda_ms(lambda: tkk.tk_factorize(o, None, q0, cfg))
+        t5_plain = cuda_ms(lambda: tkk.tk_factorize_ref(o, None, q0, cfg), 3)
+        t5_fb = cuda_ms(lambda: tkk.tk_factorize(*fb, cfg))
+        t5_fb_plain = cuda_ms(lambda: tkk.tk_factorize_ref(*fb, cfg), 3)
+        t6 = cuda_ms(lambda: tkk.tk_score(own[0], own[2], obs, valid, w, w, samp, cfg))
+        t6_plain = cuda_ms(lambda: tkk.tk_score_ref(own[0], own[2], obs, valid, w, w, samp,
+                                                    cfg), 3)
+        b5 = bound(*tk_factorize_work(H, S, 3))
+        b5_fb = bound(*tk_factorize_work(1, n_tracks, 3, gram_given=True))
+        b6 = bound(*tk_score_work(H, n_tracks, n_valid, 3, S))
+
+        def tk_call(gen):
+            return tk.robust_factorization(obs, valid, WIDTH, WIDTH, cfg, generator=gen)
+
+        calls = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tk_call(torch.Generator(device).manual_seed(i))
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        tkk.reset_launch_counts()
+        gen = torch.Generator(device).manual_seed(0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = tk_call(gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = tkk.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        print(f"  K5 {t5:.4f} ms (plain {t5_plain:.3f}, bound {b5[0]:.6f} by {b5[1]}); K5 "
+              f"fallback with its Gram {t5_fb:.4f} ms (plain {t5_fb_plain:.3f}); K6 {t6:.4f} ms "
+              f"(plain {t6_plain:.3f}, bound {b6[0]:.6f} by {b6[1]}); robust_factorization "
+              f"{min(calls):.3f}-{max(calls):.3f} ms a call to a synchronize, under the sync "
+              f"debug mode with {launches}: {int(res.num_inliers)} inliers, peak "
+              f"{peak / 1e6:.3f} MB above its base")
+        require(launches == {"tk_factorize": 2, "tk_score": 1} and bool(res.found)
+                and bool(torch.isfinite(res.model1).all()),
+                f"robust_factorization at {n_tracks}: {launches}, found {bool(res.found)}")
+        shapes[f"{H}x{n_tracks}"] = {
+            "k5": k5, "k6": k6, "valid_tracks": n_valid,
+            "tk_factorize": {"ms": t5, "plain_ms": t5_plain, "bound_ms": b5[0],
+                             "bound_by": b5[1], "library_ms": None},
+            "tk_factorize_fallback": {"ms": t5_fb, "plain_ms": t5_fb_plain, "bound_ms": b5_fb[0],
+                                      "bound_by": b5_fb[1], "library_ms": None},
+            "tk_score": {"ms": t6, "plain_ms": t6_plain, "bound_ms": b6[0], "bound_by": b6[1],
+                         "library_ms": None},
+            "robust_factorization_ms": calls, "tk_peak_bytes": peak}
+    main_shape = f"{cfg.max_iterations}x{MANY_TRACKS}"  # phase 9's groups
+    times = {name: shapes[main_shape][name] for name in TK_REPLACES}
+    return errs, times, shapes
+
+
+def tk_per_group(results):
+    """TK per group: each phase's pose/tk stage (under its stage barriers)
+    over its groups (K6's launches, one a group), measured in this run; the
+    text line sets the plain TK route's earlier times beside it."""
+    out = {}
+    for phase, (stage_s, groups) in results.items():
+        out[phase] = {"pose_tk_s": stage_s, "groups": groups,
+                      "ms_per_group": 1e3 * stage_s / groups}
+        print(f"  {phase}: pose/tk {stage_s:.3f} s over {groups} groups, "
+              f"{out[phase]['ms_per_group']:.2f} ms a group (the plain TK route, "
+              f"before the kernels: {TK_EARLIER[phase]})")
+    return out
 
 
 def main() -> int:
@@ -1707,6 +1913,7 @@ def main() -> int:
     from orthosfm_torch.ops import matching_kernels as mk
     from orthosfm_torch.pipeline import tracks_build
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.solvers import tk_kernels as tkk
     from orthosfm_torch.utils.kernel_bench import stage_inputs, time_ba_kernels
     from orthosfm_torch.utils.profiling import BARecorder
 
@@ -1716,10 +1923,10 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = (bk.SOURCE, mk.SOURCE, tracks_build.SOURCE, tracks_io.SOURCE)
+    sources = (bk.SOURCE, mk.SOURCE, tkk.SOURCE, tracks_build.SOURCE, tracks_io.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(kernel_build.build, sources))
-    for lib in (bk.library, mk.library, tracks_build.library, tracks_io.library):
+    for lib in (bk.library, mk.library, tkk.library, tracks_build.library, tracks_io.library):
         lib()
     print(f"  built {', '.join(os.path.relpath(p) for p, _ in built)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1742,16 +1949,18 @@ def main() -> int:
     t0 = time.perf_counter()
     recorder = BARecorder()
     bk.reset_launch_counts()
+    tkk.reset_launch_counts()
     with tempfile.TemporaryDirectory() as project, recorder.recording():
         run_slice(device, project)
     launches = bk.launch_counts()
-    launches_slice = dict(launches)
+    launches_slice = {**launches, **tkk.launch_counts()}
     slice_ba = recorder.summary()
     print(f"  launches {launches}")
     print(f"  BA: {slice_ba['ba_calls']} calls, {slice_ba['iterations_worked']} of "
           f"{slice_ba['iterations_launched']} iterations did work; by route "
           f"{slice_ba['by_route']}")
     require_routes(launches, slice_ba, "phase 3")
+    require_tk(launches_slice, "phase 3")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 4: the BA bench (orthosfm_torch/bench.py), then BA iterations/s (quat)")
@@ -1784,10 +1993,11 @@ def main() -> int:
     recorder = BARecorder()
     mk.top2.launches = 0
     bk.reset_launch_counts()
+    tkk.reset_launch_counts()
     with recorder.recording():
-        features, cfg = run_front_end(device)
+        features, cfg, front_stages = run_front_end(device)
     launches["top2"] = mk.top2.launches
-    front_ba = bk.launch_counts()
+    front_ba = {**bk.launch_counts(), **tkk.launch_counts()}
     front_iters = recorder.summary()
     print(f"  launches top2 {launches['top2']}, BA {front_ba}")
     print(f"  BA: {front_iters['ba_calls']} calls, {front_iters['iterations_worked']} of "
@@ -1795,6 +2005,7 @@ def main() -> int:
           f"{front_iters['by_route']}")
     require(launches["top2"] > 0, "top2 was not launched on the front end's path")
     require_routes(front_ba, front_iters, "phase 5")
+    require_tk(front_ba, "phase 5")
     err, rel, real_times = check_top2_real(device, features, cfg)
     errs["top2"], rels["top2"] = max(errs["top2"], err), max(rels["top2"], rel)
     times["top2"] = real_times["top2_sift"]
@@ -1826,7 +2037,9 @@ def main() -> int:
     print(f"  phase 9 wall time {time.perf_counter() - t0:.2f} s")
     print("== phase 10: the single-device entry point (orthosfm_torch/entry.py)")
     t0 = time.perf_counter()
+    tkk.reset_launch_counts()
     phase_launches["phase10"], entry_run = run_entry(device)
+    phase_launches["phase10"].update(tkk.launch_counts())
     print(f"  phase 10 wall time {time.perf_counter() - t0:.2f} s")
     print(f"== phase 11: the main path past 119 views ({GRID_PATH_VIEWS} views x "
           f"{GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px): every BA on lm_fused, the "
@@ -1835,6 +2048,18 @@ def main() -> int:
     grid_launches, fused_routes, grid_path = run_grid_path(device)
     phase_launches["phase11"] = {**grid_launches, "lm_fused_routes": fused_routes}
     print(f"  phase 11 wall time {time.perf_counter() - t0:.2f} s")
+    print("== phase 12: TK's kernels (K5 tk_factorize, K6 tk_score) against their plain "
+          "versions, a TK call with no host sync, TK per group")
+    t0 = time.perf_counter()
+    tk_errs, tk_times, tk_shapes = run_tk(device)
+    errs.update(tk_errs)
+    rels.update(dict.fromkeys(tk_errs))
+    times.update(tk_times)
+    tk_groups = tk_per_group({
+        "phase5": (front_stages["pose/tk"], front_ba["tk_score"]),
+        "phase9": (many_views["scale_demo"]["stages_s"]["pose/tk"], many_launches["tk_score"]),
+        "phase11": (grid_path["stages_s"]["pose/tk"], grid_launches["tk_score"])})
+    print(f"  phase 12 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
@@ -1853,11 +2078,11 @@ def main() -> int:
             "phase8", phase_launches["phase8"][key])
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
-                "replaces": REPLACES[name], "launches": main_path(name)[1],
+                "replaces": {**REPLACES, **TK_REPLACES}[name], "launches": main_path(name)[1],
                 "launches_phase": main_path(name)[0],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
                 **{k: times[name][k] for k in keys}}
-               for name in REPLACES]
+               for name in (*REPLACES, *TK_REPLACES)]
     for k in kernels:
         if k["name"] == "camera_solve_grid":  # its own launches: the sharded BA's
             k["launches"], k["launches_phase"] = phase_launches["phase8"][k["name"]], "phase8"
@@ -1871,6 +2096,10 @@ def main() -> int:
         if k["name"] == "lm_fused":  # phase 9's local BA, and every shape timed
             k["main_path_shapes"] = {"3x50000": lm_times["3x50000"]}
             k["shapes"] = lm_times
+        if k["name"] in TK_REPLACES:  # phase 12's shapes; launches in every phase
+            k["shapes"] = {label: r[k["name"]] for label, r in tk_shapes.items()}
+            k["launches_by_phase"] = {phase: counts.get(k["name"], 0)
+                                      for phase, counts in phase_launches.items()}
         if k["name"] in UNSHARDED_BA:
             # the same kernel at the shapes phase 9 gives it
             k["main_path_shapes"] = {
@@ -1882,7 +2111,8 @@ def main() -> int:
                       "ba_main_path": {"phase3": slice_ba, "phase5": front_iters},
                       "top2_ms": {**top2_times, **real_times}, "testbench": testbench,
                       "homography": homography, "sharded": sharded,
-                      "many_views": many_views, "entry": entry_run, "grid_path": grid_path}))
+                      "many_views": many_views, "entry": entry_run, "grid_path": grid_path,
+                      "tk": {"shapes": tk_shapes, "per_group": tk_groups}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@ A CUDA source (``*.cu``) is compiled by nvcc for sm_90a, a C++ source
 C interface under orthosfm_torch/_build/. The library's name hashes the
 source and the flags, so an edited source always rebuilds and a stale build
 is never loaded. Callers bind the library with ctypes (``load``). A build
-that fails raises; nothing falls back.
+that fails raises; nothing falls back. A CUDA source that keeps its device
+code under ``__CUDACC__`` can also be built for the host (``host=True``: the
+host C++ compiler, as C++), where its arithmetic runs on the CPU for tests.
 """
 
 from __future__ import annotations
@@ -63,33 +65,34 @@ def resolve_impl(impl: str, device, fused=None, use_pallas: bool = True) -> str:
     return impl
 
 
-def _compiler(source: Path) -> tuple:
-    """(compiler path, flags) for a source, chosen by its suffix."""
+def _compiler(source: Path, host: bool = False) -> tuple:
+    """(compiler path, flags) for a source, chosen by its suffix; `host`: a
+    CUDA source built as C++ by the host compiler."""
     if source.suffix == ".cu":
-        return NVCC, NVCC_FLAGS
+        return (CXX, (*CXX_FLAGS, "-x", "c++")) if host else (NVCC, NVCC_FLAGS)
     if source.suffix == ".cpp":
         return CXX, CXX_FLAGS
     raise ValueError(f"no compiler for {source.name}")
 
 
-def library_path(source: Path, defines: tuple = ()) -> Path:
+def library_path(source: Path, defines: tuple = (), host: bool = False) -> Path:
     """Where the library of this source, its flags and `defines` (extra
     -D flags: another build of the same source) is built."""
-    _, flags = _compiler(source)
+    _, flags = _compiler(source, host)
     digest = hashlib.sha256(source.read_bytes() + " ".join((*flags, *defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
 
-def build(source: Path, defines: tuple = ()) -> tuple:
+def build(source: Path, defines: tuple = (), host: bool = False) -> tuple:
     """Compile `source` with `defines` (once per source hash) and return
     (library path, compiler log); the log is kept beside the library, so a
     library built earlier returns it too. A missing compiler or a failed
     build raises."""
-    out = library_path(source, defines)
+    out = library_path(source, defines, host)
     log = out.with_suffix(".log")
     if out.exists():
         return out, log.read_text() if log.exists() else ""
-    cc, flags = _compiler(source)
+    cc, flags = _compiler(source, host)
     if not os.path.isfile(cc):
         raise RuntimeError(f"{Path(cc).name} not found at {cc}; {source.name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -130,10 +133,11 @@ def ptxas_usage(log: str, entry: str) -> dict:
     return out
 
 
-def load(source: Path, signatures: dict, defines: tuple = ()) -> ctypes.CDLL:
-    """Build `source` with `defines` if needed and load it, declaring each C
-    function of `signatures` ({name: argtypes}) to return int."""
-    path, _ = build(source, defines)
+def load(source: Path, signatures: dict, defines: tuple = (), host: bool = False) -> ctypes.CDLL:
+    """Build `source` with `defines` (for the host: `host`) if needed and
+    load it, declaring each C function of `signatures` ({name: argtypes}) to
+    return int."""
+    path, _ = build(source, defines, host)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -33,8 +33,7 @@ def make_sharded_tk(mesh: Mesh, cfg: RansacConfig = RansacConfig()):
     def run(obs, valid, width, height, generator) -> tk.TKResult:
         samp_idx, q0, q0_fallback = tk.draw_hypotheses(valid, cfg, generator)
         G = obs.shape[1]
-        width, height = (torch.broadcast_to(torch.as_tensor(x, dtype=obs.dtype, device=obs.device),
-                                            (G,)) for x in (width, height))
+        width, height = (tk.per_camera(x, G, obs) for x in (width, height))
         H = samp_idx.shape[0]
         Hp = pad_to_multiple(H, mesh.size)
         pad = Hp - H

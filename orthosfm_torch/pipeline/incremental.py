@@ -154,7 +154,8 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
                       fallback_tracks: Optional[tracks_mod.TrackSet] = None,
                       verbose: bool = False, n_valid: Optional[int] = None,
                       n_valid_fb: Optional[int] = None,
-                      runners: Optional[MeshRunners] = None) -> cam_mod.CameraSet:
+                      runners: Optional[MeshRunners] = None,
+                      *, cols, wh) -> cam_mod.CameraSet:
     """calculateInitialAlignment analog (reference:
     OrthoQuaternionRecoAlgorithm.cpp:23-50 / Orthographic...cpp:36-63).
 
@@ -164,8 +165,9 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
     of the placed cameras, where the reference hard-throws
     (tomasi_kanade.cpp:202-205). Falling back is safe for initialization only,
     because the RANSAC around Tomasi-Kanade provides its own robustness. With
-    config.strict_reference_behavior the fallback is disabled."""
-    cols = _cols_for(tracks, ids)
+    config.strict_reference_behavior the fallback is disabled. ``cols``: the
+    group's track columns; ``wh``: its widths and heights (2, G) on the
+    tracks' device, as run_pose_estimation makes them once a run."""
     ct = tracks_mod.col_index(tracks, cols)
     obs = tracks.obs[:, ct, :]
     valid = tracks_mod.full_size_mask(tracks, cols)
@@ -190,8 +192,7 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
         raise TooFewTracksError(
             f"group {list(ids)}: only {n_valid} full-size tracks (<{min_tracks})")
 
-    w = torch.as_tensor(np.asarray(widths, np.float32), device=tracks.device)
-    h = torch.as_tensor(np.asarray(heights, np.float32), device=tracks.device)
+    w, h = wh[0], wh[1]
     runners = runners or MeshRunners()
     res = runners.tk_run(obs.contiguous(), valid, w, h, config.ransac, generator)
     if global_cams is None:
@@ -297,13 +298,19 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
 
     with stage("pose/grouping"):
         group_counts = group_full_size_counts(tracks, groups, col_of)
+        group_cols = [np.asarray([col_of[int(v)] for v in ids], np.int64) for ids in groups]
+        # every group's image widths and heights (2, G), copied to the
+        # device in one piece a run: TK reads them there
+        group_wh = [x.view(2, -1) for x in torch.split(torch.as_tensor(np.concatenate(
+            [np.concatenate([widths[cols], heights[cols]]) for cols in group_cols]), device=dev),
+            [2 * len(cols) for cols in group_cols])]
     pristine_counts = None
 
     for gi, ids in enumerate(groups):
         processed = gi + 1
         if verbose:
             print(f"===== Reconstructing group {ids} ({processed}/{len(groups)}) =====")
-        cols = _cols_for(tracks, ids)
+        cols = group_cols[gi]
 
         n_valid = int(group_counts[gi])
         min_tracks = max(10, config.ransac.sample_size)
@@ -318,7 +325,8 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
                                            generator, None if first_group else global_cams,
                                            pair, config, fallback_tracks=pristine_tracks,
                                            verbose=verbose, n_valid=n_valid,
-                                           n_valid_fb=n_valid_fb, runners=runners)
+                                           n_valid_fb=n_valid_fb, runners=runners,
+                                           cols=cols, wh=group_wh[gi])
 
         # Reprojection outlier filter on the LOCAL track copy (reconstruct.cpp:212)
         with stage("pose/filters"):

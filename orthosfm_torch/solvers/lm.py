@@ -5,7 +5,9 @@ problems — in particular the Tomasi-Kanade metric upgrade (15 residuals × 9
 params; reference: src/algorithms/tomasi_kanade.cpp:62-75). The JAX version
 is written for one problem, differentiates it with jacfwd and is vmapped;
 here the batch dimension is explicit, the caller supplies the Jacobian in
-closed form, and the fixed iteration count is a Python loop.
+closed form, and the fixed iteration count is a Python loop. It is the
+plain version's solver (tk_kernels.tk_factorize_ref, the CPU's route): on
+the card TK's metric upgrade runs inside the K5 kernel (csrc/tk_kernels.cu).
 """
 
 from __future__ import annotations

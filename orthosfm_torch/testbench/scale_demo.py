@@ -17,8 +17,9 @@ reconstructions (the first cold, the rest warm), each to a
 torch.cuda.synchronize(), with the launches of the BA kernels (lm_fused,
 one a BA of up to ba_kernels.FUSED_MAX_VIEWS (375) views, so every BA at 64
 and at 192 views, by the route of its camera solve; K1, K3 by route and K2
-an iteration of the larger ones) and the bundle adjustments it ran, by route
-(utils.profiling.BARecorder); then it
+an iteration of the larger ones), of the Tomasi-Kanade kernels (K5
+tk_factorize twice and K6 tk_score once a group) and the bundle adjustments
+it ran, by route (utils.profiling.BARecorder); then it
 measures Tomasi-Kanade's peak device memory on the first group, and runs
 once more under utils.profiling.collect_stages for the share of the wall time in each
 stage of the pose estimation (each stage ends in a device barrier there).
@@ -86,6 +87,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     from orthosfm_torch.pipeline import incremental
     from orthosfm_torch.pipeline.matching import checked_device
     from orthosfm_torch.solvers import ba_kernels as bk
+    from orthosfm_torch.solvers import tk_kernels as tkk
     from orthosfm_torch.testbench import bench_pipeline, metrics
     from orthosfm_torch.utils import profiling
 
@@ -95,6 +97,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     t0 = time.perf_counter()
     if cuda:
         bk.library()  # built at first use: outside the timed runs
+        tkk.library()
     build_s = time.perf_counter() - t0
 
     # Asymmetric blob: mirror disambiguation needs asymmetric geometry
@@ -107,6 +110,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     for _ in range(runs):
         recorder = profiling.BARecorder()
         bk.reset_launch_counts()
+        tkk.reset_launch_counts()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         _sync(device)
@@ -117,6 +121,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         walls.append(time.perf_counter() - t0)
         launches, routes = bk.launch_counts(), bk.route_launches()
         fused_routes = bk.fused_route_launches()
+        tk_launches = tkk.launch_counts()
         peaks.append(torch.cuda.max_memory_allocated(device) if cuda else None)
 
     tk_mem = tk_peak_bytes(noisy, cfg, device)
@@ -146,6 +151,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
                                               "point_update_cost")},
         "camera_solve_routes": routes,
         "lm_fused_routes": fused_routes,
+        "tk_launches": tk_launches,
         "ba": ba_calls,
         "peak_bytes": peaks[-1],
         "tk": tk_mem,

@@ -349,3 +349,25 @@ def random_top2_set(device, D, n=8192):
     pairs = [(0, 1, n, n), (2, 3, n, n), (4, 5, n - 37, n - 100), (6, 7, n, 0),
              (8, 9, n, 1), (1, 1, n, n), (10, 2, n // 8, n), (3, 0, n, n // 2 + 1)]
     return stack, [torch.tensor(c, dtype=torch.int32, device=device) for c in zip(*pairs)]
+
+
+def tk_inputs(device, n_tracks, noise_px=1.0, seed=0):
+    """A Tomasi-Kanade group: the first 3 of 6 views of the blob of
+    n_tracks tracks (2048^2) with noise_px of Gaussian pixel noise (numpy,
+    seeded), obs (T, 3, 2) and its full-size mask (T,); then its RANSAC
+    draws (tomasi_kanade.draw_hypotheses, a generator seeded `seed`):
+    (obs, valid, samp_idx (241, 10), q0 (241, 9), q0_fallback (9,))."""
+    import numpy as np
+
+    from orthosfm_torch.config import RansacConfig
+    from orthosfm_torch.data import synthetic
+    from orthosfm_torch.solvers import tomasi_kanade as tk
+
+    ds = synthetic.generate_dataset(synthetic.blob_cloud(n_tracks, seed=seed), num_views=6,
+                                    seed=seed, width=2048, height=2048, device=device)
+    tracks = synthetic.add_observation_noise(ds.tracks, noise_px, np.random.default_rng(seed))
+    cols = torch.arange(3, device=device)
+    obs = tracks.obs[:, cols].contiguous()
+    valid = tracks.alive & torch.all(tracks.obs_mask[:, cols], dim=1)
+    draws = tk.draw_hypotheses(valid, RansacConfig(), torch.Generator(device).manual_seed(seed))
+    return (obs, valid, *draws)

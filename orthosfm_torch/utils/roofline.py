@@ -109,3 +109,48 @@ def top2_work(stack, ci, cj):
     ci, cj = ci.double().cpu(), cj.double().cpu()
     return (2.0 * float((ci * cj).sum()) * D,
             4.0 * (float((ci + cj).sum()) * D + 6 * ci.shape[0] * N))
+
+
+# Tomasi-Kanade (csrc/tk_kernels.cu), f32 operations counted from the
+# kernels' code: K5's cyclic Jacobi does TK_JACOBI_SWEEPS sweeps of n(n-1)/2
+# rotations on the n = 2G Gram, each ~15 operations for its angle and 8 an
+# entry pair for the 2(n - 2) rows of the Gram and the n rows of the vectors
+# it turns; each of the 40 LM iterations a 9 x 9 LU with its solve and the
+# cost at the candidate (~6 operations a residual: two 3-term dots and a
+# square); the normal equations (J^T J and J^T r) only on an accepted step,
+# which the inputs decide: the floor counts them once, at the start. K6
+# per valid track and hypothesis: the normalized coordinates, origin and
+# projected origin of each camera (36), the 3 x 3 solve (18), and each
+# camera's local point, pixel and error (27).
+TK_LM_ITERATIONS = 40
+TK_JACOBI_SWEEPS = 10
+
+
+def tk_factorize_work(problems: int, columns: int, views: int, gram_given: bool = False):
+    """(flops, bytes) of K5 on `problems` factorizations of `views` cameras
+    over `columns` columns (or a Gram given per problem): the Gram (two
+    passes over D), the Jacobi sweeps, the 40 LM iterations' solves and
+    costs and one pass of the normal equations (a floor: the steps accepted
+    add one pass each), and the models; inputs read once (obs, q0, mask or
+    the Gram), outputs written once (sol1, sol2, usable, RStar)."""
+    n, m = 2 * views, 3 * views + 6
+    gram = 0 if gram_given else columns * (3 * n + n * (n + 1))
+    jacobi = TK_JACOBI_SWEEPS * n * (n - 1) / 2 * (15 + 8 * (2 * (n - 2) + n))
+    normal = m * (2 * 45 + 2 * 9 + 12)
+    lu = 2 * sum((8 - k) * (9 - k) for k in range(9)) + 2 * 45 + 18
+    lm_floor = normal + TK_LM_ITERATIONS * (lu + 6 * m + 18)
+    models = views * (2 * 18 + 6 + 3 * 6) + views * 9 * 5
+    flops = problems * (gram + jacobi + lm_floor + models)
+    inputs = 4 * n * n if gram_given else columns * (8 * views + 1)
+    nbytes = problems * (inputs + 36 + 2 * 36 * views + 1 + 12 * n)
+    return float(flops), float(nbytes)
+
+
+def tk_score_work(hypotheses: int, tracks: int, valid_tracks: int, views: int, sample: int):
+    """(flops, bytes) of K6: ~63 operations a camera and 18 for the solve,
+    per valid track and hypothesis; the observations and the valid mask
+    read once, each hypothesis's sol1, usable and sample once, the scores
+    and consensus counts written once."""
+    flops = hypotheses * valid_tracks * (63 * views + 18)
+    nbytes = tracks * (8 * views + 1) + hypotheses * (36 * views + 1 + 8 * sample + 12) + 8 * views
+    return float(flops), float(nbytes)

@@ -17,6 +17,12 @@ bandwidth (3.35 TB/s), and the share of the bound it reaches:
     global BA), quaternion cameras, points optimized;
   - top2 on 8 pairs of random unit descriptors, 8192 x 128, both directions
     from one launch;
+  - the Tomasi-Kanade kernels at TK_SHAPES (241 hypotheses of 3 views
+    on 4096 and 50 000 blob tracks at 1 px, kernel_bench.tk_inputs): K5
+    tk_factorize on the hypotheses and as the fallback over every valid
+    track (with its Gram, one torch.matmul), and K6 tk_score (utils/
+    roofline.py tk_factorize_work, a floor that counts the normal equations
+    once, and tk_score_work);
   - lm_fused, the whole LM solve in one cooperative launch, at
     FUSED_SHAPES (16 x 8192, phase 9's local BA 3 x 50000, the one-CTA
     camera solve's edge 37 x 2048, and on its cluster 64 x 4096 and phase
@@ -38,7 +44,8 @@ lm_fused's registers, stack and spill from the build's -Xptxas -v log.
 
 --split runs only the last table, lm_fused's split, at the shapes given
 (for example 128x1024 192x4096 375x2000, where its camera solve is K3's
-grid route inside the launch), beside K1 + K3 + K2 timed at each.
+grid route inside the launch), beside K1 + K3 + K2 timed at each; --tk only
+the Tomasi-Kanade rows.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -57,6 +64,7 @@ BA_SHAPES = ((16, 8192), (64, 4096), (64, 50000))
 FUSED_SHAPES = ((16, 8192), (3, 50000), (37, 2048), (64, 4096), (64, 50000))
 SPLIT_SHAPES = ((16, 8192), (3, 50000), (37, 2048), (64, 4096))
 LM_ITERATIONS = 30
+TK_SHAPES = (4096, 50000)
 
 
 def row(name, flops, nbytes, ms):
@@ -68,6 +76,43 @@ def row(name, flops, nbytes, ms):
             "pct_f32_peak": 100.0 * flops / ms / 1e-3 / F32_FLOPS,
             "pct_hbm": 100.0 * nbytes / ms / 1e-3 / HBM_BYTES,
             "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / ms}
+
+
+def print_row(r, label):
+    print(f"{r['kernel']:18s} {label:9s} {r['flops'] / 1e9:9.4f} {r['bytes'] / 1e6:9.3f} "
+          f"{r['ms']:9.4f} {r['tflops']:8.3f} {r['gb_per_s']:8.1f} {r['pct_f32_peak']:6.2f} "
+          f"{r['pct_hbm']:6.2f} {r['bound_ms']:9.5f} {r['bound_by']:10s} {r['pct_of_bound']:7.2f}")
+
+
+def tk_rows(device):
+    """K5 (the hypotheses, and the fallback with its Gram) and K6 at
+    TK_SHAPES."""
+    import torch
+
+    from orthosfm_torch.config import RansacConfig
+    from orthosfm_torch.solvers import tk_kernels as tkk
+    from orthosfm_torch.utils.kernel_bench import cuda_ms, tk_inputs
+    from orthosfm_torch.utils.roofline import tk_factorize_work, tk_score_work
+
+    cfg = RansacConfig()
+    out = {}
+    for n_tracks in TK_SHAPES:
+        obs, valid, samp, q0, q0f = tk_inputs(device, n_tracks)
+        H, S = samp.shape
+        label = f"{H}x{n_tracks}"
+        o, fb = obs[samp], (obs[None], valid[None], q0f[None])
+        sol1, _, usable, _ = tkk.tk_factorize(o, None, q0, cfg)
+        w = torch.full((3,), 2048.0, device=device)
+        rows = [row("tk_factorize", *tk_factorize_work(H, S, 3),
+                    cuda_ms(lambda: tkk.tk_factorize(o, None, q0, cfg))),
+                row("tk_factorize_fb", *tk_factorize_work(1, n_tracks, 3, gram_given=True),
+                    cuda_ms(lambda: tkk.tk_factorize(*fb, cfg))),
+                row("tk_score", *tk_score_work(H, n_tracks, int(valid.sum()), 3, S),
+                    cuda_ms(lambda: tkk.tk_score(sol1, usable, obs, valid, w, w, samp, cfg)))]
+        for r in rows:
+            print_row(r, label)
+        out[label] = rows
+    return out
 
 
 def lm_iteration(device, num_views, n_tracks):
@@ -153,6 +198,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--json", default="")
     p.add_argument("--split", nargs="+", default=None, help="VxT shapes: only lm_fused's split")
+    p.add_argument("--tk", action="store_true", help="only the Tomasi-Kanade kernels' rows")
     args = p.parse_args()
 
     import torch
@@ -182,6 +228,9 @@ def main() -> int:
     head = (f"{'kernel':18s} {'shape':9s} {'GFLOP':>9s} {'MB':>9s} {'ms':>9s} {'TFLOP/s':>8s} "
             f"{'GB/s':>8s} {'%f32':>6s} {'%HBM':>6s} {'bound ms':>9s} {'by':10s} {'%bound':>7s}")
     print(head)
+    out["tk"] = tk_rows(device)
+    if args.tk:
+        return finish(out, args.json)
     for num_views, n_tracks in BA_SHAPES:
         label = f"{num_views}x{n_tracks}"
         inputs = stage_inputs("quat", device, num_views, n_tracks)
