@@ -1130,7 +1130,7 @@ def run_front_end(device):
     cfg = ReconstructionConfig(solver=SolverType.ORTHO_QUATERNION)
     stages = {}
     t_all = time.perf_counter()
-    with profiling.collect_stages(stages, device):
+    with profiling.collect_stages(stages, device, trace=False):
         features = matching_mod.extract_all_view_features(views, cfg, device)
         log = io.StringIO()
         with contextlib.redirect_stdout(log):

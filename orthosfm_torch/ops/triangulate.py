@@ -13,6 +13,7 @@ import torch
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.data import tracks as tracks_mod
 from orthosfm_torch.solvers.ba import solve3x3
+from orthosfm_torch.utils.profiling import stage
 
 
 def intersect_rays(origins, directions, mask):
@@ -42,22 +43,24 @@ def triangulate_tracks(cams: cam_mod.CameraSet, tracks: tracks_mod.TrackSet,
 
     cam_cols: (V_c,) column indices such that cams[i] observes column
     cam_cols[i]. Tracks with <2 rays get has_point=False when reset_existing.
+    A stage of its own (pose/triangulate), inside the stage of its caller.
     """
-    cols = tracks_mod.col_index(tracks, cam_cols)
-    pixels = tracks.obs[:, cols, :]  # (T, Vc, 2)
-    mask = tracks.obs_mask[:, cols] & tracks.alive[:, None]  # (T, Vc)
+    with stage("pose/triangulate"):
+        cols = tracks_mod.col_index(tracks, cam_cols)
+        pixels = tracks.obs[:, cols, :]  # (T, Vc, 2)
+        mask = tracks.obs_mask[:, cols] & tracks.alive[:, None]  # (T, Vc)
 
-    origins = cam_mod.pixel_to_plane_point(cams, pixels.permute(1, 0, 2)).permute(1, 0, 2)
-    dirs = cam_mod.look_directions(cams)[None, :, :].expand(origins.shape)
+        origins = cam_mod.pixel_to_plane_point(cams, pixels.permute(1, 0, 2)).permute(1, 0, 2)
+        dirs = cam_mod.look_directions(cams)[None, :, :].expand(origins.shape)
 
-    pts, valid = intersect_rays(origins, dirs, mask)
-    new_points4 = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+        pts, valid = intersect_rays(origins, dirs, mask)
+        new_points4 = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
 
-    if reset_existing:
-        points = torch.where(valid[:, None], new_points4, tracks.points)
-        has_point = valid
-    else:
-        update = valid & ~tracks.has_point
-        points = torch.where(update[:, None], new_points4, tracks.points)
-        has_point = tracks.has_point | update
-    return tracks.replace(points=points, has_point=has_point & tracks.alive)
+        if reset_existing:
+            points = torch.where(valid[:, None], new_points4, tracks.points)
+            has_point = valid
+        else:
+            update = valid & ~tracks.has_point
+            points = torch.where(update[:, None], new_points4, tracks.points)
+            has_point = tracks.has_point | update
+        return tracks.replace(points=points, has_point=has_point & tracks.alive)

@@ -33,7 +33,7 @@ from orthosfm_torch.ops import outliers, triangulate
 from orthosfm_torch.pipeline import grouping
 from orthosfm_torch.solvers import ba
 from orthosfm_torch.solvers import tomasi_kanade as tk
-from orthosfm_torch.utils.profiling import stage
+from orthosfm_torch.utils.profiling import record_tk, stage
 
 
 class TooFewTracksError(RuntimeError):
@@ -176,6 +176,7 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
     min_tracks = max(10, config.ransac.sample_size)
     if config.strict_reference_behavior:
         fallback_tracks = None
+    fallback = False
     if n_valid < min_tracks and fallback_tracks is not None:
         cols_fb = _cols_for(fallback_tracks, ids)
         valid_fb = tracks_mod.full_size_mask(fallback_tracks, cols_fb)
@@ -188,10 +189,12 @@ def initial_alignment(tracks: tracks_mod.TrackSet, ids, widths, heights,
             obs = fallback_tracks.obs[:, tracks_mod.col_index(fallback_tracks, cols_fb), :]
             valid = valid_fb
             n_valid = n_valid_fb
+            fallback = True
     if n_valid < min_tracks:
         raise TooFewTracksError(
             f"group {list(ids)}: only {n_valid} full-size tracks (<{min_tracks})")
 
+    record_tk(ids, n_valid, config.ransac, fallback)
     w, h = wh[0], wh[1]
     runners = runners or MeshRunners()
     res = runners.tk_run(obs.contiguous(), valid, w, h, config.ransac, generator)
@@ -266,7 +269,9 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
     bundle adjustment shards the tracks over the ranks and every TK
     initialization its hypotheses (MeshRunners); the results are every
     rank's. Its stages (utils.profiling.stage): pose/grouping, pose/tk,
-    pose/filters, pose/local_ba, pose/merge and pose/global_ba."""
+    pose/filters, pose/local_ba, pose/merge and pose/global_ba, those of the
+    group loop with the group's index, and pose/triangulate inside
+    pose/merge, pose/local_ba and pose/filters."""
     runners = MeshRunners(mesh)
     solver = config.solver
     dev = tracks.device
@@ -320,7 +325,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
         n_valid_fb = int(pristine_counts[gi]) if pristine_counts is not None else None
         first_group = not present.any()
         pair = None if first_group else (col_of[ids[0]], col_of[ids[1]])
-        with stage("pose/tk"):
+        with stage("pose/tk", group=gi):
             local_cams = initial_alignment(tracks, ids, widths[cols], heights[cols], solver,
                                            generator, None if first_group else global_cams,
                                            pair, config, fallback_tracks=pristine_tracks,
@@ -329,7 +334,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
                                            cols=cols, wh=group_wh[gi])
 
         # Reprojection outlier filter on the LOCAL track copy (reconstruct.cpp:212)
-        with stage("pose/filters"):
+        with stage("pose/filters", group=gi):
             local_tracks = outliers.filter_tracks_reprojection_error(
                 tracks, local_cams, cols, config.filters)
 
@@ -338,7 +343,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
             fixed[0] = True
             local_cams = local_cams.replace(fixed=fixed)
 
-        with stage("pose/local_ba"):
+        with stage("pose/local_ba", group=gi):
             local_cams, ba_res = _local_ba(local_cams, local_tracks, cols, config, runners)
         if verbose:
             print(f"  local BA: cost {float(ba_res.initial_cost):.1f} -> "
@@ -347,7 +352,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
             print(cam_mod.format_cameras(local_cams))
 
         if first_group:
-            with stage("pose/merge"):
+            with stage("pose/merge", group=gi):
                 local_cams = cam_mod.normalize_scene_to_camera(local_cams, 0)
                 for j, vid in enumerate(ids):
                     c = col_of[vid]
@@ -362,7 +367,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
         if len(overlap_local) != config.group_size - 1 and verbose:
             print(f"  warning: {len(overlap_local)} overlapping cameras "
                   f"(expected {config.group_size - 1})")
-        with stage("pose/merge"):
+        with stage("pose/merge", group=gi):
             local_cams = align_to_global(local_cams, global_cams, overlap_local, overlap_global)
             # mergeIntoGlobal: only cameras not yet present are added
             for j, vid in enumerate(ids):
@@ -374,13 +379,13 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
             tracks = _triangulate_global(global_cams, present, tracks, view_ids)
 
         if processed % config.global_ba_interval == 0:
-            with stage("pose/global_ba"):
+            with stage("pose/global_ba", group=gi):
                 global_cams, tracks, res = _global_ba(global_cams, present, tracks, config,
                                                       view_ids, runners)
             if verbose:
                 print(f"  global BA: cost {float(res.initial_cost):.1f} -> "
                       f"{float(res.cost):.1f} in {int(res.iterations)} iters")
-            with stage("pose/filters"):
+            with stage("pose/filters", group=gi):
                 tracks = outliers.filter_outlier_tracks(tracks, config.filters)
                 pres_cols = _cols_for(tracks, view_ids[present])
                 tracks = outliers.filter_tracks_reprojection_error(
@@ -388,7 +393,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
                 # obs_mask/alive changed → refresh the per-group counts
                 group_counts = group_full_size_counts(tracks, groups, col_of)
 
-        with stage("pose/merge"):
+        with stage("pose/merge", group=gi):
             global_cams = cam_mod.normalize_scene_to_camera(global_cams,
                                                             col_of[insertion_order[0]])
         if verbose:

@@ -422,7 +422,7 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     from orthosfm_torch.solvers import ba_kernels as bk
 
     recorder = profiling.ba_recorder()
-    t0 = time.perf_counter()
+    t0 = time.monotonic() if recorder is not None else None
     kind = cams.kind
     T, V = obs.shape[0], len(cams)
     wants_fused = config.impl == "fused" or (config.impl == "auto" and config.use_pallas)
@@ -443,7 +443,7 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     res = BAResult(cams=cams_f, points=pT.T[:T], cost=final[bk.COST],
                    initial_cost=final[bk.INIT_COST], iterations=final[bk.ITERS].to(torch.int32))
     if recorder is not None:
-        recorder.add(V, route, config.max_iterations, res.iterations, time.perf_counter() - t0)
+        recorder.add(V, T, route, config.max_iterations, mask, final, t0, time.monotonic())
     return res
 
 

@@ -61,7 +61,7 @@ def profile_matching(num_views: int = 16, width: int = 2048, seed: int = SEED,
     if warmup:
         matching.build_tracks(views, cfg, verbose=False, device=device)
     stages: dict = {}
-    with profiling.collect_stages(stages, device):
+    with profiling.collect_stages(stages, device, trace=False):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.monotonic()

@@ -128,7 +128,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     stages: dict = {}
     _sync(device)
     t0 = time.perf_counter()
-    with profiling.collect_stages(stages, device):
+    with profiling.collect_stages(stages, device, trace=False):
         incremental.run_pose_estimation(noisy, WIDTH, WIDTH, cfg, verbose=False)
     _sync(device)
     staged_s = time.perf_counter() - t0
