@@ -6,7 +6,8 @@
 Phases:
   1. the card's name and power limit, and the build of the native sources
      of orthosfm_torch/csrc/ (the BA kernels, the top-2 matching kernel, the
-     TK kernels, the union-find and the tracks.txt reader), one compiler
+     TK kernels, the outlier filter's kernel, the union-find and the
+     tracks.txt reader), one compiler
      each, all started together;
   2. each kernel against its plain PyTorch version on the card: the BA
      kernels (schur_assemble, camera_solve, and point_update_cost with the
@@ -148,6 +149,16 @@ Phases:
      H100 80GB HBM3 at 700 W. Phases 3, 5, 6, 8, 9
      and 11 require TK on the kernels (K6 once a group, K5 twice), and the
      kernels line gives their launches by phase.
+ 13. the outlier filter's neighbour search (orthosfm_torch/csrc/
+     outlier_kernels.cu: outlier_nn, one launch a filter call) against its
+     plain version (the chunked PyTorch sweep) at phase 3's track count
+     (7800) and phase 9's (50 000), blob points with every 13th track
+     without a point: bit for bit, timed by CUDA events (a call: its
+     squared norms, its scratch's zero fill and the kernel) beside the plain
+     sweep and its bound, with each route's peak device memory. Phases 3,
+     6, 9 and 11 require one launch a filter_outlier_tracks call (20 a
+     64-view run in phase 9), and the kernels line gives its launches and
+     the filter's calls by phase and ptxas's registers and spills.
 
 Phase 2 also runs K3's grid route at 128, 192 (phase 11's shape, n =
 1152: the kernels line's times for the grid route), 700, 1100 and 2000
@@ -190,6 +201,7 @@ WIDTH = 2048.0
 BA_SOURCE = "orthosfm_torch/csrc/ba_kernels.cu"
 MATCH_SOURCE = "orthosfm_torch/csrc/match_kernels.cu"
 TK_SOURCE = "orthosfm_torch/csrc/tk_kernels.cu"
+OUTLIER_SOURCE = "orthosfm_torch/csrc/outlier_kernels.cu"
 REPLACES = {
     "lm_fused": "orthosfm_tpu/solvers/ba_fused.py:545",
     "schur_assemble": "orthosfm_tpu/solvers/ba_pallas.py:394",
@@ -208,6 +220,10 @@ TK_REPLACES = {
 SOURCE_OF = {name: BA_SOURCE for name in REPLACES}
 SOURCE_OF["top2"] = MATCH_SOURCE
 SOURCE_OF.update(dict.fromkeys(TK_REPLACES, TK_SOURCE))
+# Nor does the outlier filter's neighbour search: the JAX package's
+# nearest_neighbor_distances is an XLA program
+OUTLIER_REPLACES = {"outlier_nn": "orthosfm_tpu/ops/outliers.py:24"}
+SOURCE_OF["outlier_nn"] = OUTLIER_SOURCE
 BA_KERNELS = ("schur_assemble", "camera_solve", "point_update_cost", "lm_accept")
 # The unsharded BA (ba.run, phases 3 to 7, 9 and 11) launches lm_fused once
 # a BA of up to FUSED_MAX_VIEWS views (every BA of those phases), and K1, K3
@@ -345,6 +361,12 @@ TOL_TK_MODEL, TOL_TK_SCORE, TK_NEAR_PX = 1e-4, 1e-3, 2.5e-4
 TK_EARLIER = {"phase5": "52% of 2.375 s over 14 groups, ~88 ms a group",
               "phase9": "6.012 s over 62 groups, ~97 ms a group",
               "phase11": "16.535 s over 190 groups, ~87 ms a group"}
+# Phase 13: the outlier filter's neighbour search at phase 3's and phase 9's
+# track counts, bit for bit with the plain sweep (it takes the sweep's
+# squared norms and rounds its dots as the f32 GEMM does). The phases whose
+# pose estimation must call the filter, each call one launch
+OUTLIER_SHAPES = (7800, MANY_TRACKS)
+OUTLIER_PHASES = ("phase3", "phase6", "phase9", "phase11")
 
 
 def max_err(a, b):
@@ -395,6 +417,42 @@ def require_tk(launches, what):
           f"{launches['tk_score']} launches")
     require(launches["tk_score"] > 0 and launches["tk_factorize"] == 2 * launches["tk_score"],
             f"{what}: TK launches {launches['tk_factorize']} K5, {launches['tk_score']} K6")
+
+
+@contextlib.contextmanager
+def counting_outlier_filter():
+    """Over the enclosed phase: the outlier filter's calls
+    (outliers.filter_outlier_tracks, which the pose estimation calls through
+    its module) and the launches of its neighbour-search kernel, filled in
+    as the block ends."""
+    from orthosfm_torch.ops import outlier_kernels as okern
+    from orthosfm_torch.ops import outliers
+
+    real = outliers.filter_outlier_tracks
+    out = {"filter_calls": 0, "outlier_nn": 0}
+
+    def counted(*args, **kwargs):
+        out["filter_calls"] += 1
+        return real(*args, **kwargs)
+
+    start = okern.outlier_nn.launches
+    outliers.filter_outlier_tracks = counted
+    try:
+        yield out
+    finally:
+        outliers.filter_outlier_tracks = real
+        out["outlier_nn"] = okern.outlier_nn.launches - start
+
+
+def require_outlier_nn(counts, what):
+    """One outlier_nn launch a filter call over a phase, and in the phases
+    of OUTLIER_PHASES at least one call (no call on the plain route)."""
+    print(f"  {what}: outlier filter calls {counts['filter_calls']}, outlier_nn launches "
+          f"{counts['outlier_nn']}")
+    require(counts["outlier_nn"] == counts["filter_calls"]
+            and (counts["filter_calls"] > 0 or what not in OUTLIER_PHASES),
+            f"{what}: {counts['outlier_nn']} outlier_nn launches for "
+            f"{counts['filter_calls']} filter calls")
 
 
 def check_schur_and_solve(kind, inputs, opt, errs, rels, label):
@@ -1874,6 +1932,57 @@ def run_tk(device):
     return errs, times, shapes
 
 
+def run_outlier_nn(device):
+    """Phase 13: outlier_nn against the plain sweep at OUTLIER_SHAPES tracks
+    (blob points, w = 1, every 13th track without a point), each timed by
+    CUDA events (the wrapper's call: the squared norms, the scratch's zero
+    fill and the kernel) beside the plain sweep and the bound, with each
+    route's peak device memory above its base. Returns (largest
+    |nn - plain nn|, per-shape results)."""
+    import torch
+
+    from orthosfm_torch.data import synthetic
+    from orthosfm_torch.ops import outlier_kernels as okern
+    from orthosfm_torch.ops import outliers
+    from orthosfm_torch.utils.kernel_bench import cuda_ms
+    from orthosfm_torch.utils.roofline import bound, outlier_nn_work
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(device) - base
+
+    worst, shapes = 0.0, {}
+    for T in OUTLIER_SHAPES:
+        pts = torch.ones((T, 4), device=device)
+        pts[:, :3] = torch.as_tensor(synthetic.blob_cloud(T), dtype=torch.float32, device=device)
+        has = torch.ones((T,), dtype=torch.bool, device=device)
+        has[::13] = False
+        ref = outliers.nearest_neighbor_distances(pts, has, impl="torch")
+        got = okern.outlier_nn(pts, has)
+        err = max_err(got, ref)
+        zeros = bool((got[~has] == 0).all())
+        require(torch.equal(got, ref) and zeros, f"outlier_nn at {T} tracks: {err} from the "
+                                                 f"plain sweep, unpointed tracks zero {zeros}")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: okern.outlier_nn(pts, has))
+        plain_ms = cuda_ms(lambda: outliers.nearest_neighbor_distances(pts, has, impl="torch"), 3)
+        b = bound(*outlier_nn_work(T, int(has.sum())))
+        mem = {"kernel": peak(lambda: okern.outlier_nn(pts, has)),
+               "plain": peak(lambda: outliers.nearest_neighbor_distances(pts, has, impl="torch"))}
+        print(f"  {T} tracks: bit for bit with the plain sweep; outlier_nn {ms:.4f} ms a call "
+              f"(bound {b[0]:.4f} ms by {b[1]}, {100 * b[0] / ms:.1f}% of it), plain sweep "
+              f"{plain_ms:.3f} ms; peak memory above base {mem['kernel'] / 1e6:.3f} MB, plain "
+              f"{mem['plain'] / 1e6:.1f} MB; {-(-T // okern.launch_plan(T))} shares x "
+              f"{-(-T // okern.QUERIES)} query blocks")
+        shapes[str(T)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                          "library_ms": None, "peak_bytes": mem, "chunk": okern.launch_plan(T)}
+    return worst, shapes
+
+
 def tk_per_group(results):
     """TK per group: each phase's pose/tk stage (under its stage barriers)
     over its groups (K6's launches, one a group), measured in this run; the
@@ -1911,6 +2020,7 @@ def main() -> int:
     from orthosfm_torch import kernel_build
     from orthosfm_torch.io import tracks_io
     from orthosfm_torch.ops import matching_kernels as mk
+    from orthosfm_torch.ops import outlier_kernels as okern
     from orthosfm_torch.pipeline import tracks_build
     from orthosfm_torch.solvers import ba_kernels as bk
     from orthosfm_torch.solvers import tk_kernels as tkk
@@ -1923,11 +2033,15 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = (bk.SOURCE, mk.SOURCE, tkk.SOURCE, tracks_build.SOURCE, tracks_io.SOURCE)
+    sources = (bk.SOURCE, mk.SOURCE, tkk.SOURCE, okern.SOURCE, tracks_build.SOURCE,
+               tracks_io.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(kernel_build.build, sources))
-    for lib in (bk.library, mk.library, tkk.library, tracks_build.library, tracks_io.library):
+    for lib in (bk.library, mk.library, tkk.library, okern.library, tracks_build.library,
+                tracks_io.library):
         lib()
+    outlier_ptxas = kernel_build.ptxas_usage(built[sources.index(okern.SOURCE)][1],
+                                             "outlier_nn_kernel")
     print(f"  built {', '.join(os.path.relpath(p) for p, _ in built)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for _, log in built:
@@ -1950,10 +2064,11 @@ def main() -> int:
     recorder = BARecorder()
     bk.reset_launch_counts()
     tkk.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as project, recorder.recording():
+    with (tempfile.TemporaryDirectory() as project, recorder.recording(),
+          counting_outlier_filter() as outlier_slice):
         run_slice(device, project)
     launches = bk.launch_counts()
-    launches_slice = {**launches, **tkk.launch_counts()}
+    launches_slice = {**launches, **tkk.launch_counts(), **outlier_slice}
     slice_ba = recorder.summary()
     print(f"  launches {launches}")
     print(f"  BA: {slice_ba['ba_calls']} calls, {slice_ba['iterations_worked']} of "
@@ -1961,6 +2076,7 @@ def main() -> int:
           f"{slice_ba['by_route']}")
     require_routes(launches, slice_ba, "phase 3")
     require_tk(launches_slice, "phase 3")
+    require_outlier_nn(outlier_slice, "phase3")
     print(f"  phase 3 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 4: the BA bench (orthosfm_torch/bench.py), then BA iterations/s (quat)")
@@ -1994,7 +2110,7 @@ def main() -> int:
     mk.top2.launches = 0
     bk.reset_launch_counts()
     tkk.reset_launch_counts()
-    with recorder.recording():
+    with recorder.recording(), counting_outlier_filter() as outlier_front:
         features, cfg, front_stages = run_front_end(device)
     launches["top2"] = mk.top2.launches
     front_ba = {**bk.launch_counts(), **tkk.launch_counts()}
@@ -2006,6 +2122,7 @@ def main() -> int:
     require(launches["top2"] > 0, "top2 was not launched on the front end's path")
     require_routes(front_ba, front_iters, "phase 5")
     require_tk(front_ba, "phase 5")
+    require_outlier_nn(outlier_front, "phase5")
     err, rel, real_times = check_top2_real(device, features, cfg)
     errs["top2"], rels["top2"] = max(errs["top2"], err), max(rels["top2"], rel)
     times["top2"] = real_times["top2_sift"]
@@ -2014,9 +2131,12 @@ def main() -> int:
     print(f"== phase 6: the testbench on the card (dataset matrix at {TESTBENCH_WIDTH}, noise "
           "sweep, pipeline bench)")
     t0 = time.perf_counter()
-    phase_launches = {"phase3": launches_slice, "phase5": {**front_ba, "top2": launches["top2"]}}
-    with tempfile.TemporaryDirectory() as root:
+    phase_launches = {"phase3": launches_slice,
+                      "phase5": {**front_ba, "top2": launches["top2"], **outlier_front}}
+    with tempfile.TemporaryDirectory() as root, counting_outlier_filter() as outlier_counts:
         phase_launches["phase6"], testbench = run_testbench(device, root)
+    phase_launches["phase6"].update(outlier_counts)
+    require_outlier_nn(outlier_counts, "phase6")
     print(f"  phase 6 wall time {time.perf_counter() - t0:.2f} s")
 
     print("== phase 7: RANSAC-H (pair_verification=\"homography\")")
@@ -2026,14 +2146,22 @@ def main() -> int:
 
     print("== phase 8: the multi-device path (parallel/) on one rank over NCCL, two over gloo")
     t0 = time.perf_counter()
-    sharded = run_sharded(device, features, cfg)
-    phase_launches["phase8"] = sharded["launches"]
+    with counting_outlier_filter() as outlier_counts:
+        sharded = run_sharded(device, features, cfg)
+    phase_launches["phase8"] = {**sharded["launches"], **outlier_counts}
+    require_outlier_nn(outlier_counts, "phase8")
     print(f"  phase 8 wall time {time.perf_counter() - t0:.2f} s")
     print(f"== phase 9: the many-view reconstruction ({MANY_VIEWS} views x {MANY_TRACKS} "
           f"tracks, {MANY_NOISE_PX} px) and the front end's stage profile")
     t0 = time.perf_counter()
-    many_launches, many_routes, many_views = run_many_views(device)
+    with counting_outlier_filter() as outlier_counts:
+        many_launches, many_routes, many_views = run_many_views(device)
+    many_launches.update(outlier_counts)
     phase_launches["phase9"] = {**many_launches, "camera_solve_routes": many_routes}
+    require_outlier_nn(outlier_counts, "phase9")
+    per_run = many_views["scale_demo"]["outlier_nn_launches"]
+    print(f"  phase 9: outlier_nn launches in one 64-view run {per_run}")
+    require(per_run == 20, f"phase 9: {per_run} outlier_nn launches in one 64-view run, not 20")
     print(f"  phase 9 wall time {time.perf_counter() - t0:.2f} s")
     print("== phase 10: the single-device entry point (orthosfm_torch/entry.py)")
     t0 = time.perf_counter()
@@ -2045,8 +2173,11 @@ def main() -> int:
           f"{GRID_PATH_TRACKS} tracks, {GRID_PATH_NOISE_PX} px): every BA on lm_fused, the "
           "global ones with K3's grid route inside")
     t0 = time.perf_counter()
-    grid_launches, fused_routes, grid_path = run_grid_path(device)
-    phase_launches["phase11"] = {**grid_launches, "lm_fused_routes": fused_routes}
+    with counting_outlier_filter() as outlier_counts:
+        grid_launches, fused_routes, grid_path = run_grid_path(device)
+    phase_launches["phase11"] = {**grid_launches, **outlier_counts,
+                                 "lm_fused_routes": fused_routes}
+    require_outlier_nn(outlier_counts, "phase11")
     print(f"  phase 11 wall time {time.perf_counter() - t0:.2f} s")
     print("== phase 12: TK's kernels (K5 tk_factorize, K6 tk_score) against their plain "
           "versions, a TK call with no host sync, TK per group")
@@ -2060,6 +2191,14 @@ def main() -> int:
         "phase9": (many_views["scale_demo"]["stages_s"]["pose/tk"], many_launches["tk_score"]),
         "phase11": (grid_path["stages_s"]["pose/tk"], grid_launches["tk_score"])})
     print(f"  phase 12 wall time {time.perf_counter() - t0:.2f} s")
+    print("== phase 13: the outlier filter's neighbour search (outlier_nn) against its plain "
+          "version")
+    t0 = time.perf_counter()
+    errs["outlier_nn"], outlier_shapes = run_outlier_nn(device)
+    rels["outlier_nn"] = None
+    times["outlier_nn"] = outlier_shapes[str(MANY_TRACKS)]
+    print(f"  outlier_nn_kernel: {outlier_ptxas}")
+    print(f"  phase 13 wall time {time.perf_counter() - t0:.2f} s")
     if args.parent:
         print(f"== top2 in turns against {args.parent}")
         real_times["turns"] = top2_turns(args.parent)
@@ -2078,11 +2217,12 @@ def main() -> int:
             "phase8", phase_launches["phase8"][key])
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE_OF[name],
-                "replaces": {**REPLACES, **TK_REPLACES}[name], "launches": main_path(name)[1],
+                "replaces": {**REPLACES, **TK_REPLACES, **OUTLIER_REPLACES}[name],
+                "launches": main_path(name)[1],
                 "launches_phase": main_path(name)[0],
                 "max_abs_err": errs[name], "max_rel_err": rels[name],
                 **{k: times[name][k] for k in keys}}
-               for name in (*REPLACES, *TK_REPLACES)]
+               for name in (*REPLACES, *TK_REPLACES, *OUTLIER_REPLACES)]
     for k in kernels:
         if k["name"] == "camera_solve_grid":  # its own launches: the sharded BA's
             k["launches"], k["launches_phase"] = phase_launches["phase8"][k["name"]], "phase8"
@@ -2099,6 +2239,12 @@ def main() -> int:
         if k["name"] in TK_REPLACES:  # phase 12's shapes; launches in every phase
             k["shapes"] = {label: r[k["name"]] for label, r in tk_shapes.items()}
             k["launches_by_phase"] = {phase: counts.get(k["name"], 0)
+                                      for phase, counts in phase_launches.items()}
+        if k["name"] in OUTLIER_REPLACES:  # phase 13's shapes; launches and calls by phase
+            k["shapes"] = outlier_shapes
+            k["ptxas"] = outlier_ptxas
+            k["launches_by_phase"] = {phase: {key: counts.get(key, 0)
+                                              for key in ("outlier_nn", "filter_calls")}
                                       for phase, counts in phase_launches.items()}
         if k["name"] in UNSHARDED_BA:
             # the same kernel at the shapes phase 9 gives it

@@ -2,26 +2,33 @@
 
 Port of orthosfm_tpu/ops/outliers.py (reference:
 src/triangulation/outlier_filtering.cpp): the O(N²) nearest-neighbour scan
-becomes a row-chunked pairwise-distance matmul sweep, and the per-feature
-reprojection filter becomes masked updates on the observation mask.
+becomes, on the card, one hand-written kernel (ops/outlier_kernels.py) and,
+on the CPU, a row-chunked pairwise-distance matmul sweep (its plain
+version); the per-feature reprojection filter becomes masked updates on the
+observation mask.
 """
 
 from __future__ import annotations
 
 import torch
 
+from orthosfm_torch import kernel_build
 from orthosfm_torch.config import FilterConfig
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.data import tracks as tracks_mod
-from orthosfm_torch.ops import triangulate
+from orthosfm_torch.ops import outlier_kernels, triangulate
 
 _NN_CHUNK = 2048  # rows per tile of the pairwise-distance sweep
 
 
-def nearest_neighbor_distances(pts, has_pt):
+def nearest_neighbor_distances(pts, has_pt, impl: str = "auto"):
     """Min distance from each pointed track to any other pointed track
-    (reference: outlier_filtering.cpp:14-38). Each (chunk × T) distance tile
-    is one matmul + reduction, so only O(chunk·T) memory is live."""
+    (reference: outlier_filtering.cpp:14-38). CUDA tensors ("auto") launch
+    outlier_kernels.outlier_nn or raise; CPU tensors and impl="torch" run
+    the plain version: each (chunk × T) distance tile is one matmul +
+    reduction, so only O(chunk·T) memory is live."""
+    if kernel_build.resolve_impl(impl, pts.device) != "torch":
+        return outlier_kernels.outlier_nn(pts, has_pt)
     T = pts.shape[0]
     sq = torch.sum(pts * pts, dim=-1)  # (T,)
     big = torch.tensor(1e12, dtype=pts.dtype, device=pts.device)

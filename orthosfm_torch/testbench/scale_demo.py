@@ -18,7 +18,8 @@ torch.cuda.synchronize(), with the launches of the BA kernels (lm_fused,
 one a BA of up to ba_kernels.FUSED_MAX_VIEWS (375) views, so every BA at 64
 and at 192 views, by the route of its camera solve; K1, K3 by route and K2
 an iteration of the larger ones), of the Tomasi-Kanade kernels (K5
-tk_factorize twice and K6 tk_score once a group) and the bundle adjustments
+tk_factorize twice and K6 tk_score once a group), of the outlier filter's
+neighbour-search kernel (outlier_nn, once a filter call) and the bundle adjustments
 it ran, by route (utils.profiling.BARecorder); then it
 measures Tomasi-Kanade's peak device memory on the first group, and runs
 once more under utils.profiling.collect_stages for the share of the wall time in each
@@ -84,6 +85,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     last (warm) run's; `wall_s_runs` has every run's, the first cold."""
     from orthosfm_torch.config import ReconstructionConfig, SolverType
     from orthosfm_torch.data import synthetic
+    from orthosfm_torch.ops import outlier_kernels
     from orthosfm_torch.pipeline import incremental
     from orthosfm_torch.pipeline.matching import checked_device
     from orthosfm_torch.solvers import ba_kernels as bk
@@ -98,6 +100,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     if cuda:
         bk.library()  # built at first use: outside the timed runs
         tkk.library()
+        outlier_kernels.library()
     build_s = time.perf_counter() - t0
 
     # Asymmetric blob: mirror disambiguation needs asymmetric geometry
@@ -111,6 +114,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         recorder = profiling.BARecorder()
         bk.reset_launch_counts()
         tkk.reset_launch_counts()
+        outlier_start = outlier_kernels.outlier_nn.launches
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         _sync(device)
@@ -122,6 +126,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         launches, routes = bk.launch_counts(), bk.route_launches()
         fused_routes = bk.fused_route_launches()
         tk_launches = tkk.launch_counts()
+        outlier_nn_launches = outlier_kernels.outlier_nn.launches - outlier_start
         peaks.append(torch.cuda.max_memory_allocated(device) if cuda else None)
 
     tk_mem = tk_peak_bytes(noisy, cfg, device)
@@ -152,6 +157,7 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         "camera_solve_routes": routes,
         "lm_fused_routes": fused_routes,
         "tk_launches": tk_launches,
+        "outlier_nn_launches": outlier_nn_launches,
         "ba": ba_calls,
         "peak_bytes": peaks[-1],
         "tk": tk_mem,

@@ -154,3 +154,17 @@ def tk_score_work(hypotheses: int, tracks: int, valid_tracks: int, views: int, s
     flops = hypotheses * valid_tracks * (63 * views + 18)
     nbytes = tracks * (8 * views + 1) + hypotheses * (36 * views + 1 + 8 * sample + 12) + 8 * views
     return float(flops), float(nbytes)
+
+
+# The outlier filter's neighbour search (csrc/outlier_kernels.cu): per pair
+# of pointed tracks, the plain version's expansion max(sq_i + sq_j - 2 dot,
+# 0) and the running minimum, 12 f32 operations (the 4-D dot a multiply and
+# three FMAs, the sum, the FMA of -2 dot, the clamp, the min; FMA as 2)
+OUTLIER_PAIR_FLOPS = 12
+
+
+def outlier_nn_work(tracks: int, pointed: int):
+    """(flops, bytes) of outlier_nn: OUTLIER_PAIR_FLOPS a pair of pointed
+    tracks; the points (16 bytes) and has_pt (1) read once, nn written
+    once."""
+    return float(OUTLIER_PAIR_FLOPS * pointed * pointed), float(tracks * (16 + 1 + 4))

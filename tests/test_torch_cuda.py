@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (orthosfm_torch/csrc/ba_kernels.cu and
-match_kernels.cu) against their plain PyTorch versions, on the card. Every test is marked `cuda` and skips
+"""The port's CUDA kernels (orthosfm_torch/csrc/ba_kernels.cu,
+match_kernels.cu and outlier_kernels.cu) against their plain PyTorch versions, on the card. Every test is marked `cuda` and skips
 where torch.cuda.is_available() is false.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -16,6 +16,15 @@ within 1e-5 absolute in both directions (the kernel's FMA chain and
 cuBLAS's GEMM sum in different orders) and the same index except on rows
 whose best and second d2 lie within 1e-5 of each other; the kernel against
 itself (a swapped pair table, a second run) bit for bit.
+
+outlier_nn: bit for bit with the plain version on the card (it takes the
+plain version's squared norms and rounds its dots as the f32 GEMM does), for
+points in rows and in columns of memory, each squared distance so also
+within OUTLIER_TOL_ULPS ulp of |p_i|² + max_j |p_j|² of it (the expansion's
+own rounding, the bound the CPU tests hold the host build to), and the
+outlier filter's kept tracks identical to the plain route's on the
+benchmark's cells' inputs and chip_smoke.py phase 9's blob, one launch a
+filter call.
 
 The last tests run the BA bench's routes (orthosfm_torch/bench.py) by their
 launches, entry() at its real size, and ba.run's host side: no call that
@@ -1303,3 +1312,134 @@ def test_ba_run_does_not_synchronize_the_host(dev, kind):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert int(r.iterations) == 5
+
+
+# ---------------------------------------------------------------------------
+# The outlier filter's neighbour search (csrc/outlier_kernels.cu)
+
+OUTLIER_TOL_ULPS = 4
+
+
+def _nn_case(name, T, dev):
+    """(points (T, 4) f32 with w = 1 on the card, has_pt (T,) bool, twins:
+    index pairs of exact duplicates), from numpy, seeded."""
+    rng = np.random.default_rng(T + len(name))
+    pts = np.ones((T, 4), np.float32)
+    pts[:, :3] = rng.normal(scale=0.7, size=(T, 3))
+    has = rng.random(T) > 0.2
+    twins = []
+    if name == "duplicates":
+        for a, b in ((3, T - 50), (17, 18), (T // 2, T - 1)):
+            pts[b] = pts[a]
+            has[a] = has[b] = True
+            twins.append((a, b))
+    elif name == "lone":
+        has[:] = False
+        has[T // 3] = True
+    elif name == "all_unpointed":
+        has[:] = False
+    pts = torch.from_numpy(pts).to(dev)
+    if name == "column_major":  # as ba.run hands the points back
+        pts = pts.T.contiguous().T
+    return pts, torch.from_numpy(has).to(dev), twins
+
+
+@pytest.mark.parametrize("T", [700, 7800, 50000])
+@pytest.mark.parametrize("name", ["holes", "duplicates", "lone", "all_unpointed",
+                                  "column_major"])
+def test_outlier_nn_matches_its_plain_version(dev, name, T):
+    """The kernel against the plain sweep on the card, bit for bit (700 is
+    ragged against the query blocks and the stages), one launch a call and
+    no host sync."""
+    from orthosfm_torch.ops import outlier_kernels as okern
+    from orthosfm_torch.ops import outliers
+
+    pts, has, twins = _nn_case(name, T, dev)
+    ref = outliers.nearest_neighbor_distances(pts, has, impl="torch")
+    before = okern.outlier_nn.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = outliers.nearest_neighbor_distances(pts, has)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert okern.outlier_nn.launches == before + 1
+    assert torch.equal(got, ref)  # rounded where the plain sweep rounds
+    sq = (pts.double() ** 2).sum(1)
+    top = float(sq[has].max()) if bool(has.any()) else 0.0
+    tol = OUTLIER_TOL_ULPS * torch.finfo(torch.float32).eps * (sq + top)
+    gap = (got.double() ** 2 - ref.double() ** 2).abs()
+    assert bool((gap[has] <= tol[has]).all()), float(gap[has].max())
+    assert torch.equal(got[~has], torch.zeros_like(got[~has]))
+    if int(has.sum()) == 1:
+        assert float(got[has]) == float(ref[has]) == 1e6
+    others = has.clone()
+    for a, b in twins:
+        # the twin is the nearest, at the expansion's rounding of 0
+        assert float(got[a]) == float(got[b]) and float(got[a]) ** 2 <= float(tol[a])
+        others[a] = others[b] = False
+    assert bool((got[others] > 0).all())
+
+
+def _cell_job(cell, dev):
+    """(tracks, widths, heights, config) of the first input of a benchmark
+    cell's mix (sfm_bench/mixes/CELL.json) at a fixed seed, as the harness
+    hands it to run_pose_estimation."""
+    import json
+    import pathlib
+
+    from sfm_bench import port
+    from sfm_bench.inputs import generate
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "sfm_bench"
+    mix = json.loads((root / "mixes" / f"{cell}.json").read_text())
+    fields = json.loads((root / "configs" / "from_tracks.json").read_text())["reconstruction"]
+    inp = generate.make_inputs(mix, 2147485011, "", dev)[0]
+    cfg = port.reconstruction_config(fields, inp.solver, inp.program_seed)
+    return port.trackset(inp.obs, dev), inp.wh[:, 0], inp.wh[:, 1], cfg
+
+
+def _phase9_job(dev):
+    """chip_smoke.py phase 9's reconstruction (testbench.scale_demo): 64
+    views x 50 000 blob tracks at 1 px."""
+    from orthosfm_torch.config import ReconstructionConfig, SolverType
+    from orthosfm_torch.data import synthetic
+
+    ds = synthetic.generate_dataset(synthetic.blob_cloud(50000, seed=0), num_views=64, seed=0,
+                                    device=dev)
+    noisy = synthetic.add_observation_noise(ds.tracks, 1.0, np.random.default_rng(0))
+    w = np.full(64, 2048.0)
+    return noisy, w, w, ReconstructionConfig(solver=SolverType.ORTHO_QUATERNION, seed=0)
+
+
+@pytest.mark.parametrize("job", ["sweep16", "many64", "phase9"])
+def test_outlier_filter_keeps_the_plain_routes_tracks(dev, monkeypatch, job):
+    """At every filter_outlier_tracks call of a whole pose estimation, the
+    kernel's route (one launch) and the plain route keep the same tracks
+    (alive and has_point identical); phase 9's 64-view run calls it 20
+    times."""
+    from orthosfm_torch.ops import outlier_kernels as okern
+    from orthosfm_torch.ops import outliers
+    from orthosfm_torch.pipeline import incremental
+
+    tracks, w, h, cfg = _phase9_job(dev) if job == "phase9" else _cell_job(job, dev)
+    real_filter, plain = outliers.filter_outlier_tracks, outliers.nearest_neighbor_distances
+    calls = []
+
+    def both(ts, fcfg):
+        before = okern.outlier_nn.launches
+        got = real_filter(ts, fcfg)
+        launched = okern.outlier_nn.launches - before
+        with monkeypatch.context() as m:
+            m.setattr(outliers, "nearest_neighbor_distances",
+                      functools.partial(plain, impl="torch"))
+            ref = real_filter(ts, fcfg)
+        calls.append((launched, torch.equal(got.alive, ref.alive),
+                      torch.equal(got.has_point, ref.has_point), int(ref.alive.sum())))
+        return got
+
+    monkeypatch.setattr(outliers, "filter_outlier_tracks", both)
+    incremental.run_pose_estimation(tracks, w, h, cfg, verbose=False)
+    assert calls and all(c[:3] == (1, True, True) for c in calls), calls
+    if job == "phase9":
+        assert len(calls) == 20

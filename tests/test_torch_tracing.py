@@ -3,7 +3,7 @@ span records with parents and group indices, the host-sync counter by span
 and call site, the BA and TK call records and the read-out a collector keeps
 as it closes (profiling.traces()), and the benchmark's readers of them
 (sfm_bench/layer_metrics/host_syncs.py, triangulate_s.py,
-lm_fused_obs_it_per_us.py).
+lm_fused_obs_it_per_us.py, outlier_nn_ms.py).
 
 On the CPU: outside a collector nothing is recorded, no clock is read and
 the sync debug mode is left alone; a small run_pose_estimation nests its
@@ -435,6 +435,23 @@ def test_the_readers_on_hand_made_records(monkeypatch):
     assert _read("host_syncs", records) is None
     assert _read("triangulate_s", records) is None
     assert _read("lm_fused_obs_it_per_us", records) is None
+
+
+def test_outlier_nn_ms_reads_the_kernels_device_time():
+    """outlier_nn_ms: device ms a profiled job in outlier_nn_kernel (the
+    name as torch.profiler gives it), over the jobs inside the profiled
+    part; None where the trace holds no such kernel (the parent's program)
+    or no trace was taken."""
+    jobs = [_job(0.0, 1.0, {}), _job(1.0, 2.0, {}), _job(2.0, 3.0, {})]
+    name = ("(anonymous namespace)::outlier_nn_kernel(int, int, float const*, "
+            "unsigned char const*, float, unsigned int*, float*)")
+    ops = [(name, 0.1, 0.1007), (name, 1.2, 1.2009), ("lm_fused_kernel", 0.3, 0.4),
+           ("at::native::elementwise_kernel", 0.5, 0.6)]
+    records = {"jobs": jobs, "device": {"ops": ops, "start": 0.0, "end": 2.0}}
+    assert _read("outlier_nn_ms", records) == pytest.approx((0.7 + 0.9) / 2)
+    records["device"]["ops"] = ops[2:]
+    assert _read("outlier_nn_ms", records) is None
+    assert _read("outlier_nn_ms", {"jobs": jobs, "device": None}) is None
 
 
 def test_benchmark_dry_run_reports_the_new_metrics():
