@@ -443,7 +443,9 @@ def run(cams: cam_mod.CameraSet, points4, obs, mask,
     res = BAResult(cams=cams_f, points=pT.T[:T], cost=final[bk.COST],
                    initial_cost=final[bk.INIT_COST], iterations=final[bk.ITERS].to(torch.int32))
     if recorder is not None:
-        recorder.add(V, T, route, config.max_iterations, mask, final, t0, time.monotonic())
+        solve_route = bk.fused_solve_route(V, obs.device) if route == "fused" else None
+        recorder.add(V, T, route, solve_route, config.max_iterations, mask, final, t0,
+                     time.monotonic())
     return res
 
 

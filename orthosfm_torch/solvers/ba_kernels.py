@@ -42,7 +42,8 @@ A wrapper given CPU tensors calls the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute (``lm_solve.launches``, ``schur_assemble.launches``,
 ``camera_solve.launches`` and ``camera_solve.route_launches`` by route,
-``lm_solve.route_launches`` by the route of the camera solve inside it,
+``lm_solve.route_launches`` by the route of the camera solve inside it
+(fused_solve_route, which BARecorder's call records name too),
 ``PointUpdateCost.launches``, ``lm_accept.launches``); ``launch_counts()``
 reads them by kernel name.
 
@@ -703,6 +704,16 @@ def fused_fits(V: int, T: int, device) -> bool:
     return 4 * sum(_fused_scratch(V, T, True)) <= total
 
 
+def fused_solve_route(V: int, device, lib=None):
+    """The route of lm_fused's camera solve at V views (one of
+    CAMERA_SOLVE_ROUTES: K3's own rule, which the launch's plan takes), or
+    None off the card, where lm_solve runs its plain version. ``lib``:
+    another build of the kernels in place of library()."""
+    if torch.device(device).type != "cuda":
+        return None
+    return CAMERA_SOLVE_ROUTES[(lib or library()).osfm_camera_solve_route(V, -1)]
+
+
 def lm_solve(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_points,
              cfg: LMConfig, max_iterations: int, lib=None):
     """lm_fused: the whole LM solve of lm_iterate, in one cooperative launch,
@@ -739,7 +750,7 @@ def lm_solve(kind, pT, obsT, maskT, rot, camp, free, huber_delta, optimize_point
         cfg.lam_up, cfg.lam_down, cfg.min_lam, cfg.max_lam, _stream())
     _raise_on(err, "lm_solve")
     lm_solve.launches += 1
-    lm_solve.route_launches[CAMERA_SOLVE_ROUTES[lib.osfm_camera_solve_route(V, -1)]] += 1
+    lm_solve.route_launches[fused_solve_route(V, dev, lib)] += 1
     return state
 
 

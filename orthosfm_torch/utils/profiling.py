@@ -353,12 +353,16 @@ _BA_RECORDER: contextvars.ContextVar = contextvars.ContextVar("orthosfm_torch_ba
 
 class BARecorder:
     """Records every solvers.ba.run call made inside `recording()`: its
-    camera and track counts, its route ("fused", "kernel" or "torch"),
-    max_iterations, its observation count (the mask's sum, on the device),
-    its final LM state (ba_kernels.STATE_SIZE floats on the device, which
-    ba.run allocates anew each call and does not write once it returns),
-    the group index and span of the active collector (None without one),
-    and its start and end on time.monotonic: the host time
+    camera and track counts, its route ("fused", "kernel" or "torch"), the
+    route of lm_fused's camera solve (`solve_route`: "warp", "cta",
+    "cluster" or "grid", ba_kernels.fused_solve_route; None on the other
+    routes and on the CPU), max_iterations, its observation count (the
+    mask's sum, on the device) and the sum over its tracks of the square of
+    the views that observe each (`sum_views_sq`, on the device: the Schur
+    term's work), its final LM state (ba_kernels.STATE_SIZE floats on the
+    device, which ba.run allocates anew each call and does not write once
+    it returns), the group index and span of the active collector (None
+    without one), and its start and end on time.monotonic: the host time
     until it returned (its enqueue time on the card, where ba.run does not
     wait for the device). The device values are read once, by the first of
     summary() and records() after the last call. A recorder opened inside a
@@ -379,35 +383,40 @@ class BARecorder:
         finally:
             _BA_RECORDER.reset(token)
 
-    def add(self, views: int, tracks: int, route: str, max_iterations: int,
-            mask: torch.Tensor, state: torch.Tensor, t0: float, t1: float):
+    def add(self, views: int, tracks: int, route: str, solve_route: Optional[str],
+            max_iterations: int, mask: torch.Tensor, state: torch.Tensor, t0: float,
+            t1: float):
         c = _STAGES.get()
         parent, group = c.span() if c is not None else (None, None)
-        self.calls.append((views, tracks, route, max_iterations, torch.sum(mask), state,
+        per_track = torch.sum(mask, dim=1)
+        counts = torch.stack([torch.sum(per_track), torch.sum(per_track * per_track)])
+        self.calls.append((views, tracks, route, solve_route, max_iterations, counts, state,
                            group, parent, t0, t1))
 
     def _read(self) -> List[list]:
-        """Each call's observation count and final state, in one read of the
-        device (not counted as a host sync of a collector)."""
+        """Each call's observation count, its sum of squared views a track
+        and its final state, in one read of the device (not counted as a
+        host sync of a collector)."""
         if len(self._host) != len(self.calls):
             with _uncounted():
-                obs = torch.stack([c[4] for c in self.calls]).to(torch.float64)
-                state = torch.stack([c[5] for c in self.calls]).to(torch.float64)
-                self._host = torch.cat([obs[:, None], state], dim=1).cpu().tolist()
+                counts = torch.stack([c[5] for c in self.calls]).to(torch.float64)
+                state = torch.stack([c[6] for c in self.calls]).to(torch.float64)
+                self._host = torch.cat([counts, state], dim=1).cpu().tolist()
         return self._host
 
     def records(self) -> List[dict]:
-        """A dict a call: views, tracks, observations, route,
-        max_iterations, iterations (that worked), lam, cost, initial_cost,
-        done, group, parent, t0, t1."""
+        """A dict a call: views, tracks, observations, sum_views_sq, route,
+        solve_route, max_iterations, iterations (that worked), lam, cost,
+        initial_cost, done, group, parent, t0, t1."""
         from orthosfm_torch.solvers import ba_kernels as bk
 
         out = []
-        for (views, tracks, route, max_it, _, _, group, parent, t0, t1), row in zip(
+        for (views, tracks, route, solve_route, max_it, _, _, group, parent, t0, t1), row in zip(
                 self.calls, self._read()):
-            s = row[1:]
+            s = row[2:]
             out.append({"views": views, "tracks": tracks, "observations": int(row[0]),
-                        "route": route, "max_iterations": max_it,
+                        "sum_views_sq": int(row[1]), "route": route,
+                        "solve_route": solve_route, "max_iterations": max_it,
                         "iterations": int(s[bk.ITERS]), "lam": s[bk.LAM], "cost": s[bk.COST],
                         "initial_cost": s[bk.INIT_COST], "done": bool(s[bk.DONE]),
                         "group": group, "parent": parent, "t0": t0, "t1": t1})
@@ -415,27 +424,32 @@ class BARecorder:
 
     def summary(self) -> dict:
         """Calls, LM iterations launched and those that did work, and the
-        same counts by the calls' camera count (`by_views`) and by route
-        (`by_route`, with each route's host time). The per-iteration routes
-        launch max_iterations iterations a call, converged or not; the fused
-        route (one launch a call) runs the iterations that work and stops,
-        so there the two counts are the same. enqueue_ms_per_it: the host's
-        time per launched iteration of the per-iteration routes (0 without
-        one)."""
+        same counts by the calls' camera count (`by_views`), by route
+        (`by_route`, with each route's host time) and, for lm_fused's calls
+        on the card, by the route of its camera solve (`by_solve_route`,
+        with host time too). The per-iteration routes launch max_iterations
+        iterations a call, converged or not; the fused route (one launch a
+        call) runs the iterations that work and stops, so there the two
+        counts are the same. enqueue_ms_per_it: the host's time per launched
+        iteration of the per-iteration routes (0 without one)."""
         by_views: Dict[int, dict] = {}
         by_route: Dict[str, dict] = {}
+        by_solve_route: Dict[str, dict] = {}
         calls = self.records()
         for c in calls:
             w = c["iterations"]
             launched = w if c["route"] == "fused" else c["max_iterations"]
-            for key, table in ((c["views"], by_views), (c["route"], by_route)):
+            keyed = [(c["views"], by_views), (c["route"], by_route)]
+            if c["solve_route"] is not None:
+                keyed.append((c["solve_route"], by_solve_route))
+            for key, table in keyed:
                 row = table.setdefault(key, {"ba_calls": 0, "iterations_launched": 0,
                                              "iterations_worked": 0})
                 row["ba_calls"] += 1
                 row["iterations_launched"] += launched
                 row["iterations_worked"] += w
-            r = by_route[c["route"]]
-            r["host_ms"] = r.get("host_ms", 0.0) + (c["t1"] - c["t0"]) * 1e3
+                if table is not by_views:
+                    row["host_ms"] = row.get("host_ms", 0.0) + (c["t1"] - c["t0"]) * 1e3
         per_it = [r for k, r in by_route.items() if k != "fused"]
         per_it_launched = sum(r["iterations_launched"] for r in per_it)
         return {"ba_calls": len(calls),
@@ -443,7 +457,7 @@ class BARecorder:
                 "iterations_worked": sum(c["iterations"] for c in calls),
                 "enqueue_ms_per_it": (sum(r["host_ms"] for r in per_it) / per_it_launched
                                       if per_it_launched else 0.0),
-                "by_views": by_views, "by_route": by_route}
+                "by_views": by_views, "by_route": by_route, "by_solve_route": by_solve_route}
 
 
 def ba_recorder():

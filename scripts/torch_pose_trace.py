@@ -8,7 +8,9 @@ read-out of each traced job, traces()), per-job means of:
 - the spans' time by stage and group, and the slowest groups with their
   TK call and local BA sizes;
 - the BA calls by kind (local or global: the span that made them) with
-  their sizes, iterations, final damping and cost;
+  their sizes (with the sum over their tracks of the squared views that
+  observe each, the Schur term's work), iterations, final damping and
+  cost, and the route of lm_fused's camera solve;
 - by the input's noise level, the TK fallbacks, the local BAs' sizes and
   the final BA's iterations, damping and convergence;
 - the TK calls' sizes.
@@ -49,12 +51,14 @@ def _mean(xs):
 
 
 def _ba_row(calls, n):
-    """A group of BA calls: calls a job, sizes, iterations, and how they
-    ended (final damping, cost over initial cost, convergence)."""
+    """A group of BA calls: calls a job, sizes, iterations, how they ended
+    (final damping, cost over initial cost, convergence), and calls a job by
+    the route of lm_fused's camera solve ("None": not lm_fused)."""
     return {"calls_a_job": len(calls) / n,
             "views": sorted({c["views"] for c in calls}),
             "tracks_mean": _mean(c["tracks"] for c in calls),
             "observations_mean": _mean(c["observations"] for c in calls),
+            "sum_views_sq_mean": _mean(c["sum_views_sq"] for c in calls),
             "iterations_mean": _mean(c["iterations"] for c in calls),
             "at_max_iterations": sum(c["iterations"] >= c["max_iterations"] for c in calls),
             "done_share": _mean(c["done"] for c in calls),
@@ -62,7 +66,9 @@ def _ba_row(calls, n):
             "cost_over_initial_mean": _mean(c["cost"] / c["initial_cost"] for c in calls
                                             if c["initial_cost"] > 0),
             "host_ms_mean": _mean((c["t1"] - c["t0"]) * 1e3 for c in calls),
-            "routes": sorted({c["route"] for c in calls})}
+            "routes": sorted({c["route"] for c in calls}),
+            "solve_routes": {str(r): sum(c["solve_route"] == r for c in calls) / n
+                             for r in sorted({c["solve_route"] for c in calls}, key=str)}}
 
 
 def _kind(trace, call):

@@ -20,6 +20,7 @@ card and no JAX run it as
     python -m pytest --noconftest tests/test_torch_tracing.py -q
 """
 
+import dataclasses
 import gc
 import importlib.util
 import inspect
@@ -173,7 +174,7 @@ def test_ba_call_records_keep_size_and_final_state():
     assert profiling.traces()[-1]["ba_calls"] == got
     s = rec.summary()
     assert set(s) == {"ba_calls", "iterations_launched", "iterations_worked",
-                      "enqueue_ms_per_it", "by_views", "by_route"}
+                      "enqueue_ms_per_it", "by_views", "by_route", "by_solve_route"}
     assert s["iterations_worked"] == int(r0.iterations) + int(r1.iterations)
     assert s["by_route"]["torch"]["host_ms"] == pytest.approx(
         sum(c["t1"] - c["t0"] for c in got) * 1e3)
@@ -309,11 +310,11 @@ def test_the_pose_trace_script_reads_every_record():
         return {"name": name, "t0": t0, "t1": t1, "parent": parent, "group": group,
                 "syncs": syncs, "self_syncs": own}
 
-    def call(parent, group, obs, its, done, lam, cost):
-        return {"views": 3, "tracks": 100, "observations": obs, "route": "fused",
-                "max_iterations": 10, "iterations": its, "lam": lam, "cost": cost,
-                "initial_cost": 2 * cost, "done": done, "group": group, "parent": parent,
-                "t0": 0.0, "t1": 0.001}
+    def call(parent, group, obs, its, done, lam, cost, solve_route="warp"):
+        return {"views": 3, "tracks": 100, "observations": obs, "sum_views_sq": 3 * obs,
+                "route": "fused", "solve_route": solve_route, "max_iterations": 10,
+                "iterations": its, "lam": lam, "cost": cost, "initial_cost": 2 * cost,
+                "done": done, "group": group, "parent": parent, "t0": 0.0, "t1": 0.001}
 
     def job(i, slow):
         spans = [span("pose/tk", 0.0, 0.1, None, 0, 3, 3),
@@ -327,7 +328,7 @@ def test_the_pose_trace_script_reads_every_record():
                  {"stage": "pose/local_ba", "site": "c.py:3", "syncs": 1},
                  {"stage": None, "site": "d.py:4", "syncs": 2}]
         calls = [call(3, 0, 300 + i, 8, True, 1e-3, 1.0),
-                 call(4, None, 900, 10, i == 0, 1e2, 4.0)]
+                 call(4, None, 900, 10, i == 0, 1e2, 4.0, "grid" if i == 0 else None)]
         tks = [{"group": 0, "views": [0, 1, 2], "tracks": 50 + i, "hypotheses": 241,
                 "fallback": i == 1}]
         return ({"input": i, "error": None, "wall_s": 0.5 + slow},
@@ -346,6 +347,8 @@ def test_the_pose_trace_script_reads_every_record():
                                                                                        301)
     local, glob = got["ba"]["pose/local_ba"], got["ba"]["pose/global_ba"]
     assert local["observations_mean"] == 300.5 and local["done_share"] == 1
+    assert local["sum_views_sq_mean"] == 901.5 and local["solve_routes"] == {"warp": 1}
+    assert glob["solve_routes"] == {"None": 0.5, "grid": 0.5}
     assert glob["at_max_iterations"] == 2 and glob["done_share"] == 0.5
     assert glob["lam_median"] == 1e2 and glob["cost_over_initial_mean"] == 0.5
     assert got["tk"]["fallbacks"] == 1
@@ -452,6 +455,157 @@ def test_outlier_nn_ms_reads_the_kernels_device_time():
     records["device"]["ops"] = ops[2:]
     assert _read("outlier_nn_ms", records) is None
     assert _read("outlier_nn_ms", {"jobs": jobs, "device": None}) is None
+
+
+def _fused(t0, views, tracks, observations, sum_views_sq, iterations, solve_route):
+    return {"route": "fused", "views": views, "tracks": tracks, "observations": observations,
+            "sum_views_sq": sum_views_sq, "iterations": iterations,
+            "solve_route": solve_route, "t0": t0}
+
+
+def test_the_grid_readers_on_hand_made_records(monkeypatch):
+    """lm_fused_grid_ms and lm_fused_grid_roofline_pct pair the profiled
+    jobs' fused calls with the trace's lm_fused launches in order and read
+    the grid-route ones; a launch's template argument, where the trace keeps
+    it, must agree with its call's route. None for records without
+    solve_route (a program that does not record it), a launch count that
+    disagrees, instantiations that disagree, no grid call, or no trace."""
+    from sfm_bench import roofline as broof
+
+    jobs = [_job(0.0, 1.0, {}), _job(1.0, 2.0, {}), _job(2.5, 3.0, {})]
+    grid_a = _fused(0.5, 192, 4096, 500_000, 80_000_000, 4, "grid")
+    grid_b = _fused(1.5, 192, 4096, 786_432, 150_994_944, 6, "grid")
+    outs = [_readout(0.01, 0.99, None, [_fused(0.2, 3, 4096, 12_000, 36_000, 9, "warp"),
+                                        grid_a, _ba("kernel", 10, 3)]),
+            _readout(1.01, 1.99, None, [_fused(1.2, 40, 4096, 90_000, 500_000, 7, "cluster"),
+                                        grid_b]),
+            _readout(2.51, 2.99, None, [_fused(2.7, 192, 4096, 786_432, 150_994_944, 5,
+                                               "grid")])]
+    monkeypatch.setattr(profiling, "traces", lambda: outs)
+
+    def op(arg, t0, dt):
+        tmpl = "" if arg is None else f"<{arg}>"
+        return (f"void (anonymous namespace)::lm_fused_kernel{tmpl}((anonymous namespace)::"
+                f"FusedArgs)", t0, t0 + dt)
+
+    def ops(args):
+        return [op(args[0], 0.2, 1e-4), op(args[1], 0.5, 0.010), op(args[2], 1.2, 2e-3),
+                op(args[3], 1.5, 0.014), ("void other_kernel(int)", 0.3, 0.4)]
+
+    named = ["false", "true", "false", "true"]
+    records = {"jobs": jobs, "device": {"ops": ops(named), "start": 0.0, "end": 2.0}}
+    # jobs 0 and 1 lie in the profiled part; the grid launches took 10 and 14 ms
+    assert _read("lm_fused_grid_ms", records) == pytest.approx((10 + 14) / 2)
+    floors = [broof.floor_s(*broof.solve_work(c["views"], c["tracks"], c["observations"],
+                                              c["sum_views_sq"], c["iterations"]))
+              for c in (grid_a, grid_b)]
+    pct = _read("lm_fused_grid_roofline_pct", records)
+    assert pct == pytest.approx(100 * sum(floors) / 0.024) and 0 < pct < 100
+    # grid_b's floor by hand: operations bound at 192 views
+    n = 6 * 192
+    fma = 18 * 786_432 + 6 * (54 * 150_994_944 + 9 * 786_432 + 360 * 786_432
+                              + n ** 3 / 6 + n * n)
+    assert floors[1] == pytest.approx(2 * fma / 67e12)
+    # no template argument in the names: the same, by pairing alone
+    records["device"]["ops"] = ops([None] * 4)
+    assert _read("lm_fused_grid_ms", records) == pytest.approx(12.0)
+    # instantiations that disagree with the routes, or one launch too many
+    records["device"]["ops"] = ops(["true", "false", "false", "true"])
+    assert _read("lm_fused_grid_ms", records) is None
+    records["device"]["ops"] = ops(named) + [op("false", 1.8, 1e-4)]
+    for name in ("lm_fused_grid_ms", "lm_fused_grid_roofline_pct"):
+        assert _read(name, records) is None
+    # records without the new fields (the parent's program)
+    records["device"]["ops"] = ops(named)
+    old = [dict(t, ba_calls=[{k: v for k, v in c.items()
+                              if k not in ("solve_route", "sum_views_sq")}
+                             for c in t["ba_calls"]]) for t in outs]
+    monkeypatch.setattr(profiling, "traces", lambda: old)
+    for name in ("lm_fused_grid_ms", "lm_fused_grid_roofline_pct"):
+        assert _read(name, records) is None
+    # no grid call, and no trace
+    small = [dict(t, ba_calls=[c for c in t["ba_calls"] if c.get("solve_route") != "grid"])
+             for t in outs]
+    monkeypatch.setattr(profiling, "traces", lambda: small)
+    records["device"]["ops"] = [o for o in ops(named) if "<true>" not in o[0]]
+    assert _read("lm_fused_grid_ms", records) is None
+    monkeypatch.setattr(profiling, "traces", lambda: outs)
+    for name in ("lm_fused_grid_ms", "lm_fused_grid_roofline_pct"):
+        assert _read(name, {"jobs": jobs, "device": None}) is None
+
+
+def test_ba_call_records_count_squared_views_a_track():
+    """A BA call record's sum_views_sq is the sum over its tracks of the
+    square of the views its mask holds for each (hand-counted here), read
+    with the observation count; solve_route is None on the CPU's routes,
+    and summary()'s by_solve_route counts none."""
+    cams, points, obs, mask = make_problem("quat", "cpu", 4, 150)
+    mask = torch.zeros_like(mask)
+    mask[:50] = True  # 50 tracks in 4 views
+    mask[50:100, :2] = True  # 50 in 2
+    mask[100:, :3] = True  # 50 in 3
+    rec = profiling.BARecorder()
+    cfg = BundleAdjustConfig(max_iterations=3)
+    with rec.recording():
+        ba.run(cams, points, obs, mask, True, cfg)
+        ba.run(cams, points, obs, mask, True, dataclasses.replace(cfg, impl="fused"))
+    got = rec.records()
+    assert [(c["route"], c["solve_route"]) for c in got] == [("torch", None), ("fused", None)]
+    for c in got:
+        assert c["observations"] == 50 * 4 + 50 * 2 + 50 * 3
+        assert c["sum_views_sq"] == 50 * 16 + 50 * 4 + 50 * 9
+    assert rec.summary()["by_solve_route"] == {}
+
+
+def test_ba_call_records_name_lm_fuseds_camera_solve_route(monkeypatch):
+    """ba.run records the route of lm_fused's camera solve that
+    ba_kernels.fused_solve_route names (K3's rule, from the kernels'
+    library on the card) for its fused calls, None for the others; the
+    summary counts the fused calls by it, with their host time."""
+    from orthosfm_torch.solvers import ba_kernels as bk
+
+    class Lib:
+        def osfm_camera_solve_route(self, V, route):
+            assert route == -1
+            return 3 if V >= 120 else 1
+
+    assert bk.fused_solve_route(192, "cpu") is None
+    assert bk.fused_solve_route(192, "cuda", Lib()) == "grid"
+    assert bk.fused_solve_route(40, torch.device("cuda"), Lib()) == "cta"
+    monkeypatch.setattr(bk, "fused_solve_route",
+                        lambda V, device, lib=None: "grid" if V >= 4 else "warp")
+    rec = profiling.BARecorder()
+    cfg = BundleAdjustConfig(max_iterations=3)
+    with rec.recording():
+        for v, impl in ((4, "fused"), (3, "fused"), (4, "torch")):
+            ba.run(*make_problem("quat", "cpu", v, 60), True,
+                   dataclasses.replace(cfg, impl=impl))
+    got = rec.records()
+    assert [c["solve_route"] for c in got] == ["grid", "warp", None]
+    s = rec.summary()
+    assert set(s["by_solve_route"]) == {"grid", "warp"}
+    for c, route in zip(got[:2], ("grid", "warp")):
+        row = s["by_solve_route"][route]
+        assert row["ba_calls"] == 1 and row["iterations_worked"] == c["iterations"]
+        assert row["host_ms"] == pytest.approx((c["t1"] - c["t0"]) * 1e3)
+
+
+def test_benchmark_dry_run_of_ring192_reports_neither_grid_metric():
+    """The 192-view cell's traced dry run on the CPU (its toy size) ends
+    correct; the grid route's metrics read nothing there (no device trace,
+    no lm_fused)."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "sfm_bench/run.py", "--workload", "from_tracks.ring192", "--seed",
+         "2147483901", "--seconds", "1", "--trace", "1", "--dry-run"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["correct"] and line["failed"] == 0 and line["metrics"] == {}
+    assert set(line["checks"]) == {"cost_gap_px2", "pose_gap_deg", "point_rms_px",
+                                   "gt_bar_share"}
+    assert "cpu_lm_fused_grid_ms" not in line["dry_run"]
+    assert "cpu_lm_fused_grid_roofline_pct" not in line["dry_run"]
 
 
 def test_benchmark_dry_run_reports_the_new_metrics():

@@ -172,6 +172,31 @@ def test_lm_solve_work_is_the_stages_an_iteration():
     assert "time_lm_solve" in roof_timing and "time_lm_solve" in smoke_timing
 
 
+@pytest.mark.parametrize("views", [3, 64, 192])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_the_benchmarks_solve_count_is_lm_solve_work(views, ragged):
+    """sfm_bench/roofline.py, the benchmark's own count (it imports nothing
+    of the program), gives lm_solve_work's flops and bytes from a BA
+    record's numbers: views, tracks, observations, the sum of squared views
+    a track and the iterations; with and without point optimization."""
+    from sfm_bench import roofline as broof
+
+    T = 257
+    maskT = torch.ones((views, T))
+    if ragged:
+        gen = torch.Generator().manual_seed(views)
+        maskT = (torch.rand((views, T), generator=gen) < 0.6).float()
+        maskT[:, :5] = 0.0  # tracks seen by no view
+        maskT[: views - 1, 5:9] = 0.0  # by one view
+    m = maskT.sum(0)
+    for opt in (True, False):
+        flops, nbytes, _ = roofline.lm_solve_work(maskT, opt, 11)
+        got = broof.solve_work(views, T, int(m.sum()), int((m * m).sum()), 11, opt)
+        assert got[0] == pytest.approx(flops, rel=1e-12) and got[1] == nbytes
+    assert broof.F32_FLOPS == roofline.F32_FLOPS and broof.HBM_BYTES == roofline.HBM_BYTES
+    assert broof.floor_s(flops, nbytes) * 1e3 == pytest.approx(roofline.bound(flops, nbytes)[0])
+
+
 def test_save_match_visualization_writes_the_jax_png_bytes(tmp_path):
     rng = np.random.default_rng(0)
     im1 = rng.integers(0, 256, (40, 60, 3), dtype=np.uint8)
