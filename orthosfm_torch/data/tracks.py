@@ -237,5 +237,5 @@ def restrict_to_columns(tracks: TrackSet, cols, only_full_size: bool,
 
 
 def incidence(tracks: TrackSet):
-    """(T, V) float incidence matrix for group scoring (alive tracks only)."""
-    return (tracks.obs_mask & tracks.alive[:, None]).to(torch.float32)
+    """(T, V) bool incidence matrix for group scoring (alive tracks only)."""
+    return tracks.obs_mask & tracks.alive[:, None]

@@ -287,7 +287,7 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
     pristine_tracks = tracks
 
     with stage("pose/grouping"):
-        inc = tracks_mod.incidence(tracks).cpu().numpy().astype(bool)
+        inc = tracks_mod.incidence(tracks).cpu().numpy()
         groups = grouping.build_groups(view_ids, inc, config.group_size)
     if verbose:
         print(f"Built {len(groups)} groups: {groups}")

@@ -99,14 +99,15 @@ class StageTrace:
     start and end on time.monotonic, the index of its parent span, the
     group index of run_pose_estimation's loop, the host syncs inside it with
     and without its child spans), the host syncs by stage and call site, a
-    record a Tomasi-Kanade call, and the BARecorders opened inside the
-    collector. host_syncs is None where the device is not a CUDA device
-    (nothing counts syncs there)."""
+    record a group schedule and a Tomasi-Kanade call, and the BARecorders
+    opened inside the collector. host_syncs is None where the device is not
+    a CUDA device (nothing counts syncs there)."""
 
     def __init__(self):
         self.spans: List[list] = []
         self.host_syncs: Optional[int] = None
         self.sites: Dict[tuple, int] = {}  # (stage, (file, line)): syncs
+        self.grouping_calls: List[dict] = []
         self.tk_calls: List[dict] = []
         self.recorders: List[BARecorder] = []
 
@@ -123,6 +124,7 @@ class StageTrace:
                  if counted else None)
         return {"spans": spans, "host_syncs": self.host_syncs, "syncs_by_site": sites,
                 "ba_calls": [c for r in self.recorders for c in r.records()],
+                "grouping_calls": [dict(c) for c in self.grouping_calls],
                 "tk_calls": [dict(c) for c in self.tk_calls]}
 
 
@@ -312,6 +314,20 @@ def stage(name: str, group: Optional[int] = None):
         rec[T1] = t1
         if syncs0 is not None:
             rec[SYNCS] = tr.host_syncs - syncs0
+
+
+def record_grouping(tracks: int, views: int, patterns: Optional[int], groups: int) -> None:
+    """Record a group schedule (pipeline.grouping.build_groups) in the
+    active collector's trace (free without one): the incidence's tracks and
+    views, the distinct support patterns the tracks collapsed to (None for
+    group sizes other than 3, which do not collapse them) and the groups
+    made."""
+    c = _STAGES.get()
+    if c is None or c.trace is None:
+        return
+    c.trace.grouping_calls.append({"tracks": int(tracks), "views": int(views),
+                                   "patterns": None if patterns is None else int(patterns),
+                                   "groups": int(groups)})
 
 
 def record_tk(views, tracks: int, ransac, fallback: bool) -> None:

@@ -153,6 +153,19 @@ def summarize(pairs: list, noise_of) -> dict:
                      "tracks_min": min(c["tracks"] for c in tks),
                      "hypotheses": sorted({c["hypotheses"] for c in tks}),
                      "fallbacks": sum(c["fallback"] for c in tks), "calls": len(tks)}
+    schedules = [c for t in traced for c in t["grouping_calls"]]
+    if schedules:
+        counted = [c for c in schedules if c["patterns"] is not None]
+        out["grouping"] = {
+            "calls_a_job": len(schedules) / n,
+            "seconds_a_job": sum(s["t1"] - s["t0"] for t in traced for s in t["spans"]
+                                 if s["name"] == "pose/grouping") / n,
+            "tracks_mean": _mean(c["tracks"] for c in schedules),
+            "views": sorted({c["views"] for c in schedules}),
+            "patterns_mean": _mean(c["patterns"] for c in counted),
+            "patterns_over_tracks_mean": _mean(c["patterns"] / c["tracks"] for c in counted
+                                               if c["tracks"]),
+            "groups_mean": _mean(c["groups"] for c in schedules)}
     # by the input's noise level: TK's fallbacks, the local BAs' sizes and
     # how the job's last (global) BA ended
     out["by_noise_px"] = {}

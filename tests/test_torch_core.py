@@ -7,6 +7,7 @@ order of f32 operations)."""
 import os
 import subprocess
 import sys
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +34,7 @@ from orthosfm_torch.data import tracks as tracks_mod
 from orthosfm_torch.io import cameras_io, tracks_io
 from orthosfm_torch.ops import outliers, triangulate
 from orthosfm_torch.pipeline import grouping
+from orthosfm_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
@@ -237,6 +239,95 @@ def test_grouping_matches():
     ids = np.arange(10, 19)
     assert grouping.build_groups(ids, inc, 3) == jgrouping.build_groups(ids, inc, 3)
     assert grouping.build_groups(ids, inc, 4) == jgrouping.build_groups(ids, inc, 4)
+
+
+def _windowed(rng, T, V):
+    """Each track seen in a window of 5-11 views around a random centre on
+    the ring."""
+    centre, half = rng.integers(0, V, T), rng.integers(2, 6, T)
+    return np.abs((np.arange(V)[None, :] - centre[:, None] + V // 2) % V - V // 2) \
+        <= half[:, None]
+
+
+def _repeated(rng, T, V, k):
+    """k distinct random patterns, each repeated an unequal number of times."""
+    base = rng.uniform(size=(k, V)) < 0.5
+    return base[rng.choice(k, size=T, p=np.arange(1, k + 1) / (k * (k + 1) / 2))]
+
+
+def _three_views(rng, T, V):
+    """Each track seen in 3 random views: small, equal counts everywhere."""
+    inc = np.zeros((T, V), bool)
+    for row in inc:
+        row[rng.choice(V, 3, replace=False)] = True
+    return inc
+
+
+# name: (view ids from a seed, incidence from a seed)
+GROUPING_CASES = {
+    "ties": (lambda r: np.arange(10), lambda r: _three_views(r, 25, 10)),
+    "patterns": (lambda r: np.arange(20), lambda r: r.uniform(size=(3000, 20)) < 0.5),
+    "repeated": (lambda r: np.arange(12), lambda r: _repeated(r, 2000, 12, 7)),
+    "v13": (lambda r: np.arange(13), lambda r: r.uniform(size=(500, 13)) < 0.4),
+    "v72": (lambda r: np.arange(72), lambda r: _windowed(r, 3000, 72)),
+    "non_contiguous_ids": (lambda r: r.permutation(200)[:15],
+                           lambda r: r.uniform(size=(400, 15)) < 0.3),
+    "many64": (lambda r: np.arange(64), lambda r: np.ones((50000, 64), bool)),
+    "ring192": (lambda r: np.arange(192), lambda r: np.ones((4096, 192), bool)),
+    "sweep16": (lambda r: np.arange(16), lambda r: np.ones((7800, 16), bool)),
+    "v201": (lambda r: np.arange(201), lambda r: _windowed(r, 2000, 201)),
+    "v230": (lambda r: np.arange(230), lambda r: r.uniform(size=(600, 230)) < 0.2),
+    "all_ties": (lambda r: r.permutation(40)[:11], lambda r: np.zeros((30, 11), bool)),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPING_CASES))
+def test_grouping_schedule_matches_reference(case):
+    """The port's group-size-3 schedule is the JAX package's, group for
+    group in the same order, ties included (its dense tensor up to 200
+    views, its lazy schedule above), with the same disconnected-view
+    warnings."""
+    rng = np.random.default_rng(sorted(GROUPING_CASES).index(case))
+    ids_of, inc_of = GROUPING_CASES[case]
+    ids, inc = [int(v) for v in ids_of(rng)], inc_of(rng)
+    got, want = [], []
+    for fn, warned in ((grouping.build_groups, got), (jgrouping.build_groups, want)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            warned.append(fn(ids, inc, 3))
+        warned.append(len(caught))
+    assert got == want
+    assert {v for g in got[0] for v in g} == set(ids)
+
+
+def test_support_patterns_are_the_unique_rows():
+    """The packed-key dedupe gives np.unique(axis=0)'s patterns and counts,
+    in another order, at widths on and off a byte and past 64 views."""
+    rng = np.random.default_rng(5)
+    for inc in (_repeated(rng, 900, 13, 6), rng.uniform(size=(700, 72)) < 0.5,
+                _three_views(rng, 300, 8), np.ones((50, 3), bool)):
+        patterns, counts = grouping._support_patterns(inc)
+        rows, want = np.unique(inc, axis=0, return_counts=True)
+        assert patterns.dtype == bool and patterns.shape == (len(rows), inc.shape[1])
+        assert sorted(zip(map(tuple, patterns), counts)) == sorted(zip(map(tuple, rows), want))
+
+
+def test_record_grouping_only_under_a_collector():
+    """build_groups records tracks, views, distinct patterns and groups in
+    a traced collector (patterns None for other group sizes) and nothing
+    outside one."""
+    inc = np.repeat(np.eye(5, dtype=bool) | np.eye(5, k=1, dtype=bool), [4, 1, 2, 3, 5], axis=0)
+    inc[:, :2] = True
+    grouping.build_groups(range(5), inc, 3)  # no collector: nowhere to record
+    with profiling.collect_stages({}, "cpu"):
+        pass
+    assert profiling.traces()[-1]["grouping_calls"] == []
+    with profiling.collect_stages({}, "cpu"):
+        groups = grouping.build_groups(range(5), inc, 3)
+        grouping.build_groups(range(5), inc, 4)
+    assert profiling.traces()[-1]["grouping_calls"] == [
+        {"tracks": 15, "views": 5, "patterns": 5, "groups": len(groups)},
+        {"tracks": 15, "views": 5, "patterns": None, "groups": 2}]
 
 
 def test_tracks_and_cameras_io_match(tmp_path):

@@ -210,11 +210,10 @@ def test_ba_run_kernel_path_converges_like_plain(dev, kind):
 
 @pytest.mark.parametrize("num_views", [200, 256, 520])
 def test_ba_run_at_many_views(dev, num_views):
-    """Global BA over more views than grouping.DENSE_S3_MAX_VIEWS: every
-    kernel launches (K1's per-view sums, K2's camera tables and K3's matrix
-    must fit their memory at this size; 520 views is past K2's ceiling
-    before its tables shrank) and the kernel path converges like the plain
-    one."""
+    """Global BA over more than 200 views: every kernel launches (K1's
+    per-view sums, K2's camera tables and K3's matrix must fit their memory
+    at this size; 520 views is past K2's ceiling before its tables shrank)
+    and the kernel path converges like the plain one."""
     cams, points, obs, mask = make_problem("quat", dev, num_views, 1000)
     cfg = BundleAdjustConfig(max_iterations=15, function_tolerance=0.0, min_lambda=1e-12)
     bk.reset_launch_counts()

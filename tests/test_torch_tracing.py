@@ -129,6 +129,10 @@ def test_pose_estimation_spans_nest_by_group():
     # the CPU counts no syncs
     assert got["host_syncs"] is None and got["syncs_by_site"] is None
     assert all(s["syncs"] is None and s["self_syncs"] is None for s in spans)
+    # one group schedule, its tracks collapsed to their support patterns
+    (sched,) = got["grouping_calls"]
+    assert (sched["views"], sched["groups"]) == (6, n_groups)
+    assert 1 <= sched["patterns"] <= sched["tracks"]
     # a TK call a group, from inside its pose/tk span
     assert [c["group"] for c in got["tk_calls"]] == list(range(n_groups))
     for c in got["tk_calls"]:
@@ -299,8 +303,8 @@ def test_a_collector_keeps_its_read_out_as_it_closes_cleanly():
 def test_the_pose_trace_script_reads_every_record():
     """scripts/torch_pose_trace.py's summary reads the spans' own and
     child syncs, the call sites, the groups' time with their TK and local BA
-    sizes, the BA calls by the span that made them with how they ended, and
-    the final BA by noise level."""
+    sizes, the BA calls by the span that made them with how they ended, the
+    final BA by noise level, and the group schedules' sizes."""
     spec = importlib.util.spec_from_file_location(
         "torch_pose_trace", ROOT / "scripts" / "torch_pose_trace.py")
     mod = importlib.util.module_from_spec(spec)
@@ -321,7 +325,8 @@ def test_the_pose_trace_script_reads_every_record():
                  span("pose/merge", 0.1, 0.2 + slow, None, 0, 9, 4),
                  span("pose/triangulate", 0.15, 0.2, 1, 0, 5, 5),
                  span("pose/local_ba", 0.3, 0.4, None, 0, 1, 1),
-                 span("pose/global_ba", 0.4, 0.5, None, None, 0, 0)]
+                 span("pose/global_ba", 0.4, 0.5, None, None, 0, 0),
+                 span("pose/grouping", 0.5, 0.55 + slow, None, None, 0, 0)]
         sites = [{"stage": "pose/triangulate", "site": "a.py:1", "syncs": 5},
                  {"stage": "pose/merge", "site": "b.py:2", "syncs": 4},
                  {"stage": "pose/tk", "site": "a.py:1", "syncs": 3},
@@ -333,7 +338,9 @@ def test_the_pose_trace_script_reads_every_record():
                 "fallback": i == 1}]
         return ({"input": i, "error": None, "wall_s": 0.5 + slow},
                 {"host_syncs": 15, "spans": spans, "syncs_by_site": sites,
-                 "ba_calls": calls, "tk_calls": tks})
+                 "ba_calls": calls, "tk_calls": tks,
+                 "grouping_calls": [{"tracks": 4000, "views": 16, "patterns": 1 + 3 * i,
+                                     "groups": 14}]})
 
     got = mod.summarize([job(0, 0.0), job(1, 1.0)], {0: 1.0, 1: 40.0}.get)
     assert got["jobs"] == 2 and got["each_job_host_syncs_is_its_sites_sum"]
@@ -352,6 +359,10 @@ def test_the_pose_trace_script_reads_every_record():
     assert glob["at_max_iterations"] == 2 and glob["done_share"] == 0.5
     assert glob["lam_median"] == 1e2 and glob["cost_over_initial_mean"] == 0.5
     assert got["tk"]["fallbacks"] == 1
+    assert got["grouping"] == {"calls_a_job": 1, "seconds_a_job": pytest.approx(0.55),
+                               "tracks_mean": 4000, "views": [16], "patterns_mean": 2.5,
+                               "patterns_over_tracks_mean": pytest.approx(2.5 / 4000),
+                               "groups_mean": 14}
     noisy = got["by_noise_px"]["40.0"]
     assert noisy["tk_fallback_share"] == 1 and noisy["final_ba"]["done_share"] == 0
 
