@@ -101,8 +101,13 @@ def _vec(x, n, default, device):
                               (n,)).clone()
 
 
-def _ids(view_ids, device):
-    return torch.as_tensor(np.asarray(view_ids, np.int32), device=device)
+def as_index(idx, device, dtype=torch.long):
+    """``idx`` as a ``dtype`` tensor on ``device``. A tensor already there is
+    used as it is, never read back to the host; only a host sequence is
+    copied to the device."""
+    if isinstance(idx, torch.Tensor):
+        return idx.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(idx), dtype=dtype, device=device)
 
 
 def make_euler(view_ids, width, height, angles=None, offset=None, scale=None,
@@ -110,7 +115,7 @@ def make_euler(view_ids, width, height, angles=None, offset=None, scale=None,
                device=None) -> CameraSet:
     if device is None:
         device = angles.device if isinstance(angles, torch.Tensor) else "cpu"
-    v = _ids(view_ids, device)
+    v = as_index(view_ids, device, torch.int32)
     n = v.shape[0]
     ang = (torch.zeros((n, 3), device=device) if angles is None
            else torch.as_tensor(angles, dtype=torch.float32, device=device))
@@ -133,7 +138,7 @@ def make_quaternion(view_ids, width, height, q=None, offset=None, scale=None,
                     device=None) -> CameraSet:
     if device is None:
         device = q.device if isinstance(q, torch.Tensor) else "cpu"
-    v = _ids(view_ids, device)
+    v = as_index(view_ids, device, torch.int32)
     n = v.shape[0]
     if q is None:
         q = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=device).repeat(n, 1)
@@ -406,7 +411,7 @@ def concatenate(a: CameraSet, b: CameraSet) -> CameraSet:
 
 
 def take(cams: CameraSet, indices) -> CameraSet:
-    idx = torch.as_tensor(np.asarray(indices), dtype=torch.long, device=cams.device)
+    idx = as_index(indices, cams.device)
     return CameraSet(
         rot=cams.rot[idx], offset=cams.offset[idx], scale=cams.scale[idx],
         width=cams.width[idx], height=cams.height[idx],

@@ -19,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from orthosfm_torch.core import cameras as cam_mod
+
 
 @dataclasses.dataclass
 class TrackSet:
@@ -188,22 +190,10 @@ def to_feature_lists(tracks: TrackSet):
 # Mask-algebra equivalents of the reference's track filtering
 
 
-def host_view_ids(view_ids) -> np.ndarray:
-    """view_ids as a host numpy array."""
-    if isinstance(view_ids, torch.Tensor):
-        return view_ids.cpu().numpy()
-    return np.asarray(view_ids)
-
-
-def columns_for_view_ids(tracks: TrackSet, ids):
-    """Map a list of view ids to column indices (host-side helper)."""
-    lookup = {int(v): i for i, v in enumerate(host_view_ids(tracks.view_ids))}
-    return np.asarray([lookup[int(i)] for i in ids], np.int64)
-
-
 def col_index(tracks: TrackSet, cols):
-    """Column indices as a long tensor on the tracks' device."""
-    return torch.as_tensor(np.asarray(cols), dtype=torch.long, device=tracks.device)
+    """Column indices as a long tensor on the tracks' device: a tensor
+    already there unchanged, a host sequence copied (cameras.as_index)."""
+    return cam_mod.as_index(cols, tracks.device)
 
 
 def full_size_mask(tracks: TrackSet, cols):

@@ -11,15 +11,18 @@ one slab of S3 per newly used view, so a selection is an argmax over the
 remaining views — the reference's O(C(used,2)·remaining·tracks) re-scan per
 group (group.cpp:42-83, omp-parallel at group.cpp:118) disappears entirely.
 Control flow stays on the host — group construction is inherently sequential
-and tiny next to the device work it schedules.
+and tiny next to the device work it schedules. schedule() then turns the
+groups into the run's one index space, the track columns, on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from orthosfm_torch.utils import profiling
 
@@ -193,3 +196,61 @@ def _build_groups_generic(view_ids, incidence, group_size: int) -> List[List[int
             to_assign.discard(i)
             used.add(i)
     return groups
+
+
+@dataclasses.dataclass
+class GroupSchedule:
+    """A run's groups in track columns, the pose driver's one index space
+    (the global cameras' rows are the columns too). Host fields steer the
+    loop, its records and prints; the device fields, views of one table
+    copied once a run, are the only indices the loop uses. Lists hold one
+    entry a group; ``present`` is as it is once that group is merged."""
+
+    groups: List[List[int]]  # view ids
+    cols: List[List[int]]  # track columns
+    anchors: List[Tuple[int, int]]  # columns of the group's first two views
+    new: List[List[int]]  # positions in the group of the views it places
+    present: np.ndarray  # (G, V) bool
+    insertion_order: List[int]  # view ids in the order they are placed
+    cols_t: torch.Tensor  # (G, S) long
+    sizes_t: torch.Tensor  # (2, V) float32 every column's width and height
+    wh_t: torch.Tensor  # (G, 2, S) float32 the groups' widths and heights
+    view_ids_t: torch.Tensor  # (G, S) int32
+    new_t: List[torch.Tensor]  # (2, k): positions and columns of the views it places
+    overlap_t: List[torch.Tensor]  # (2, S - k): those of the views placed before it
+    present_cols_t: List[torch.Tensor]  # present columns, ascending
+    present_t: torch.Tensor  # (G, V) bool
+
+
+def schedule(groups, view_ids, widths, heights, device) -> GroupSchedule:
+    """The GroupSchedule of build_groups' ``groups`` (each of one size).
+    view_ids: (V,) host array in track-column order; widths, heights: each
+    column's image size, (V,) host arrays or one size for all.
+    Present after group g is the union of groups 0..g."""
+    col = {int(v): c for c, v in enumerate(view_ids)}
+    cols = [[col[int(v)] for v in ids] for ids in groups]
+    G, S, V = len(groups), len(cols[0]), len(view_ids)
+    present = np.cumsum(np.eye(V, dtype=bool)[cols].any(axis=1), axis=0) > 0
+    new = [[j for j in range(S) if g == 0 or not present[g - 1, c[j]]]
+           for g, c in enumerate(cols)]
+    parts = [np.ravel(cols)]
+    for g, c in enumerate(cols):
+        old = [j for j in range(S) if j not in new[g]]
+        parts += [np.ravel([new[g], [c[j] for j in new[g]]]),
+                  np.ravel([old, [c[j] for j in old]]), np.flatnonzero(present[g])]
+    # float64 holds every index and every float32 size exactly: one table,
+    # one copy to the device
+    sizes = np.stack([np.broadcast_to(np.asarray(x, np.float32), (V,)) for x in (widths, heights)])
+    host = [np.concatenate(parts), np.ravel(groups), sizes.ravel(), present.ravel()]
+    table = torch.split(torch.as_tensor(np.concatenate(host).astype(np.float64), device=device),
+                        [len(h) for h in host])
+    index = torch.split(table[0].long(), [len(p) for p in parts])
+    cols_t, sizes_t = index[0].view(G, S), table[2].float().view(2, V)
+    new_t, overlap_t = ([t.view(2, -1) for t in index[1 + k::3]] for k in range(2))
+    return GroupSchedule(
+        groups=groups, cols=cols,
+        anchors=[(c[0], c[1]) for c in cols], new=new, present=present,
+        insertion_order=[int(groups[g][j]) for g in range(G) for j in new[g]],
+        cols_t=cols_t, sizes_t=sizes_t, wh_t=sizes_t[:, cols_t].transpose(0, 1).contiguous(),
+        view_ids_t=table[1].int().view(G, S), new_t=new_t, overlap_t=overlap_t,
+        present_cols_t=list(index[3::3]), present_t=table[3].bool().view(G, V))

@@ -33,7 +33,7 @@ def filter_tracks_with_masks(tracks: tracks_mod.TrackSet,
     mask = tracks.obs_mask.cpu().numpy()
     alive = tracks.alive.cpu().numpy()
     keep = alive.copy()
-    for c, vid in enumerate(tracks_mod.host_view_ids(tracks.view_ids)):
+    for c, vid in enumerate(tracks.view_ids.tolist()):
         view = by_id.get(int(vid))
         if view is None or view.mask is None:
             continue
@@ -48,7 +48,7 @@ def propagate_colors(tracks: tracks_mod.TrackSet, views: List[View]) -> tracks_m
     (reference: common.cpp:289-315)."""
     by_id = {v.view_id: v for v in views}
     colors = tracks.colors.clone()
-    for c, vid in enumerate(tracks_mod.host_view_ids(tracks.view_ids)):
+    for c, vid in enumerate(tracks.view_ids.tolist()):
         view = by_id.get(int(vid))
         if view is None or view.pixels is None:
             continue

@@ -300,6 +300,65 @@ def test_grouping_schedule_matches_reference(case):
     assert {v for g in got[0] for v in g} == set(ids)
 
 
+def _replay_merges(groups, view_ids):
+    """The pose driver's merge bookkeeping, replayed group by group with a
+    view id -> column map: for each group its (overlapping positions, their
+    columns, new positions, their columns, present mask, present columns),
+    and the insertion order."""
+    col_of = {int(v): c for c, v in enumerate(view_ids)}
+    present = np.zeros(len(view_ids), bool)
+    order, out = [], []
+    for ids in groups:
+        old = [j for j, vid in enumerate(ids) if present[col_of[vid]]]
+        new = [j for j, vid in enumerate(ids) if not present[col_of[vid]]]
+        for j in new:
+            present[col_of[ids[j]]] = True
+            order.append(ids[j])
+        present_cols = [col_of[int(v)] for v in np.asarray(view_ids)[present]]
+        out.append((old, [col_of[ids[j]] for j in old], new, [col_of[ids[j]] for j in new],
+                    present.copy(), present_cols))
+    return out, order
+
+
+@pytest.mark.parametrize("group_size", [2, 3, 4])
+def test_group_schedule_matches_a_replay_of_the_merges(group_size):
+    """grouping.schedule gives each group's columns, sizes, anchor pair, new
+    and overlapping cameras and the present columns after it, as a replay of
+    the driver's merges gives them, in views whose ids are not their
+    columns; its device fields are views of one table."""
+    rng = np.random.default_rng(group_size)
+    view_ids = [int(v) for v in rng.permutation(40)[:9]]
+    inc = rng.uniform(size=(300, 9)) < 0.5
+    widths = rng.uniform(500, 3000, 9).astype(np.float32)
+    heights = rng.uniform(500, 3000, 9).astype(np.float32)
+    groups = grouping.build_groups(view_ids, inc, group_size)
+    sched = grouping.schedule(groups, view_ids, widths, heights, "cpu")
+    col_of = {v: c for c, v in enumerate(view_ids)}
+    want, order = _replay_merges(groups, view_ids)
+    cols = [[col_of[v] for v in ids] for ids in groups]
+    assert sched.groups == groups and sched.cols == cols and sched.insertion_order == order
+    assert sched.anchors == [(c[0], c[1]) for c in cols]
+    np.testing.assert_array_equal(n(sched.cols_t), cols)
+    np.testing.assert_array_equal(n(sched.view_ids_t), groups)
+    np.testing.assert_array_equal(n(sched.sizes_t), [widths, heights])
+    np.testing.assert_array_equal(n(sched.wh_t), np.stack([widths[cols], heights[cols]], 1))
+    assert sched.cols_t.dtype == torch.long and sched.wh_t.dtype == torch.float32
+    assert n(grouping.schedule(groups, view_ids, 2048.0, 1536.0, "cpu").sizes_t).tolist() == [
+        [2048.0] * 9, [1536.0] * 9]
+    assert sched.view_ids_t.dtype == torch.int32
+    for g, (old, old_cols, new, new_cols, present, present_cols) in enumerate(want):
+        assert sched.new[g] == new
+        assert n(sched.overlap_t[g]).tolist() == [old, old_cols]
+        assert n(sched.new_t[g]).tolist() == [new, new_cols]
+        assert n(sched.present_cols_t[g]).tolist() == present_cols
+        np.testing.assert_array_equal(sched.present[g], present)
+        np.testing.assert_array_equal(n(sched.present_t[g]), present)
+    assert sched.present[-1].all()
+    base = sched.cols_t.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base
+               for t in (*sched.new_t, *sched.overlap_t, *sched.present_cols_t))
+
+
 def test_support_patterns_are_the_unique_rows():
     """The packed-key dedupe gives np.unique(axis=0)'s patterns and counts,
     in another order, at widths on and off a byte and past 64 views."""

@@ -9,6 +9,8 @@ are compared after the reference testbench's global-mirror normalization
 (testbench.metrics.pose_errors), since an orthographic reconstruction is
 defined up to that mirror."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,15 +52,21 @@ def _sphere_scene(solver, num_views=6, n_points=300):
     return ds.tracks.replace(obs=jnp.transpose(jcam.project(gt, pts), (1, 0, 2))), gt
 
 
-@pytest.mark.parametrize("solver", [0, 1, 2, 3])
-def test_pose_estimation_matches_jax(solver):
+# (solver, group size); the size-3 cases keep the ids they had before the
+# group size was a parameter
+POSE_CASES = {str(s): (s, 3) for s in range(4)}
+POSE_CASES.update({f"{s}-size{k}": (s, k) for s in (0, 3) for k in (2, 4)})
+
+
+@pytest.mark.parametrize("solver,group_size", list(POSE_CASES.values()), ids=list(POSE_CASES))
+def test_pose_estimation_matches_jax(solver, group_size):
     tracks, gt = _sphere_scene(solver)
     wh = np.full(6, 2048.0)
-    ref = jinc.run_pose_estimation(tracks, wh, wh, JConfig(solver=JSolver(solver)),
-                                   verbose=False)
-    got = incremental.run_pose_estimation(tracks_mod.from_numpy(tracks), wh, wh,
-                                          ReconstructionConfig(solver=SolverType(solver)),
-                                          verbose=False)
+    ref = jinc.run_pose_estimation(
+        tracks, wh, wh, JConfig(solver=JSolver(solver), group_size=group_size), verbose=False)
+    got = incremental.run_pose_estimation(
+        tracks_mod.from_numpy(tracks), wh, wh,
+        ReconstructionConfig(solver=SolverType(solver), group_size=group_size), verbose=False)
     np.testing.assert_array_equal(got.present, ref.present)
     assert got.insertion_order == ref.insertion_order
     assert got.cameras.rot.dtype == torch.float32
@@ -69,6 +77,39 @@ def test_pose_estimation_matches_jax(solver):
     ang, _ = metrics.pose_errors(got.cameras, cam_mod.from_numpy(ref.cameras))
     assert float(np.max(ang)) < PORT_VS_JAX_DEG
     assert bool(torch.all(got.tracks.has_point[got.tracks.alive]))
+
+
+def test_the_group_loop_indexes_only_with_device_tensors(monkeypatch):
+    """Once the schedule is made, every column index the pose driver hands
+    to tracks.col_index and cameras.take is a tensor, never a host sequence
+    to copy to the device."""
+    seen = []
+
+    def spy(fn):
+        def wrapped(owner, idx):
+            seen.append((fn.__name__, type(idx)))
+            return fn(owner, idx)
+        return wrapped
+
+    real_stage = incremental.stage
+
+    @contextlib.contextmanager
+    def stage(name, **kwargs):
+        with real_stage(name, **kwargs):
+            yield
+        if name == "pose/grouping":
+            seen.clear()  # only what follows pose/grouping counts
+
+    monkeypatch.setattr(tracks_mod, "col_index", spy(tracks_mod.col_index))
+    monkeypatch.setattr(cam_mod, "take", spy(cam_mod.take))
+    monkeypatch.setattr(incremental, "stage", stage)
+    tracks, _ = _sphere_scene(0)
+    wh = np.full(6, 2048.0)
+    got = incremental.run_pose_estimation(tracks_mod.from_numpy(tracks), wh, wh,
+                                          ReconstructionConfig(), verbose=False)
+    assert got.present.all()
+    assert {name for name, _ in seen} == {"col_index", "take"}
+    assert all(issubclass(kind, torch.Tensor) for _, kind in seen), seen
 
 
 def _cams_from_file(path):

@@ -384,7 +384,7 @@ def test_sync_call_site_is_the_innermost_frame_of_the_program(monkeypatch):
     ds = synthetic.generate_dataset(synthetic.blob_cloud(60), num_views=4, seed=0, device="cpu")
     with profiling.collect_stages({}, "cuda"):
         with profiling.stage("pose/grouping"):
-            incremental.group_full_size_counts(ds.tracks, [[0, 1, 2]], {0: 0, 1: 1, 2: 2})
+            incremental.group_full_size_counts(ds.tracks, torch.tensor([[0, 1, 2]]))
     sites = profiling.traces()[-1]["syncs_by_site"]
     assert [(s["stage"], s["site"], s["syncs"]) for s in sites] == [
         ("pose/grouping", f"orthosfm_torch/pipeline/incremental.py:{line}", 1)]
@@ -733,6 +733,27 @@ def test_pose_estimation_syncs_add_up_by_span_and_site_on_the_card(dev):
     assert all(s["site"].startswith("orthosfm_torch/") for s in got["syncs_by_site"])
     assert {s["group"] for s in spans if s["name"] == "pose/tk"} == set(range(n_groups))
     assert all(c["route"] == "fused" for c in got["ba_calls"])
+
+
+@pytest.mark.cuda
+def test_the_group_loop_copies_no_index_to_the_card(dev):
+    """In a traced pose estimation of the 16-view blob on the card no sync
+    lies in data/tracks.py, nor in cameras.py's index rule (as_index, which
+    makes the cameras' view ids) or the helpers that take indices or sizes
+    (take, _vec): the group loop indexes only with its schedule's device
+    tensors."""
+    from orthosfm_torch.core import cameras as cam_mod
+
+    _toy_run(dev, tracks=2400, views=16)  # builds the kernels
+    _, got, _ = _toy_run(dev, tracks=2400, views=16)
+    banned = set()
+    for fn in (cam_mod.as_index, cam_mod.take, cam_mod._vec):
+        src, first = inspect.getsourcelines(fn)
+        banned |= {f"orthosfm_torch/core/cameras.py:{first + i}" for i in range(len(src))}
+    sites = [s["site"] for s in got["syncs_by_site"]]
+    assert got["host_syncs"] > 0
+    assert not [s for s in sites if s.startswith("orthosfm_torch/data/tracks.py:")], sites
+    assert not [s for s in sites if s in banned], sites
 
 
 @pytest.mark.cuda
