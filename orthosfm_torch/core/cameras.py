@@ -23,6 +23,7 @@ Conventions (matching the reference exactly):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -37,11 +38,27 @@ CAMERA_TANGENT_DIM = 6
 
 # The coordinate-system transform C (reference: OrthographicCamera.cpp:128-134)
 _COORD_TRANSFORM = ((1.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0))
+# A camera's origin in its own frame, (0, 0, -d) (reference: OrthographicCamera.cpp:58-61)
+_DOWN = (0.0, 0.0, -CAMERA_DISTANCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``values`` as a tensor, made once a (device, dtype): a copy from the
+    host on every call would synchronize the host with a card, and cannot
+    be captured in a CUDA graph. Callers only read it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def coord_transform(like: torch.Tensor) -> torch.Tensor:
-    """C as a (3, 3) tensor on ``like``'s device and dtype."""
-    return like.new_tensor(_COORD_TRANSFORM)
+    """C as a (3, 3) tensor on ``like``'s device and dtype (made once)."""
+    return _constant(_COORD_TRANSFORM, like.device, like.dtype)
+
+
+def down(like: torch.Tensor) -> torch.Tensor:
+    """(0, 0, -CAMERA_DISTANCE) as a (3,) tensor on ``like``'s device and
+    dtype (made once): R @ down(R) is the origin of the camera of basis R."""
+    return _constant(_DOWN, like.device, like.dtype)
 
 
 @dataclasses.dataclass
@@ -158,21 +175,37 @@ def make_quaternion(view_ids, width, height, q=None, offset=None, scale=None,
 
 def euler_free_angles(solver: SolverType, device="cpu"):
     """(3,) bool: which of (phi, theta, roll) are free for an Euler solver
-    (reference: OrthographicCamera.cpp:195-207)."""
+    (reference: OrthographicCamera.cpp:195-207); made once a device."""
     dof = solver.degrees_of_freedom
-    return torch.tensor([dof >= 1, dof >= 2, dof >= 3], device=device)
+    return _constant((dof >= 1, dof >= 2, dof >= 3), torch.device(device), torch.bool)
+
+
+def basis_rotations(basis, solver: SolverType):
+    """The rotation parameters (V, 4), as CameraSet.rot holds them for
+    ``solver``, of local→world basis matrices (V, 3, 3) (columns = x/y/z
+    world axes): a unit quaternion, or the free Euler angles and a zero
+    (reference: tomasi_kanade.cpp:169-191)."""
+    basis = basis.to(torch.float32)
+    if solver.is_quaternion:
+        return quat.from_matrix(basis)
+    angles = basis_to_phi_theta_roll(basis)
+    angles = torch.where(euler_free_angles(solver, basis.device)[None, :], angles,
+                         torch.zeros_like(angles))
+    return torch.cat([angles, torch.zeros_like(angles[:, :1])], dim=-1)
+
+
+def with_rotations(rot, view_ids, width, height, solver: SolverType) -> CameraSet:
+    """Cameras of ``solver`` with the rotation parameters ``rot`` (V, 4)
+    (basis_rotations' form) and default offsets and scales."""
+    if solver.is_quaternion:
+        return make_quaternion(view_ids, width, height, q=rot)
+    return make_euler(view_ids, width, height, angles=rot[:, :3], solver=solver)
 
 
 def from_basis(basis, view_ids, width, height, solver: SolverType) -> CameraSet:
     """Build cameras from local→world basis matrices (columns = x/y/z world
     axes), as the TK init produces (reference: tomasi_kanade.cpp:169-191)."""
-    basis = basis.to(torch.float32)
-    if solver.is_quaternion:
-        return make_quaternion(view_ids, width, height, q=quat.from_matrix(basis))
-    angles = basis_to_phi_theta_roll(basis)
-    angles = torch.where(euler_free_angles(solver, basis.device)[None, :], angles,
-                         torch.zeros_like(angles))
-    return make_euler(view_ids, width, height, angles=angles, solver=solver)
+    return with_rotations(basis_rotations(basis, solver), view_ids, width, height, solver)
 
 
 # ---------------------------------------------------------------------------
@@ -233,12 +266,18 @@ def basis_to_phi_theta_roll(basis, apply_coordinate_transform: bool = True):
     return torch.stack([phi, theta, roll], dim=-1)
 
 
+def rotation_matrices(kind: str, rot):
+    """Local→world rotation matrices (V, 3, 3) of the rotation parameters
+    ``rot`` (V, 4) of cameras of ``kind``: Euler R = Cᵀ·S, quaternion R(q)."""
+    if kind == "quat":
+        return quat.to_matrix(quat.normalize(rot))
+    S = spherical_matrix(rot[..., :3])
+    return coord_transform(S).T @ S
+
+
 def rotation_l2w(cams: CameraSet):
     """Local→world rotation matrices (V, 3, 3): Euler R = Cᵀ·S, quaternion R(q)."""
-    if cams.kind == "quat":
-        return quat.to_matrix(quat.normalize(cams.rot))
-    S = spherical_matrix(cams.rot[..., :3])
-    return coord_transform(S).T @ S
+    return rotation_matrices(cams.kind, cams.rot)
 
 
 def basis(cams: CameraSet):

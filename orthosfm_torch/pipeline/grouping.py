@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 import torch
@@ -208,7 +208,6 @@ class GroupSchedule:
 
     groups: List[List[int]]  # view ids
     cols: List[List[int]]  # track columns
-    anchors: List[Tuple[int, int]]  # columns of the group's first two views
     new: List[List[int]]  # positions in the group of the views it places
     present: np.ndarray  # (G, V) bool
     insertion_order: List[int]  # view ids in the order they are placed
@@ -249,7 +248,7 @@ def schedule(groups, view_ids, widths, heights, device) -> GroupSchedule:
     new_t, overlap_t = ([t.view(2, -1) for t in index[1 + k::3]] for k in range(2))
     return GroupSchedule(
         groups=groups, cols=cols,
-        anchors=[(c[0], c[1]) for c in cols], new=new, present=present,
+        new=new, present=present,
         insertion_order=[int(groups[g][j]) for g in range(G) for j in new[g]],
         cols_t=cols_t, sizes_t=sizes_t, wh_t=sizes_t[:, cols_t].transpose(0, 1).contiguous(),
         view_ids_t=table[1].int().view(G, S), new_t=new_t, overlap_t=overlap_t,

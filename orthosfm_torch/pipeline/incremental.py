@@ -19,6 +19,7 @@ parallel.tk_sharded; the rest runs replicated on every rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -30,7 +31,7 @@ from orthosfm_torch.core import quaternions as quat
 from orthosfm_torch.core import umeyama
 from orthosfm_torch.data import tracks as tracks_mod
 from orthosfm_torch.ops import outliers, triangulate
-from orthosfm_torch.pipeline import grouping
+from orthosfm_torch.pipeline import grouping, tk_graphs
 from orthosfm_torch.solvers import ba
 from orthosfm_torch.solvers import tomasi_kanade as tk
 from orthosfm_torch.utils.profiling import record_tk, stage
@@ -54,6 +55,7 @@ class MeshRunners:
         self.mesh = mesh
         self.n_devices = mesh.size if mesh is not None else 1
         self.active = self.n_devices > 1
+        self.tk_run = self._sharded_tk if self.active else tk.robust_factorization
         self._ba_cache = {}
         self._tk_cache = {}
 
@@ -71,9 +73,7 @@ class MeshRunners:
         res = self._ba_cache[key](cams, *ba_sharded.shard_track_arrays(self.mesh, padded))
         return res._replace(points=res.points[:T])
 
-    def tk_run(self, obs, valid, widths, heights, cfg, generator):
-        if not self.active:
-            return tk.robust_factorization(obs, valid, widths, heights, cfg, generator=generator)
+    def _sharded_tk(self, obs, valid, widths, heights, cfg, generator):
         from orthosfm_torch.parallel import tk_sharded
 
         if cfg not in self._tk_cache:
@@ -89,14 +89,15 @@ class PoseEstimationResult:
     tracks: tracks_mod.TrackSet  # filtered + triangulated global tracks
 
 
-def _global_direction(global_cams: cam_mod.CameraSet, i0, i1):
-    """normalize(origin₁) − normalize(origin₀) after rotating the scene so
-    camera i0 has identity basis (reference: tomasi_kanade.cpp:411-419)."""
-    R = cam_mod.basis(global_cams)
-    o = R @ R.new_tensor([0.0, 0.0, -cam_mod.CAMERA_DISTANCE])
-    o_rot = torch.einsum("ij,vi->vj", R[i0], o)  # R0ᵀ · o
+def _global_direction(R):
+    """normalize(origin₁) − normalize(origin₀) of an anchor pair of global
+    cameras, R (2, 3, 3) their local→world rotations, after rotating the
+    scene so the first has identity basis (reference:
+    tomasi_kanade.cpp:411-419)."""
+    o = R @ cam_mod.down(R)
+    o_rot = torch.einsum("ij,vi->vj", R[0], o)  # R0ᵀ · o
     on = o_rot / torch.clamp(torch.linalg.vector_norm(o_rot, dim=-1, keepdim=True), min=1e-12)
-    return on[i1] - on[i0]
+    return on[1] - on[0]
 
 
 def align_to_global(local: cam_mod.CameraSet, global_cams: cam_mod.CameraSet,
@@ -138,6 +139,35 @@ def group_full_size_counts(tracks: tracks_mod.TrackSet, cols):
     return torch.sum(m, dim=0).cpu().numpy()
 
 
+def initial_rotations(obs, valid, wh, anchor_rot=None, *, ransac, solver, generator, tk_run):
+    """The device work of a group's TK initialization, from the RANSAC draws
+    to its cameras' rotation parameters (S, 4) (cameras.basis_rotations):
+    ``tk_run`` (robust_factorization, or its sharded form) on the group's
+    observations obs (T, S, 2), full-size mask valid (T,) and sizes wh
+    (2, S), then, past a run's first group, the mirror solution that agrees
+    with ``anchor_rot`` (2, 4), the rotation parameters of the group's anchor
+    pair among the global cameras. It reads nothing back to the host, so
+    tk_graphs captures it as it stands."""
+    res = tk_run(obs, valid, wh[0], wh[1], ransac, generator)
+    model = res.model1
+    if anchor_rot is not None:
+        kind = "quat" if solver.is_quaternion else "euler"
+        gdir = _global_direction(cam_mod.rotation_matrices(kind, anchor_rot))
+        model = tk.resolve_ambiguity(res.model1, res.model2, gdir)
+    return cam_mod.basis_rotations(model, solver)
+
+
+def _group_inputs(src: tracks_mod.TrackSet, cols, wh, global_rot, first: bool):
+    """initial_rotations' inputs for the group of columns ``cols`` (S,) from
+    the tracks ``src``: the observations of its columns, its full-size mask,
+    its sizes ``wh`` and, past the first group, the rotation parameters in
+    ``global_rot`` of its anchor pair (its first two columns)."""
+    inputs = (torch.index_select(src.obs, 1, cols), tracks_mod.full_size_mask(src, cols), wh)
+    if first:
+        return inputs
+    return inputs + (torch.index_select(global_rot, 0, cols[:2]),)
+
+
 def initial_alignment(tracks: tracks_mod.TrackSet, sched: grouping.GroupSchedule, g: int,
                       generator: torch.Generator, global_cams: cam_mod.CameraSet,
                       config: ReconstructionConfig, fallback_tracks: tracks_mod.TrackSet,
@@ -145,10 +175,10 @@ def initial_alignment(tracks: tracks_mod.TrackSet, sched: grouping.GroupSchedule
                       verbose: bool = False) -> cam_mod.CameraSet:
     """calculateInitialAlignment analog (reference:
     OrthoQuaternionRecoAlgorithm.cpp:23-50 / Orthographic...cpp:36-63) for
-    group ``g`` of ``sched``, which gives its columns, sizes, ids and anchor
-    pair (read in ``global_cams`` from the second group on). ``n_valid``,
-    ``n_valid_fb``: its full-size tracks in ``tracks`` and (None until read)
-    in ``fallback_tracks``.
+    group ``g`` of ``sched``, which gives its columns (the first two its
+    anchor pair, read in ``global_cams`` from the second group on), sizes
+    and ids. ``n_valid``, ``n_valid_fb``: its full-size tracks in ``tracks``
+    and (None until read) in ``fallback_tracks``.
 
     ``fallback_tracks`` (normally the pristine pre-filter track set) is used
     when the filtered set has too few full-size tracks for the group: under
@@ -156,37 +186,36 @@ def initial_alignment(tracks: tracks_mod.TrackSet, sched: grouping.GroupSchedule
     of the placed cameras, where the reference hard-throws
     (tomasi_kanade.cpp:202-205). Falling back is safe for initialization only,
     because the RANSAC around Tomasi-Kanade provides its own robustness. With
-    config.strict_reference_behavior the fallback is disabled."""
+    config.strict_reference_behavior the fallback is disabled.
+
+    The device work (initial_rotations) runs through tk_graphs' graph of its
+    shape where tk_graphs.GRAPHS.graphed says so (a card, no mesh, the
+    device's TK generator), else eagerly; record_tk notes the route."""
     ids, cols = sched.groups[g], sched.cols_t[g]
-    obs = tracks.obs[:, cols, :]
-    valid = tracks_mod.full_size_mask(tracks, cols)
     min_tracks = max(10, config.ransac.sample_size)
     if config.strict_reference_behavior:
         fallback_tracks = None
-    fallback = False
-    if n_valid < min_tracks and fallback_tracks is not None:
-        valid_fb = tracks_mod.full_size_mask(fallback_tracks, cols)
-        if n_valid_fb > n_valid:
-            if verbose:
-                print(f"  group {ids}: only {n_valid} filtered full-size "
-                      "tracks; initializing from the unfiltered observations")
-            obs = fallback_tracks.obs[:, cols, :]
-            valid = valid_fb
-            n_valid = n_valid_fb
-            fallback = True
+    fallback = n_valid < min_tracks and fallback_tracks is not None and n_valid_fb > n_valid
+    if fallback:
+        if verbose:
+            print(f"  group {ids}: only {n_valid} filtered full-size "
+                  "tracks; initializing from the unfiltered observations")
+        n_valid = n_valid_fb
+    src = fallback_tracks if fallback else tracks
     if n_valid < min_tracks:
         raise TooFewTracksError(
             f"group {ids}: only {n_valid} full-size tracks (<{min_tracks})")
 
-    record_tk(ids, n_valid, config.ransac, fallback)
-    w, h = sched.wh_t[g][0], sched.wh_t[g][1]
-    res = runners.tk_run(obs.contiguous(), valid, w, h, config.ransac, generator)
-    if g == 0:
-        model = res.model1
+    fn = functools.partial(initial_rotations, ransac=config.ransac, solver=config.solver,
+                           generator=generator, tk_run=runners.tk_run)
+    inputs = _group_inputs(src, cols, sched.wh_t[g], global_cams.rot, g == 0)
+    if tk_graphs.GRAPHS.graphed(src.device, runners.active, generator):
+        rot, route = tk_graphs.GRAPHS.run(fn, inputs)
     else:
-        gdir = _global_direction(global_cams, *sched.anchors[g])
-        model = tk.resolve_ambiguity(res.model1, res.model2, gdir)
-    return cam_mod.from_basis(model, sched.view_ids_t[g], w, h, config.solver)
+        rot, route = fn(*inputs), "eager"
+    record_tk(ids, n_valid, config.ransac, fallback, route)
+    w, h = sched.wh_t[g]
+    return cam_mod.with_rotations(rot, sched.view_ids_t[g], w, h, config.solver)
 
 
 def _local_ba(local_cams, tracks, cols, config, runners):
@@ -231,8 +260,10 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
                         mesh=None) -> PoseEstimationResult:
     """Full incremental alignment (reference: reconstruct.cpp:174-295), on the
     device of ``tracks``. RANSAC draws come from one torch.Generator on that
-    device, seeded with config.seed. The group loop indexes with the run's
-    grouping.GroupSchedule alone.
+    device, seeded with config.seed: on a card the device's TK generator,
+    which tk_graphs' graphs draw from (so two runs on one card at once would
+    share it). The group loop indexes with the run's grouping.GroupSchedule
+    alone.
 
     ``mesh``: optional parallel.mesh.Mesh, the tracks on its rank's device,
     every rank calling with the same inputs. With more than one rank every
@@ -246,7 +277,8 @@ def run_pose_estimation(tracks: tracks_mod.TrackSet, widths, heights,
     solver = config.solver
     dev = tracks.device
     view_ids = tracks.view_ids.cpu().numpy()
-    generator = torch.Generator(device=dev)
+    generator = (tk_graphs.GRAPHS.generator(dev) if dev.type == "cuda"
+                 else torch.Generator(device=dev))
     generator.manual_seed(config.seed)
 
     # Pristine snapshot for initialization fallback under heavy noise (the

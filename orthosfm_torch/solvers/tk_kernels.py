@@ -37,8 +37,12 @@ A wrapper given CPU tensors calls the plain version; given CUDA tensors it
 launches its kernel or raises (no fallback), and reads nothing back from
 the card. The kernels are built for groups of KERNEL_GROUP_SIZES views (the
 per-problem state sits in registers) and samples of up to MAX_SAMPLE
-tracks; other sizes raise on the card. Each wrapper counts its launches
-(``tk_factorize.launches``, ``tk_score.launches``; ``launch_counts()``).
+tracks; other sizes raise on the card. Each wrapper counts the launches
+it makes (``tk_factorize.launches``, ``tk_score.launches``;
+``launch_counts()``), and none while the stream captures a CUDA graph: a
+graph's replays run its kernels with no wrapper called, so count those
+from the profiler's kernel records (``KERNEL_NAMES``,
+utils.profiling.kernel_runs).
 The library is built at first use by orthosfm_torch.kernel_build (nvcc,
 into orthosfm_torch/_build/) and bound with ctypes; ``host_library()`` is
 the same source built for the host (tests only: the kernels' arithmetic on
@@ -184,7 +188,7 @@ def _model_geometry(model):
     reference's angle-projection path (convertFromAxis → spherical matrix)."""
     S = cam_mod.spherical_matrix(cam_mod.basis_to_phi_theta_roll(model))
     R = cam_mod.coord_transform(S).T @ S
-    o = R @ R.new_tensor([0.0, 0.0, -cam_mod.CAMERA_DISTANCE])
+    o = R @ cam_mod.down(R)
     return R, o, R[..., :, 2]
 
 
@@ -310,7 +314,8 @@ def tk_factorize(obs, mask, q0, cfg: RansacConfig = RansacConfig(), rstar=None):
         cfg.min_angle_separation_rad, cfg.min_basis_distance, sol1.data_ptr(), sol2.data_ptr(),
         usable.data_ptr(), rstar_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "tk_factorize")
-    tk_factorize.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        tk_factorize.launches += 1
     return sol1, sol2, usable, rstar_out
 
 
@@ -344,7 +349,8 @@ def tk_score(sol1, usable, obs, valid, width, height, samp_idx,
         10.0 * thr, cfg.min_consensus_size, score.data_ptr(), n_consensus.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "tk_score")
-    tk_score.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        tk_score.launches += 1
     return score, n_consensus
 
 
@@ -389,6 +395,10 @@ def reset_launch_counts():
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset_launch_counts()."""
     return {"tk_factorize": tk_factorize.launches, "tk_score": tk_score.launches}
+
+
+#: each kernel's name in a profiler's kernel records, by launch_counts()' keys
+KERNEL_NAMES = {"tk_factorize": "tk_factorize_kernel", "tk_score": "tk_score_kernel"}
 
 
 reset_launch_counts()

@@ -17,13 +17,15 @@ reconstructions (the first cold, the rest warm), each to a
 torch.cuda.synchronize(), with the launches of the BA kernels (lm_fused,
 one a BA of up to ba_kernels.FUSED_MAX_VIEWS (375) views, so every BA at 64
 and at 192 views, by the route of its camera solve; K1, K3 by route and K2
-an iteration of the larger ones), of the Tomasi-Kanade kernels (K5
-tk_factorize twice and K6 tk_score once a group), of the outlier filter's
+an iteration of the larger ones), of the outlier filter's
 neighbour-search kernel (outlier_nn, once a filter call) and the bundle adjustments
 it ran, by route (utils.profiling.BARecorder); then it
 measures Tomasi-Kanade's peak device memory on the first group, and runs
 once more under utils.profiling.collect_stages for the share of the wall time in each
-stage of the pose estimation (each stage ends in a device barrier there).
+stage of the pose estimation (each stage ends in a device barrier there),
+with the Tomasi-Kanade kernels that ran (K5 tk_factorize twice and K6
+tk_score once a group), read from the profiler's kernel records
+(utils.profiling.kernel_runs), since the card replays them from CUDA graphs.
 
     python -m orthosfm_torch.testbench.scale_demo [--views 64] [--tracks 50000]
         [--seed 0] [--noise-px 1.0] [--runs 2] [--json OUT] [--platform cpu|gpu|cuda]
@@ -37,6 +39,7 @@ beside it, and the counts and times above.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -113,7 +116,6 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
     for _ in range(runs):
         recorder = profiling.BARecorder()
         bk.reset_launch_counts()
-        tkk.reset_launch_counts()
         outlier_start = outlier_kernels.outlier_nn.launches
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
@@ -125,18 +127,19 @@ def run_scale_demo(views: int = 64, tracks: int = 50000, seed: int = 0, noise_px
         walls.append(time.perf_counter() - t0)
         launches, routes = bk.launch_counts(), bk.route_launches()
         fused_routes = bk.fused_route_launches()
-        tk_launches = tkk.launch_counts()
         outlier_nn_launches = outlier_kernels.outlier_nn.launches - outlier_start
         peaks.append(torch.cuda.max_memory_allocated(device) if cuda else None)
 
     tk_mem = tk_peak_bytes(noisy, cfg, device)
     stages: dict = {}
-    _sync(device)
-    t0 = time.perf_counter()
-    with profiling.collect_stages(stages, device, trace=False):
-        incremental.run_pose_estimation(noisy, WIDTH, WIDTH, cfg, verbose=False)
-    _sync(device)
-    staged_s = time.perf_counter() - t0
+    with (profiling.kernel_runs(tkk.KERNEL_NAMES) if cuda
+          else contextlib.nullcontext(dict.fromkeys(tkk.KERNEL_NAMES, 0))) as tk_launches:
+        _sync(device)
+        t0 = time.perf_counter()
+        with profiling.collect_stages(stages, device, trace=False):
+            incremental.run_pose_estimation(noisy, WIDTH, WIDTH, cfg, verbose=False)
+        _sync(device)
+        staged_s = time.perf_counter() - t0
 
     ang, pos = metrics.pose_errors(res.cameras, ds.gt_cameras)
     ba_calls = recorder.summary()

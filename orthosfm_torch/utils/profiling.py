@@ -99,9 +99,10 @@ class StageTrace:
     start and end on time.monotonic, the index of its parent span, the
     group index of run_pose_estimation's loop, the host syncs inside it with
     and without its child spans), the host syncs by stage and call site, a
-    record a group schedule and a Tomasi-Kanade call, and the BARecorders
-    opened inside the collector. host_syncs is None where the device is not
-    a CUDA device (nothing counts syncs there)."""
+    record a group schedule and a Tomasi-Kanade call (with its route; read()
+    counts the CUDA graphs captured), and the BARecorders opened inside the
+    collector. host_syncs is None where the device is not a CUDA device
+    (nothing counts syncs there)."""
 
     def __init__(self):
         self.spans: List[list] = []
@@ -125,7 +126,8 @@ class StageTrace:
         return {"spans": spans, "host_syncs": self.host_syncs, "syncs_by_site": sites,
                 "ba_calls": [c for r in self.recorders for c in r.records()],
                 "grouping_calls": [dict(c) for c in self.grouping_calls],
-                "tk_calls": [dict(c) for c in self.tk_calls]}
+                "tk_calls": [dict(c) for c in self.tk_calls],
+                "tk_captures": sum(c["route"] == "capture" for c in self.tk_calls)}
 
 
 class _Collector:
@@ -330,17 +332,19 @@ def record_grouping(tracks: int, views: int, patterns: Optional[int], groups: in
                                    "groups": int(groups)})
 
 
-def record_tk(views, tracks: int, ransac, fallback: bool) -> None:
+def record_tk(views, tracks: int, ransac, fallback: bool, route: str) -> None:
     """Record a Tomasi-Kanade initialization in the active collector's trace
     (free without one): its group index, its views, the full-size tracks
-    it used, the hypotheses drawn (`ransac`'s max_iterations) and whether it
-    took the unfiltered fallback tracks."""
+    it used, the hypotheses drawn (`ransac`'s max_iterations), whether it
+    took the unfiltered fallback tracks, and its route (pipeline.tk_graphs:
+    "replay", a CUDA graph's; "capture", the eager run and capture of a
+    shape's first call; "eager", the eager code alone)."""
     c = _STAGES.get()
     if c is None or c.trace is None:
         return
     c.trace.tk_calls.append({"group": c.span()[1], "views": [int(v) for v in views],
                              "tracks": int(tracks), "hypotheses": int(ransac.max_iterations),
-                             "fallback": bool(fallback)})
+                             "fallback": bool(fallback), "route": route})
 
 
 @contextlib.contextmanager
@@ -359,6 +363,25 @@ def device_trace(logdir: str, device="cuda"):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+@contextlib.contextmanager
+def kernel_runs(names: Dict[str, str]):
+    """Over the enclosed block, the kernels that ran on the card, by
+    torch.profiler's (CUPTI's) kernel records: yields a dict of ``names``'
+    keys, filled in as the block ends with the records whose kernel name
+    holds that key's value. A kernel a CUDA graph replays counts as one
+    launched from the host does; a capture runs none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = dict.fromkeys(names, 0)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        yield out
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            for key, name in names.items():
+                out[key] += name in e.name()
 
 
 # ---------------------------------------------------------------------------

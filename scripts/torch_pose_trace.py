@@ -13,7 +13,8 @@ read-out of each traced job, traces()), per-job means of:
   cost, and the route of lm_fused's camera solve;
 - by the input's noise level, the TK fallbacks, the local BAs' sizes and
   the final BA's iterations, damping and convergence;
-- the TK calls' sizes.
+- the TK calls' sizes, the share of each route (a CUDA graph's replay, a
+  shape's capture, the eager code) and the graphs captured a job.
 
     python3 scripts/torch_pose_trace.py --workload from_tracks.sweep16 --seed 7 --seconds 51
 
@@ -152,7 +153,10 @@ def summarize(pairs: list, noise_of) -> dict:
                      "tracks_mean": statistics.mean(c["tracks"] for c in tks),
                      "tracks_min": min(c["tracks"] for c in tks),
                      "hypotheses": sorted({c["hypotheses"] for c in tks}),
-                     "fallbacks": sum(c["fallback"] for c in tks), "calls": len(tks)}
+                     "fallbacks": sum(c["fallback"] for c in tks), "calls": len(tks),
+                     "route_shares": {r: sum(c["route"] == r for c in tks) / len(tks)
+                                      for r in sorted({c["route"] for c in tks})},
+                     "captures_a_job": sum(t["tk_captures"] for t in traced) / n}
     schedules = [c for t in traced for c in t["grouping_calls"]]
     if schedules:
         counted = [c for c in schedules if c["patterns"] is not None]

@@ -322,8 +322,8 @@ def _replay_merges(groups, view_ids):
 
 @pytest.mark.parametrize("group_size", [2, 3, 4])
 def test_group_schedule_matches_a_replay_of_the_merges(group_size):
-    """grouping.schedule gives each group's columns, sizes, anchor pair, new
-    and overlapping cameras and the present columns after it, as a replay of
+    """grouping.schedule gives each group's columns, sizes, new and
+    overlapping cameras and the present columns after it, as a replay of
     the driver's merges gives them, in views whose ids are not their
     columns; its device fields are views of one table."""
     rng = np.random.default_rng(group_size)
@@ -337,7 +337,6 @@ def test_group_schedule_matches_a_replay_of_the_merges(group_size):
     want, order = _replay_merges(groups, view_ids)
     cols = [[col_of[v] for v in ids] for ids in groups]
     assert sched.groups == groups and sched.cols == cols and sched.insertion_order == order
-    assert sched.anchors == [(c[0], c[1]) for c in cols]
     np.testing.assert_array_equal(n(sched.cols_t), cols)
     np.testing.assert_array_equal(n(sched.view_ids_t), groups)
     np.testing.assert_array_equal(n(sched.sizes_t), [widths, heights])
@@ -424,3 +423,25 @@ def test_free_mask_matches_jax_for_every_solver(solver):
     te = cam_mod.from_numpy(je)
     np.testing.assert_array_equal(n(cam_mod.free_mask(te)), n(jcam.free_mask(je)))
     assert int(n(cam_mod.free_mask(te))[1].sum()) == {0: 5, 1: 1, 2: 2, 3: 5}[solver]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_camera_constants_are_made_once_with_the_values_of_each_calls_copy(dtype):
+    """coord_transform, down and euler_free_angles are tensors made once a
+    device and dtype (a copy from the host each call would synchronize with
+    a card and cannot be captured in a CUDA graph), equal to what each call
+    used to copy: on the given tensor's device and in its dtype."""
+    like = torch.zeros(2, dtype=dtype)
+    C = cam_mod.coord_transform(like)
+    assert torch.equal(C, like.new_tensor([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]]))
+    assert (C.dtype, C.device) == (dtype, like.device)
+    assert cam_mod.coord_transform(torch.ones(5, 3, 3, dtype=dtype)) is C
+    d = cam_mod.down(like)
+    assert torch.equal(d, like.new_tensor([0.0, 0.0, -cam_mod.CAMERA_DISTANCE]))
+    assert (d.dtype, d.device) == (dtype, like.device) and cam_mod.down(like) is d
+    assert cam_mod.coord_transform(torch.zeros(1, dtype=torch.float16)).dtype == torch.float16
+    for solver in SolverType:
+        dof = solver.degrees_of_freedom
+        free = cam_mod.euler_free_angles(solver, like.device)
+        assert torch.equal(free, torch.tensor([dof >= 1, dof >= 2, dof >= 3]))
+        assert free.dtype == torch.bool and cam_mod.euler_free_angles(solver) is free

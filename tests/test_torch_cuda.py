@@ -28,7 +28,9 @@ filter call.
 
 The last tests run the BA bench's routes (orthosfm_torch/bench.py) by their
 launches, entry() at its real size, and ba.run's host side: no call that
-waits on the card, and no kernel with use_pallas=False.
+waits on the card, and no kernel with use_pallas=False; then TK's CUDA graphs
+(pipeline/tk_graphs.py) against the eager code, bit for bit, with the
+generator's state, and a second run of one shape that captures nothing.
 """
 
 import dataclasses
@@ -39,7 +41,7 @@ import pytest
 import torch
 
 from orthosfm_torch import kernel_build
-from orthosfm_torch.config import BundleAdjustConfig
+from orthosfm_torch.config import BundleAdjustConfig, SolverType
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.ops import matching as match_ops
 from orthosfm_torch.ops import matching_kernels as mk
@@ -1496,3 +1498,163 @@ def test_ring192_job_runs_every_ba_as_one_lm_fused_launch_and_passes_the_judge(d
     job = {"obs": inp.obs, "wh": inp.wh, "gt_R": inp.gt_R, "noise_px": inp.noise_px}
     nums = judge.judge(port.answer(res, with_obs=False), job, mix["accuracy_bars"], dev)
     assert set(limits) <= set(nums) and all(nums[k] <= v for k, v in limits.items()), nums
+
+
+TK_SOLVERS = {"quat": SolverType.ORTHO_QUATERNION, "euler": SolverType.ORTHO_EULER_ALL_DOF}
+
+
+def _tk_scene(dev, solver, views=16, n_tracks=3000):
+    """A blob seen by ``views`` views at 1 px: its tracks, the run's group
+    schedule, the cameras of ``solver`` placed at the ground truth (the
+    global cameras a run's later groups read their anchors in) and the
+    run's configuration."""
+    from orthosfm_torch.config import ReconstructionConfig
+    from orthosfm_torch.data import synthetic
+    from orthosfm_torch.data import tracks as tracks_mod
+    from orthosfm_torch.pipeline import grouping
+
+    ds = synthetic.generate_dataset(synthetic.blob_cloud(n_tracks, seed=0), num_views=views,
+                                    seed=0, device=dev)
+    tracks = synthetic.add_observation_noise(ds.tracks, 1.0, np.random.default_rng(0))
+    view_ids = tracks.view_ids.cpu().numpy()
+    groups = grouping.build_groups(view_ids, tracks_mod.incidence(tracks).cpu().numpy(), 3)
+    wh = np.full(views, 2048.0)
+    sched = grouping.schedule(groups, view_ids, wh, wh, dev)
+    cfg = ReconstructionConfig(solver=TK_SOLVERS[solver], seed=0)
+    cams = cam_mod.from_basis(cam_mod.basis(ds.gt_cameras), tracks.view_ids, *sched.sizes_t,
+                              cfg.solver)
+    return tracks, sched, cams, cfg
+
+
+CAMERA_FIELDS = ("rot", "offset", "scale", "width", "height", "view_ids", "fixed")
+
+
+@pytest.mark.parametrize("solver", list(TK_SOLVERS))
+@pytest.mark.parametrize("case", ["first", "later", "fallback"])
+def test_graphed_tk_is_the_eager_code_bit_for_bit(dev, monkeypatch, solver, case):
+    """Five consecutive TK initializations drawing from one generator:
+    through a CUDA graph (captured on the first call, replayed on the next
+    four) each group's cameras are the eager code's bit for bit, and the
+    generator ends where the eager code leaves it. For a run's first group
+    (no mirror to resolve), for later groups, and for later groups on the
+    unfiltered fallback tracks; quaternion and Euler cameras."""
+    from orthosfm_torch.pipeline import incremental, tk_graphs
+    from orthosfm_torch.utils import profiling
+
+    tracks, sched, cams, cfg = _tk_scene(dev, solver)
+    pristine, n_fb = tracks, None
+    counts = incremental.group_full_size_counts(tracks, sched.cols_t)
+    if case == "fallback":  # the filters left 5 tracks: fewer than a sample
+        n_fb = counts
+        alive = torch.zeros_like(tracks.alive)
+        alive[:5] = True
+        tracks = tracks.replace(alive=alive)
+        counts = incremental.group_full_size_counts(tracks, sched.cols_t)
+    groups = [0] * 5 if case == "first" else [1, 2, 3, 4, 5]
+    graphs = tk_graphs.TKGraphs()
+    monkeypatch.setattr(tk_graphs, "GRAPHS", graphs)
+    runners = incremental.MeshRunners()
+
+    def run(generator):
+        out = []
+        with profiling.collect_stages({}, dev):
+            for g in groups:
+                with profiling.stage("pose/tk", group=g):
+                    out.append(incremental.initial_alignment(
+                        tracks, sched, g, generator, cams, cfg, pristine, int(counts[g]),
+                        None if n_fb is None else int(n_fb[g]), runners))
+        return out, profiling.traces()[-1]["tk_calls"]
+
+    eager_gen = torch.Generator(dev).manual_seed(11)
+    eager, eager_calls = run(eager_gen)
+    tk_gen = graphs.generator(dev).manual_seed(11)
+    assert graphs.graphed(tracks.device, False, tk_gen)
+    assert not graphs.graphed(tracks.device, True, tk_gen)  # a mesh of more than one rank
+    graphed, graph_calls = run(tk_gen)
+    assert [c["route"] for c in eager_calls] == ["eager"] * 5
+    assert [c["route"] for c in graph_calls] == ["capture"] + ["replay"] * 4
+    assert {c["fallback"] for c in eager_calls + graph_calls} == {case == "fallback"}
+    assert graphs.captures == 1
+    for a, b in zip(eager, graphed):
+        for f in CAMERA_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    if case != "first":
+        assert not torch.equal(eager[0].rot, eager[1].rot)  # each group its own answer
+    assert torch.equal(eager_gen.get_state(), tk_gen.get_state())
+
+
+def _pose_run(tracks, views, cfg):
+    from orthosfm_torch.pipeline import incremental
+
+    wh = np.full(views, 2048.0)
+    return incremental.run_pose_estimation(tracks, wh, wh, cfg, verbose=False)
+
+
+def test_graphed_pose_estimation_is_the_eager_one_bit_for_bit(dev, monkeypatch):
+    """A 16-view run_pose_estimation through TK's CUDA graphs (captured in
+    the run, then replayed) and one with the eager code give the same
+    cameras, points and kept tracks, bit for bit."""
+    from orthosfm_torch.pipeline import tk_graphs
+
+    tracks, _, _, cfg = _tk_scene(dev, "quat")
+    monkeypatch.setattr(tk_graphs, "GRAPHS", tk_graphs.TKGraphs())
+    graphed = _pose_run(tracks, 16, cfg)
+    assert tk_graphs.GRAPHS.captures == 2  # the first group's graph and the later groups'
+    monkeypatch.setattr(tk_graphs.TKGraphs, "graphed", lambda self, *args: False)
+    eager = _pose_run(tracks, 16, cfg)
+    assert tk_graphs.GRAPHS.captures == 2
+    assert graphed.present.all() and np.array_equal(graphed.present, eager.present)
+    assert graphed.insertion_order == eager.insertion_order
+    for f in CAMERA_FIELDS:
+        assert torch.equal(getattr(graphed.cameras, f), getattr(eager.cameras, f)), f
+    for f in ("points", "alive", "obs_mask", "has_point"):
+        assert torch.equal(getattr(graphed.tracks, f), getattr(eager.tracks, f)), f
+
+
+@pytest.mark.parametrize("solver", list(TK_SOLVERS))
+def test_a_second_run_of_the_same_shapes_captures_nothing(dev, monkeypatch, solver):
+    """Two traced runs of one shape after an eager one: the first captures
+    a graph for its first group and one for the later groups, keeping no
+    more memory allocated than their inputs and outputs; the second replays
+    both with no host sync inside a pose/tk span. In both, the profiler's
+    kernel records show K5 twice and K6 once a group ran on the card, and
+    TK's wrappers count only what they launched themselves: the two eager
+    calls before the captures in the first run, nothing in the second."""
+    from orthosfm_torch.pipeline import tk_graphs
+    from orthosfm_torch.solvers import tk_kernels as tkk
+    from orthosfm_torch.utils import profiling
+
+    tracks, sched, _, cfg = _tk_scene(dev, solver)
+    n = len(sched.groups)
+    graphs = tk_graphs.TKGraphs()
+    monkeypatch.setattr(tk_graphs, "GRAPHS", graphs)
+    with monkeypatch.context() as eager:
+        eager.setattr(tk_graphs.TKGraphs, "graphed", lambda self, *args: False)
+        _pose_run(tracks, 16, cfg)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    tkk.reset_launch_counts()
+    with (profiling.kernel_runs(tkk.KERNEL_NAMES) as ran,
+          profiling.collect_stages({}, dev)):
+        _pose_run(tracks, 16, cfg)
+    first = profiling.traces()[-1]
+    # what the captures keep allocated is the graphs' inputs and outputs: their
+    # scratch, cuBLAS's workspace of the capture stream too, is the pool's
+    kept = sum(t.numel() * t.element_size() for g in graphs._graphs.values()
+               for t in (*g.inputs, g.output))
+    assert torch.cuda.memory_allocated(dev) - held <= kept + 64 * 1024
+    assert [c["route"] for c in first["tk_calls"]] == ["capture"] * 2 + ["replay"] * (n - 2)
+    assert first["tk_captures"] == 2
+    assert ran == {"tk_factorize": 2 * n, "tk_score": n}
+    assert tkk.launch_counts() == {"tk_factorize": 4, "tk_score": 2}
+    tkk.reset_launch_counts()
+    with (profiling.kernel_runs(tkk.KERNEL_NAMES) as ran,
+          profiling.collect_stages({}, dev)):
+        _pose_run(tracks, 16, cfg)
+    second = profiling.traces()[-1]
+    assert [c["route"] for c in second["tk_calls"]] == ["replay"] * n
+    assert second["tk_captures"] == 0 and tk_graphs.GRAPHS.captures == 2
+    tk_spans = [s for s in second["spans"] if s["name"] == "pose/tk"]
+    assert len(tk_spans) == n and all(s["syncs"] == 0 for s in tk_spans)
+    assert ran == {"tk_factorize": 2 * n, "tk_score": n}
+    assert tkk.launch_counts() == {"tk_factorize": 0, "tk_score": 0}

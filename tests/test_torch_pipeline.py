@@ -10,6 +10,7 @@ are compared after the reference testbench's global-mirror normalization
 defined up to that mirror."""
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,13 +29,15 @@ from orthosfm_tpu.pipeline import incremental as jinc
 from orthosfm_tpu.testbench import metrics as jmetrics
 
 from orthosfm_torch import app
-from orthosfm_torch.config import ReconstructionConfig, SolverType
+from orthosfm_torch.config import RansacConfig, ReconstructionConfig, SolverType
 from orthosfm_torch.core import cameras as cam_mod
 from orthosfm_torch.core import quaternions as quat
 from orthosfm_torch.data import tracks as tracks_mod
 from orthosfm_torch.io import cameras_io, timing
-from orthosfm_torch.pipeline import incremental
+from orthosfm_torch.pipeline import incremental, tk_graphs
+from orthosfm_torch.solvers import tomasi_kanade as tk
 from orthosfm_torch.testbench import metrics
+from orthosfm_torch.utils import profiling
 
 GT_LIMIT_DEG = 1e-2
 PORT_VS_JAX_DEG = 0.05
@@ -110,6 +113,90 @@ def test_the_group_loop_indexes_only_with_device_tensors(monkeypatch):
     assert got.present.all()
     assert {name for name, _ in seen} == {"col_index", "take"}
     assert all(issubclass(kind, torch.Tensor) for _, kind in seen), seen
+
+
+def test_tk_runs_the_eager_code_off_the_card_under_a_mesh_or_with_another_generator(
+        monkeypatch):
+    """The route of a TK initialization: a CUDA graph only on a card, with
+    no mesh of more than one rank and the draws from the card's TK
+    generator; on the CPU a run records "eager" for every group and
+    captures nothing, and robust_factorization with injected draws, called
+    directly, keeps no graph either."""
+    graphs = tk_graphs.TKGraphs()
+    monkeypatch.setattr(tk_graphs, "GRAPHS", graphs)
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    assert not graphs.graphed(cpu, False, graphs.generator(cpu))
+    assert not graphs.graphed(card, False, torch.Generator())  # not the card's TK generator
+    assert not graphs.graphed(card, True, torch.Generator())
+    tracks, _ = _sphere_scene(3)
+    wh = np.full(6, 2048.0)
+    with profiling.collect_stages({}, "cpu"):
+        got = incremental.run_pose_estimation(
+            tracks_mod.from_numpy(tracks), wh, wh,
+            ReconstructionConfig(solver=SolverType.ORTHO_EULER_ALL_DOF), verbose=False)
+    calls = profiling.traces()[-1]["tk_calls"]
+    assert got.present.all() and len(calls) == 4
+    assert [c["route"] for c in calls] == ["eager"] * 4
+    assert profiling.traces()[-1]["tk_captures"] == 0
+    obs = torch.as_tensor(np.array(tracks.obs)[:, :3])
+    valid = torch.ones(obs.shape[0], dtype=torch.bool)
+    samp, q0, q0_fb = tk.draw_hypotheses(valid, RansacConfig(), torch.Generator().manual_seed(0))
+    tk.robust_factorization(obs, valid, 2048.0, 2048.0, RansacConfig(), samp_idx=samp, q0=q0,
+                            q0_fallback=q0_fb)
+    assert graphs.captures == 0 and not graphs._graphs
+
+
+class _FakeGraph:
+    """Stands in for a captured CUDA graph: its replay runs the captured
+    function on the captured inputs into the captured output."""
+
+    def __init__(self, fn, inputs, output):
+        self.fn, self.inputs, self.output = fn, inputs, output
+        self.replays = 0
+
+    def replay(self):
+        self.output.copy_(self.fn(*self.inputs))
+        self.replays += 1
+
+
+def test_tk_graphs_replay_into_their_inputs_and_keep_the_most_recently_used(monkeypatch):
+    """TKGraphs with room for two keys: a call's key is its function, its
+    arguments and its inputs' device, shapes and dtypes; a key's first call
+    answers from fn run eagerly and captures on copies of the inputs; each
+    later call copies its inputs into the captured ones, replays and returns
+    a copy of the output; another argument, shape or dtype is another key,
+    and a third key drops the least recently used."""
+    monkeypatch.setattr(tk_graphs, "GRAPHS_KEPT", 2)
+    graphs = tk_graphs.TKGraphs()
+
+    def capture(fn, inputs):
+        graphs.captures += 1
+        output = fn(*inputs).clone()
+        return tk_graphs._Graph(_FakeGraph(fn, inputs, output), inputs, output)
+
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+
+    def affine(x, y, *, scale):
+        return x * scale + y
+
+    double, triple = functools.partial(affine, scale=2.0), functools.partial(affine, scale=3.0)
+    a, b = torch.arange(3.0), torch.ones(3)
+    got, route = graphs.run(double, (a, b))
+    assert torch.equal(got, double(a, b)) and route == "capture" and graphs.captures == 1
+    (first,) = graphs._graphs.values()
+    assert first.inputs[0] is not a and torch.equal(first.inputs[0], a)  # the graph's own
+    got, route = graphs.run(double, (a + 1, b))
+    assert torch.equal(got, double(a + 1, b)) and route == "replay" and got is not first.output
+    assert torch.equal(first.inputs[0], a + 1) and first.graph.replays == 1
+    assert torch.equal(a, torch.arange(3.0))  # the caller's inputs are untouched
+    assert graphs.run(triple, (a, b))[1] == "capture"  # another argument
+    assert graphs.run(double, (a, b))[1] == "replay"  # double is now the most recently used
+    assert graphs.run(double, (a.double(), b.double()))[1] == "capture"  # another dtype
+    assert len(graphs._graphs) == 2 and graphs.captures == 3
+    assert graphs.run(double, (a, b))[1] == "replay" and graphs.captures == 3
+    assert graphs.run(double, (torch.arange(4.0), torch.ones(4)))[1] == "capture"  # a shape
+    assert graphs.run(triple, (a, b))[1] == "capture" and graphs.captures == 5
 
 
 def _cams_from_file(path):

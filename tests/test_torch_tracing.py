@@ -92,7 +92,7 @@ def test_outside_a_collector_nothing_is_recorded_and_no_clock_is_read(monkeypatc
     monkeypatch.setattr(torch.cuda, "synchronize", _raise)
     with profiling.stage("pose/tk", group=0):
         with profiling.stage("pose/triangulate"):
-            profiling.record_tk([0, 1, 2], 100, RansacConfig(), False)
+            profiling.record_tk([0, 1, 2], 100, RansacConfig(), False, "eager")
         res = ba.run(*problem[:3], mask, True, BundleAdjustConfig(max_iterations=3))
     assert int(res.iterations) > 0
     assert profiling._STAGES.get() is None and profiling.ba_recorder() is None
@@ -138,6 +138,8 @@ def test_pose_estimation_spans_nest_by_group():
     for c in got["tk_calls"]:
         assert len(c["views"]) == 3 and c["hypotheses"] == RansacConfig().max_iterations == 241
         assert 25 <= c["tracks"] <= 120 and c["fallback"] is False
+        assert c["route"] == "eager"  # CPU tensors: no CUDA graph
+    assert got["tk_captures"] == 0
     # the BA calls: a local BA a group, a global one every third and a final one
     calls = got["ba_calls"]
     assert [spans[c["parent"]]["name"] for c in calls] == [
@@ -258,7 +260,7 @@ def test_a_collector_without_a_trace_keeps_the_stage_sums_alone(monkeypatch):
             with profiling.stage("pose/local_ba", group=4):
                 with profiling.stage("pose/triangulate"):
                     warnings.warn(msg, UserWarning)
-                profiling.record_tk([0, 1, 2], 100, RansacConfig(), False)
+                profiling.record_tk([0, 1, 2], 100, RansacConfig(), False, "eager")
                 ba.run(*problem, True, BundleAdjustConfig(max_iterations=3))
     assert fake.set_calls == [] and fake.mode == 0
     # the warning itself and the two stages' barriers, each shown as a sync
@@ -304,7 +306,8 @@ def test_the_pose_trace_script_reads_every_record():
     """scripts/torch_pose_trace.py's summary reads the spans' own and
     child syncs, the call sites, the groups' time with their TK and local BA
     sizes, the BA calls by the span that made them with how they ended, the
-    final BA by noise level, and the group schedules' sizes."""
+    final BA by noise level, the group schedules' sizes, and the TK calls'
+    routes and captures."""
     spec = importlib.util.spec_from_file_location(
         "torch_pose_trace", ROOT / "scripts" / "torch_pose_trace.py")
     mod = importlib.util.module_from_spec(spec)
@@ -335,10 +338,10 @@ def test_the_pose_trace_script_reads_every_record():
         calls = [call(3, 0, 300 + i, 8, True, 1e-3, 1.0),
                  call(4, None, 900, 10, i == 0, 1e2, 4.0, "grid" if i == 0 else None)]
         tks = [{"group": 0, "views": [0, 1, 2], "tracks": 50 + i, "hypotheses": 241,
-                "fallback": i == 1}]
+                "fallback": i == 1, "route": "capture" if i == 0 else "replay"}]
         return ({"input": i, "error": None, "wall_s": 0.5 + slow},
                 {"host_syncs": 15, "spans": spans, "syncs_by_site": sites,
-                 "ba_calls": calls, "tk_calls": tks,
+                 "ba_calls": calls, "tk_calls": tks, "tk_captures": 1 - i,
                  "grouping_calls": [{"tracks": 4000, "views": 16, "patterns": 1 + 3 * i,
                                      "groups": 14}]})
 
@@ -359,6 +362,8 @@ def test_the_pose_trace_script_reads_every_record():
     assert glob["at_max_iterations"] == 2 and glob["done_share"] == 0.5
     assert glob["lam_median"] == 1e2 and glob["cost_over_initial_mean"] == 0.5
     assert got["tk"]["fallbacks"] == 1
+    assert got["tk"]["route_shares"] == {"capture": 0.5, "replay": 0.5}
+    assert got["tk"]["captures_a_job"] == 0.5
     assert got["grouping"] == {"calls_a_job": 1, "seconds_a_job": pytest.approx(0.55),
                                "tracks_mean": 4000, "views": [16], "patterns_mean": 2.5,
                                "patterns_over_tracks_mean": pytest.approx(2.5 / 4000),
